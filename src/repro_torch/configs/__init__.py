@@ -1,0 +1,51 @@
+"""Architecture registry of the port: the dense decoder-only models."""
+
+import dataclasses
+
+from .base import BlockSpec, ModelConfig
+from .chatglm3_6b import CONFIG as chatglm3_6b
+from .gemma2_2b import CONFIG as gemma2_2b
+from .qwen2p5_32b import CONFIG as qwen2p5_32b
+from .smollm_360m import CONFIG as smollm_360m
+
+ARCHS = {
+    "chatglm3-6b": chatglm3_6b,
+    "gemma2-2b": gemma2_2b,
+    "smollm-360m": smollm_360m,
+    "qwen2.5-32b": qwen2p5_32b,
+}
+
+
+def get_arch(name: str) -> ModelConfig:
+    return ARCHS[name]
+
+
+def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
+    """Smoke-test variant: same family/pattern, tiny dimensions."""
+    layers_per_unit = max(1, sum(1 for b in cfg.unit
+                                 if b.kind in ("attn", "mamba")))
+    small = dict(
+        n_layers=2 * layers_per_unit if cfg.shared_attn_every == 0
+        else 2 * cfg.shared_attn_every,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=min(cfg.n_kv_heads, 2),
+        head_dim=16,
+        d_ff=128,
+        vocab_size=256,
+        n_experts=min(cfg.n_experts, 8) if cfg.n_experts else 0,
+        experts_per_token=min(cfg.experts_per_token, 2)
+        if cfg.n_experts else 0,
+        moe_d_ff=32 if cfg.moe_d_ff else None,
+        ssm_state=16 if cfg.ssm_state else 0,
+        ssm_head_dim=16,
+        ssm_chunk=16,
+        sliding_window=32 if cfg.sliding_window else None,
+        n_encoder_layers=2 if cfg.n_encoder_layers else 0,
+        unit=(),  # rebuilt for the reduced dims
+    )
+    small.update(overrides)
+    return dataclasses.replace(cfg, **small)
+
+
+__all__ = ["ARCHS", "BlockSpec", "ModelConfig", "get_arch", "reduced"]

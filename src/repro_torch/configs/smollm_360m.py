@@ -1,0 +1,16 @@
+"""SmolLM-360M: llama-architecture small model
+[hf:HuggingFaceTB/SmolLM-360M]."""
+
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-360m",
+    family="dense",
+    n_layers=32,
+    d_model=960,
+    n_heads=15,
+    n_kv_heads=5,
+    d_ff=2560,
+    vocab_size=49152,
+    tie_embeddings=True,
+)

@@ -1,0 +1,141 @@
+"""Port kernels against their plain versions on the CUDA card.
+
+Marked `gpu`: each test asks the `cuda` fixture for the card and skips,
+with the reason, where there is none.  Run on the H100 with
+`PYTHONPATH=src python -m pytest -m gpu tests/test_torch_cuda.py`.
+
+Tolerances: float32 2e-5 (the kernel sums in another order than the
+plain version, errors ~1e-6 on O(1) outputs); bfloat16 2e-2 plus a
+relative 2^-7 (both round an fp32 result to bf16 and may land one ulp
+apart, and one bf16 ulp is at most 2^-7 of the value: 2^-5 at [4, 8)).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import KERNELS, _build
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+pytestmark = pytest.mark.gpu
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card on this machine; these tests run on the "
+                    "H100 with -m gpu")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all(KERNELS)
+    return torch.device("cuda")
+
+
+def _t(a, dtype, dev):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,softcap", [
+    (1, 128, 128, 4, 2, 64, True, None, None),
+    (2, 256, 256, 8, 4, 64, True, None, 50.0),
+    (1, 200, 200, 4, 4, 48, True, 128, None),
+    (1, 128, 384, 4, 2, 64, True, None, None),
+    (1, 128, 128, 4, 1, 64, False, None, None),
+    (1, 130, 130, 2, 2, 32, True, None, None),
+    (1, 100, 100, 2, 2, 32, False, None, None),   # ragged, non-causal
+    (2, 70, 70, 4, 2, 16, True, 32, None),        # reduced-config head_dim
+    (1, 96, 96, 8, 4, 256, True, 64, 50.0),       # gemma2 head_dim
+    (4, 1024, 1024, 15, 5, 64, True, None, None),  # smollm prefill
+])
+def test_flash_kernel_matches_plain(cuda, dtype, B, S, T, H, K, D, causal,
+                                    window, softcap):
+    rng = np.random.default_rng(0)
+    q = _t(rng.standard_normal((B, S, H, D)), DTYPES[dtype], cuda)
+    k = _t(rng.standard_normal((B, T, K, D)), DTYPES[dtype], cuda)
+    v = _t(rng.standard_normal((B, T, K, D)) + 3.0, DTYPES[dtype], cuda)
+    qp = torch.arange(T - S, T, dtype=torch.int32, device=cuda)
+    kp = torch.arange(T, dtype=torch.int32, device=cuda)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, qp, kp, window=window, softcap=softcap,
+                          causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), qp, kp, scale=D ** -0.5,
+                        causal=causal, window=window,
+                        softcap=softcap).transpose(1, 2)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=TOL[dtype],
+                               rtol=RTOL[dtype])
+
+
+def test_flash_kernel_fully_masked_rows_average_v(cuda):
+    """Queries before every key see nothing: the row averages V, as the
+    plain version's softmax over NEG_INF scores does."""
+    rng = np.random.default_rng(1)
+    q = _t(rng.standard_normal((1, 70, 2, 32)), torch.float32, cuda)
+    k = _t(rng.standard_normal((1, 90, 2, 32)), torch.float32, cuda)
+    v = _t(rng.standard_normal((1, 90, 2, 32)), torch.float32, cuda)
+    qp = torch.arange(70, dtype=torch.int32, device=cuda)
+    kp = torch.arange(90, dtype=torch.int32, device=cuda) + 40
+    out = flash_attention(q, k, v, qp, kp)
+    ref = flash_attention(q.cpu(), k.cpu(), v.cpu(), qp.cpu(), kp.cpu())
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=2e-5)
+
+
+def test_flash_kernel_grad_flows(cuda):
+    rng = np.random.default_rng(2)
+    q = _t(rng.standard_normal((1, 128, 2, 64)), torch.float32, cuda)
+    kv = _t(rng.standard_normal((1, 128, 2, 64)), torch.float32, cuda)
+    pos = torch.arange(128, dtype=torch.int32, device=cuda)
+    q.requires_grad_()
+    flash_attention(q, kv, kv, pos, pos).sum().backward()
+    assert bool(torch.isfinite(q.grad).all())
+    assert float(q.grad.abs().max()) > 0
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 8, 2, 20), device=cuda)        # D not a multiple of 8
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, pos, pos)
+    h = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(h, h, h, pos, pos)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(2, 64, 128), (300, 96), (1, 1, 256),
+                                   (257, 384), (4096, 960), (4, 1, 960),
+                                   (33, 100)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
+    rng = np.random.default_rng(3)
+    x = _t(rng.standard_normal(shape), DTYPES[dtype], cuda)
+    s = _t(np.linspace(0.5, 1.5, shape[-1]), DTYPES[dtype], cuda)
+    before = rmsnorm.launches
+    out = rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    ref = rmsnorm_ref(x, s)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(),
+                               atol=TOL[dtype] if dtype == "bfloat16"
+                               else 1e-5)
+
+
+def test_rmsnorm_kernel_mixed_scale_dtype_and_strided_rows(cuda):
+    rng = np.random.default_rng(4)
+    x = _t(rng.standard_normal((64, 2, 960)), torch.bfloat16, cuda)[:, 0]
+    s = _t(np.linspace(0.5, 1.5, 960), torch.float32, cuda)
+    out = rmsnorm(x, s)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               rmsnorm_ref(x, s).float().cpu().numpy(),
+                               atol=2e-2)

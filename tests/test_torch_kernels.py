@@ -1,0 +1,123 @@
+"""Port kernels' plain versions against the JAX package's Pallas kernels
+(interpret mode on the CPU), and the port's wrappers on CPU tensors.
+
+Inputs are made with numpy from a seed and handed to both frameworks;
+bf16 inputs are rounded from the same float32 values on both sides.
+Tolerances are the reference's own (`tests/test_kernels.py`): float32
+2e-5 (sums in another order), bfloat16 2e-2 (both round an fp32 result to
+bf16; one ulp at |x| < 2 is <= 2^-7).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _both(a, dtype):
+    a = np.asarray(a, np.float32)
+    return jnp.asarray(a, JDT[dtype]), torch.from_numpy(a).to(TDT[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,T,H,K,D,causal,window,softcap", [
+    (1, 128, 128, 4, 2, 64, True, None, None),
+    (2, 256, 256, 8, 4, 64, True, None, 50.0),
+    (1, 200, 200, 4, 4, 48, True, 128, None),     # unpadded + window
+    (1, 128, 384, 4, 2, 64, True, None, None),    # longer KV (decode-ish)
+    (1, 128, 128, 4, 1, 64, False, None, None),   # MQA + non-causal
+    (1, 130, 130, 2, 2, 32, True, None, None),    # awkward sizes
+])
+def test_plain_flash_attention_matches_jax_kernel(dtype, B, S, T, H, K, D,
+                                                  causal, window, softcap):
+    rng = np.random.default_rng(0)
+    qj, qt = _both(rng.standard_normal((B, S, H, D)), dtype)
+    kj, kt = _both(rng.standard_normal((B, T, K, D)), dtype)
+    vj, vt = _both(rng.standard_normal((B, T, K, D)), dtype)
+    qp = np.arange(T - S, T, dtype=np.int32)
+    kp = np.arange(T, dtype=np.int32)
+    want = jax_flash(qj, kj, vj, jnp.asarray(qp), jnp.asarray(kp),
+                     window=window, softcap=softcap, causal=causal)
+    got = flash_attention(qt, kt, vt, torch.from_numpy(qp),
+                          torch.from_numpy(kp), window=window,
+                          softcap=softcap, causal=causal)
+    assert got.dtype == TDT[dtype] and got.shape == (B, S, H, D)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=TOL[dtype])
+
+
+def test_plain_flash_attention_non_causal_ragged_matches_ref():
+    """Non-causal with T=100: the Pallas wrapper pads T to 128 and then
+    attends the zero keys (a known reference fault), so this case is held
+    against the reference's own oracle semantics (`attention_ref`, every
+    real key visible), with V offset so a padded key would show."""
+    from repro.kernels.flash_attention.ref import attention_ref as jax_ref
+    rng = np.random.default_rng(1)
+    qj, qt = _both(rng.standard_normal((1, 100, 2, 32)), "float32")
+    kj, kt = _both(rng.standard_normal((1, 100, 2, 32)), "float32")
+    vj, vt = _both(rng.standard_normal((1, 100, 2, 32)) + 3.0, "float32")
+    pos = np.arange(100, dtype=np.int32)
+    want = jax_ref(qj.transpose(0, 2, 1, 3), kj.transpose(0, 2, 1, 3),
+                   vj.transpose(0, 2, 1, 3), jnp.asarray(pos),
+                   jnp.asarray(pos), scale=32 ** -0.5,
+                   causal=False).transpose(0, 2, 1, 3)
+    tp = torch.from_numpy(pos)
+    got = flash_attention(qt, kt, vt, tp, tp, causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 64, 128), (300, 96), (1, 1, 256),
+                                   (257, 384)])
+def test_plain_rmsnorm_matches_jax_kernel(dtype, shape):
+    rng = np.random.default_rng(2)
+    xj, xt = _both(rng.standard_normal(shape), dtype)
+    sj, st = _both(np.linspace(0.5, 1.5, shape[-1]), dtype)
+    want = jax_rmsnorm(xj, sj)
+    got = rmsnorm(xt, st)
+    assert got.dtype == TDT[dtype] and got.shape == shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2)
+
+
+def test_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 40, 4, 16),
+                                             dtype=np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 40, 2, 16),
+                                              dtype=np.float32))
+    pos = torch.arange(40, dtype=torch.int32)
+    x = torch.from_numpy(rng.standard_normal((7, 96), dtype=np.float32))
+    s = torch.linspace(0.5, 1.5, 96)
+    fa0, rn0 = flash_attention.launches, rmsnorm.launches
+    out = flash_attention(q, kv, kv, pos, pos, window=8, softcap=30.0)
+    ref = attention_ref(q.transpose(1, 2), kv.transpose(1, 2),
+                        kv.transpose(1, 2), pos, pos, scale=16 ** -0.5,
+                        window=8, softcap=30.0).transpose(1, 2)
+    assert torch.equal(out, ref)
+    assert torch.equal(rmsnorm(x, s), rmsnorm_ref(x, s))
+    assert (flash_attention.launches, rmsnorm.launches) == (fa0, rn0)
+
+
+def test_flash_attention_wrapper_grad_flows():
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.standard_normal((1, 128, 2, 64),
+                                             dtype=np.float32))
+    kv = torch.from_numpy(rng.standard_normal((1, 128, 2, 64),
+                                              dtype=np.float32))
+    pos = torch.arange(128, dtype=torch.int32)
+    q.requires_grad_()
+    flash_attention(q, kv, kv, pos, pos).sum().backward()
+    assert bool(torch.isfinite(q.grad).all())
+    assert float(q.grad.abs().max()) > 0

@@ -1,0 +1,155 @@
+"""The port's serving path against the JAX package, on reduced smollm-360m
+with bf16 params (the JAX decode path needs them).
+
+Greedy tokens must equal the reference's wherever the reference's top-2
+logit gap exceeds MARGIN = 0.3: logits that agree within 0.15 (the bf16
+decode tolerance of `tests/test_models.py`) cannot swap two candidates
+more than 2 x 0.15 apart.  At every step, fed the reference's tokens, the
+port's logits must agree within 0.15.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.runtime.serve import ServeConfig as JaxServeConfig
+from repro.runtime.serve import generate as jax_generate
+from repro.runtime.serve import make_serve_fns as jax_make_serve_fns
+from repro_torch.launch.serve import make_requests, serve_loop
+from repro_torch.runtime.serve import ServeConfig, generate, make_serve_fns
+
+from _torch_parity import both_params, configs, numpy_params
+
+TOL, MARGIN = 0.15, 0.3
+_STATE = {}
+
+
+def _setup():
+    if not _STATE:
+        jcfg, tcfg = configs("smollm-360m")
+        jparams, tparams = both_params(numpy_params(jcfg, seed=3),
+                                       "bfloat16")
+        _STATE.update(jcfg=jcfg, tcfg=tcfg, jparams=jparams,
+                      tparams=tparams)
+    return _STATE
+
+
+def _margin(logits):
+    top2 = np.sort(np.asarray(logits, np.float32), axis=-1)[..., -2:]
+    return top2[..., 1] - top2[..., 0]
+
+
+def _check_teacher_forced(port_dec, tparams, tcache, feeds, jlogits):
+    """Feed the port the reference's inputs step by step; compare logits
+    everywhere and argmax where the reference's margin allows."""
+    for t, (feed, want) in enumerate(zip(feeds, jlogits)):
+        nxt, got, tcache = port_dec(tparams, tcache, torch.tensor(feed),
+                                    t)
+        got = got[:, -1].numpy()
+        want = want[:, -1]
+        np.testing.assert_allclose(got, want, atol=TOL)
+        sure = _margin(want) > MARGIN
+        np.testing.assert_array_equal(nxt[:, 0].numpy()[sure],
+                                      np.argmax(want, -1)[sure])
+
+
+def _prefix_equal(got, want, margins):
+    """Equal up to (and including) the first low-margin choice."""
+    for g, w, m in zip(got, want, margins):
+        if g != w:
+            assert m <= MARGIN, (got, want, margins)
+            return
+        if m <= MARGIN:
+            return
+
+
+def test_generate_matches_jax():
+    st = _setup()
+    prompt = np.random.default_rng(4).integers(
+        1, st["jcfg"].vocab_size, (2, 4)).astype(np.int32)
+    n_new = 8
+    want = np.asarray(jax_generate(st["jparams"], st["jcfg"],
+                                   jnp.asarray(prompt), n_new))
+    # the reference's per-step logits, fed its own tokens
+    _, jdec, jinit = jax_make_serve_fns(st["jcfg"], JaxServeConfig())
+    jdec = jax.jit(jdec)
+    jcache = jinit(2, 4 + n_new + 1)
+    feeds, jlogits = [], []
+    for i in range(4 + n_new - 1):
+        feeds.append(want[:, i:i + 1])
+        _, lg, jcache = jdec(st["jparams"], jcache, jnp.asarray(feeds[-1]),
+                             jnp.int32(i))
+        jlogits.append(np.asarray(lg))
+    _, tdec, tinit = make_serve_fns(st["tcfg"], ServeConfig(), "cpu")
+    _check_teacher_forced(tdec, st["tparams"], tinit(2, 4 + n_new + 1),
+                          feeds, jlogits)
+
+    got = generate(st["tparams"], st["tcfg"], torch.from_numpy(prompt),
+                   n_new).numpy()
+    assert got.shape == want.shape == (2, 4 + n_new)
+    np.testing.assert_array_equal(got[:, :4], prompt)
+    margins = np.stack([_margin(lg[:, -1]) for lg in jlogits], 1)
+    for b in range(2):       # token i+1 is chosen at step i
+        _prefix_equal(got[b, 4:], want[b, 4:], margins[b, 3:])
+
+
+def _jax_serve_loop(jparams, jcfg, queue, slots, max_new, max_len):
+    """The scheduler of `repro/launch/serve.py` (lines 50-91) on given
+    params, recording each step's feed and logits."""
+    _, decode_step, init_cache = jax_make_serve_fns(
+        jcfg, JaxServeConfig(max_len=max_len))
+    dec = jax.jit(decode_step)
+    cache = init_cache(slots, max_len)
+    active = [None] * slots
+    results, feeds, logits, chosen = {}, [], [], []
+    served = pos = 0
+    while (queue or any(active)) and pos < max_len - 1:
+        for s in range(slots):
+            if active[s] is None and queue:
+                active[s] = [served, queue.pop(0), []]
+                served += 1
+        feed = np.zeros((slots, 1), np.int32)
+        for s, a in enumerate(active):
+            if a is None:
+                continue
+            _, prompt, out = a
+            feed[s, 0] = prompt.pop(0) if prompt else out[-1]
+        nxt, lg, cache = dec(jparams, cache, jnp.asarray(feed),
+                             jnp.int32(pos))
+        nxt = np.asarray(nxt)
+        feeds.append(feed)
+        logits.append(np.asarray(lg))
+        for s, a in enumerate(active):
+            if a is None:
+                continue
+            rid, prompt, out = a
+            if not prompt:
+                out.append(int(nxt[s, 0]))
+                chosen.append((rid, float(_margin(logits[-1][s, -1]))))
+                if len(out) >= max_new:
+                    results[rid] = out
+                    active[s] = None
+        pos += 1
+    return results, feeds, logits, chosen
+
+
+def test_continuous_batching_loop_matches_jax():
+    st = _setup()
+    slots, max_new, max_len = 4, 8, 96
+    queue = make_requests(8, st["jcfg"].vocab_size)
+    want, feeds, jlogits, chosen = _jax_serve_loop(
+        st["jparams"], st["jcfg"], [list(p) for p in queue], slots, max_new,
+        max_len)
+    _, tdec, tinit = make_serve_fns(st["tcfg"], ServeConfig(max_len), "cpu")
+    _check_teacher_forced(tdec, st["tparams"], tinit(slots, max_len), feeds,
+                          jlogits)
+
+    got, stats = serve_loop(st["tparams"], st["tcfg"],
+                            ServeConfig(max_len=max_len), queue, slots,
+                            max_new, "cpu")
+    assert sorted(got) == sorted(want) == list(range(8))
+    assert stats["served"] == 8 and stats["steps"] == len(feeds)
+    for rid in want:
+        margins = [m for r, m in chosen if r == rid]
+        _prefix_equal(got[rid], want[rid], margins)
