@@ -1,18 +1,23 @@
-"""Architecture registry of the port: the dense decoder-only models."""
+"""Architecture registry of the port: the dense decoder-only models, the
+Mamba2 SSM and the zamba2 hybrid."""
 
 import dataclasses
 
 from .base import BlockSpec, ModelConfig
 from .chatglm3_6b import CONFIG as chatglm3_6b
 from .gemma2_2b import CONFIG as gemma2_2b
+from .mamba2_130m import CONFIG as mamba2_130m
 from .qwen2p5_32b import CONFIG as qwen2p5_32b
 from .smollm_360m import CONFIG as smollm_360m
+from .zamba2_2p7b import CONFIG as zamba2_2p7b
 
 ARCHS = {
     "chatglm3-6b": chatglm3_6b,
     "gemma2-2b": gemma2_2b,
     "smollm-360m": smollm_360m,
     "qwen2.5-32b": qwen2p5_32b,
+    "mamba2-130m": mamba2_130m,
+    "zamba2-2.7b": zamba2_2p7b,
 }
 
 

@@ -6,4 +6,4 @@ tensor, the plain version for a CPU tensor, a launch counter) and
 `csrc/<name>.cu`, built by `_build` at first use.
 """
 
-KERNELS = ("flash_attention", "rmsnorm")
+KERNELS = ("flash_attention", "rmsnorm", "ssd")

@@ -1,0 +1,101 @@
+"""SSD chunked-scan wrapper: the CUDA kernel for CUDA tensors, the plain
+version for CPU tensors.
+
+Replaces `src/repro/kernels/ssd/ops.py: ssd` (Pallas, TPU), with its
+contract: `ssd(x, dt, A, B, C, chunk=...) -> (y, None)`.  The kernel
+source is `kernels/csrc/ssd.cu`; its note says what bounds it on an H100
+and why its tile (64 rows) need not be `chunk`.  Unlike the TPU wrapper,
+nothing is padded: the kernel masks the ragged last tile by index, and
+reads x, B and C through their strides, so the model's split views of
+the conv output go in without a copy.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+from .ref import ssd_plain
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _bind():
+    lib = _build.load("ssd")
+    fn = lib.ssd_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 10
+                   + [ctypes.c_int, ctypes.c_void_p])
+    lib.ssd_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib, fn
+
+
+def _launch(x, dt, A, B, C):
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    dev = x.device
+    if any(t.device != dev for t in (dt, A, B, C)):
+        raise ValueError("ssd: all inputs must be on one device")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"ssd kernel takes float32/bfloat16 x, B, C of one "
+                        f"dtype; got {x.dtype}, {B.dtype}, {C.dtype}")
+    if (dt.shape != (b, L, H) or A.shape != (H,) or B.shape != (b, L, N)
+            or C.shape != (b, L, N)):
+        raise ValueError(f"ssd: x {tuple(x.shape)}, dt {tuple(dt.shape)}, "
+                         f"A {tuple(A.shape)}, B {tuple(B.shape)}, "
+                         f"C {tuple(C.shape)}")
+    if P % 4 or N % 4 or P == 0 or N == 0:
+        raise ValueError(f"ssd kernel takes P and N multiples of 4; got "
+                         f"P={P} N={N}")
+    lib, fn = _bind()
+    smem = lib.ssd_smem_bytes(N, P)
+    props = torch.cuda.get_device_properties(dev)
+    budget = props.shared_memory_per_block_optin
+    if smem > budget:
+        raise ValueError(f"ssd kernel: P={P}, N={N} need {smem} bytes of "
+                         f"shared memory per block, over the card's {budget}")
+    x, B, C = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, B, C))
+    dt = dt.to(torch.float32)
+    A = A.to(torch.float32).contiguous()
+    y = torch.empty((b, L, H, P), dtype=x.dtype, device=dev)
+    if b * L * H == 0:
+        return y
+    code = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+              C.data_ptr(), y.data_ptr(), b, L, H, P, N,
+              x.stride(0), x.stride(1), x.stride(2),
+              dt.stride(0), dt.stride(1), dt.stride(2),
+              B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+              _DTYPES[x.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "ssd", code)
+    ssd.launches += 1
+    return y
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128):
+    """x: (b, L, H, P); dt: (b, L, H) post-softplus; A: (H,) negative;
+    B, C: (b, L, N).  Returns (y (b, L, H, P) in x's dtype, None).
+
+    A CPU tensor takes the plain version in chunks of `chunk`; a CUDA
+    tensor launches the kernel (its own 64-row tile; the result does not
+    depend on the tile apart from rounding) or raises.  There is no
+    backward on either device, so an input that needs a gradient raises.
+    """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        raise NotImplementedError("the ssd kernel has no backward yet "
+                                  "(training slice, ROADMAP Queue 1 item 7)")
+    if x.device.type == "cpu":
+        return ssd_plain(x, dt, A, B, C, chunk), None
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: no kernel for {x.device}")
+    return _launch(x, dt, A, B, C), None
+
+
+#: kernel launches since the last reset (plain-version calls not counted)
+ssd.launches = 0

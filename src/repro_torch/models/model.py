@@ -1,4 +1,5 @@
-"""Model facade: one interface over the decoder-only archs.
+"""Model facade: one interface over the decoder-only archs (dense, SSM,
+hybrid).
 
     model = build_model(cfg, device="cuda")
     params = model.init(torch.Generator("cuda").manual_seed(0))
@@ -31,10 +32,7 @@ class Model:
 
 def build_model(cfg: ModelConfig, impl: str = "auto", remat: bool = True,
                 device="cuda") -> Model:
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models "
-                                  f"(ROADMAP Queue 1 item 11)")
-    transformer.check_dense(cfg)
+    transformer.check_supported(cfg)
 
     def init(gen: torch.Generator):
         return transformer.init_params(gen, cfg, device)

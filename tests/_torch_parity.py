@@ -12,10 +12,13 @@ from repro.configs import reduced as jax_reduced
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.convert import params_from_jax
 
-#: reduced dense configs, plus smollm with an 8-token sliding window so
-#: that decode wraps its ring buffer
+#: reduced dense configs, smollm with an 8-token sliding window so that
+#: decode wraps its ring buffer, and the Mamba2 SSM and zamba2 hybrid
 PARITY_ARCHS = ("smollm-360m", "gemma2-2b", "chatglm3-6b", "qwen2.5-32b",
-                "smollm-swa8")
+                "smollm-swa8", "mamba2-130m", "zamba2-2.7b")
+#: leaves the reference initialises in float32 (`mamba_init`); they stay
+#: float32 when the rest of the tree is bf16, as in serving
+FP32_LEAVES = ("A_log", "D", "dt_bias")
 
 
 def configs(name):
@@ -29,9 +32,9 @@ def configs(name):
 
 
 def numpy_params(jcfg, seed=0):
-    """JAX-initialised params as float32 numpy, with the QKV biases and
-    norm scales (zeros and ones at init) perturbed so they are exercised;
-    the perturbed values are bf16-exact."""
+    """JAX-initialised params as float32 numpy, with the QKV biases, norm
+    scales and the Mamba skip, dt bias and conv bias (zeros and ones at
+    init) perturbed so they are exercised; the values are bf16-exact."""
     from repro.models import build_model
     params = build_model(jcfg, remat=False).init(jax.random.PRNGKey(seed))
     rng = np.random.default_rng(seed)
@@ -39,9 +42,7 @@ def numpy_params(jcfg, seed=0):
     def fix(path, a):
         a = np.asarray(a, np.float32)
         name = path[-1].key
-        if name in ("bq", "bk", "bv"):
-            a = a + 0.1 * rng.standard_normal(a.shape)
-        elif name == "scale":
+        if name in ("bq", "bk", "bv", "scale", "D", "dt_bias", "conv_b"):
             a = a + 0.1 * rng.standard_normal(a.shape)
         return np.asarray(jnp.asarray(a, jnp.bfloat16), np.float32)
 
@@ -49,8 +50,14 @@ def numpy_params(jcfg, seed=0):
 
 
 def both_params(tree, dtype):
-    """The same numpy tree as a JAX tree and a port tree of `dtype`."""
+    """The same numpy tree as a JAX tree and a port tree of `dtype`
+    (FP32_LEAVES stay float32)."""
     jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
-    jparams = jax.tree.map(lambda a: jnp.asarray(a, jdt), tree)
+
+    def cast(path, a):
+        keep = path[-1].key in FP32_LEAVES
+        return jnp.asarray(a, jnp.float32 if keep else jdt)
+
+    jparams = jax.tree_util.tree_map_with_path(cast, tree)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jparams, tparams

@@ -8,6 +8,9 @@ Tolerances: float32 2e-5 (the kernel sums in another order than the
 plain version, errors ~1e-6 on O(1) outputs); bfloat16 2e-2 plus a
 relative 2^-7 (both round an fp32 result to bf16 and may land one ulp
 apart, and one bf16 ulp is at most 2^-7 of the value: 2^-5 at [4, 8)).
+SSD in float32: 5e-4 plus a relative 1e-5 (sums of up to 1024 terms in
+64-row tiles against the plain version's chunks, outputs up to ~40;
+2.1e-4 seen on the H100).
 """
 
 import numpy as np
@@ -19,6 +22,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.kernels.ssd.ref import ssd_plain, ssd_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -54,6 +59,7 @@ def _t(a, dtype, dev):
     (2, 70, 70, 4, 2, 16, True, 32, None),        # reduced-config head_dim
     (1, 96, 96, 8, 4, 256, True, 64, 50.0),       # gemma2 head_dim
     (4, 1024, 1024, 15, 5, 64, True, None, None),  # smollm prefill
+    (2, 1024, 1024, 32, 32, 80, True, None, None),  # zamba2 prefill
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, S, T, H, K, D, causal,
                                     window, softcap):
@@ -115,7 +121,7 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", [(2, 64, 128), (300, 96), (1, 1, 256),
                                    (257, 384), (4096, 960), (4, 1, 960),
-                                   (33, 100)])
+                                   (33, 100), (4096, 1536), (2048, 5120)])
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
     rng = np.random.default_rng(3)
     x = _t(rng.standard_normal(shape), DTYPES[dtype], cuda)
@@ -139,3 +145,80 @@ def test_rmsnorm_kernel_mixed_scale_dtype_and_strided_rows(cuda):
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                rmsnorm_ref(x, s).float().cpu().numpy(),
                                atol=2e-2)
+
+
+SSD_TOL = {"float32": (5e-4, 1e-5), "bfloat16": (2e-2, 2.0 ** -7)}
+
+
+def _ssd_inputs(b, L, H, P, N, dtype, dev, steep=False, seed=5):
+    rng = np.random.default_rng(seed)
+    x = _t(0.5 * rng.standard_normal((b, L, H, P)), dtype, dev)
+    dt = _t(np.logaddexp(rng.standard_normal((b, L, H)), 0.0)
+            + (5.0 if steep else 0.0), torch.float32, dev)
+    A = _t(np.full(H, -50.0) if steep
+           else -np.exp(0.3 * rng.standard_normal(H)), torch.float32, dev)
+    B = _t(0.5 * rng.standard_normal((b, L, N)), dtype, dev)
+    C = _t(0.5 * rng.standard_normal((b, L, N)), dtype, dev)
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,L,H,P,N,chunk,steep", [
+    (1, 64, 4, 16, 16, 16, False),      # tests/test_kernels.py's shapes
+    (2, 256, 8, 32, 32, 128, False),
+    (1, 100, 4, 16, 32, 32, False),
+    (1, 128, 1, 64, 128, 64, False),
+    (1, 1000, 4, 64, 128, 256, False),  # ragged L, mamba2 widths
+    (1, 64, 2, 16, 16, 64, True),       # steep decay: A = -50, dt ~ 5
+    (4, 1024, 24, 64, 128, 256, False),  # mamba2-130m prefill
+    (2, 1024, 80, 64, 64, 256, False),  # zamba2-2.7b prefill
+])
+def test_ssd_kernel_matches_plain(cuda, dtype, b, L, H, P, N, chunk, steep):
+    x, dt, A, B, C = _ssd_inputs(b, L, H, P, N, DTYPES[dtype], cuda, steep)
+    before = ssd.launches
+    y, none = ssd(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert none is None and ssd.launches == before + 1
+    assert y.dtype == x.dtype and bool(torch.isfinite(y).all())
+    want = ssd_plain(x, dt, A, B, C, chunk)
+    atol, rtol = SSD_TOL[dtype]
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+
+
+def test_ssd_kernel_matches_sequential_ref_and_strided_views(cuda):
+    """The model hands the kernel split views of the conv output (row
+    stride d_inner + 2N); against the sequential oracle, as
+    `tests/test_kernels.py` holds the TPU kernel (1e-3)."""
+    rng = np.random.default_rng(6)
+    b, L, H, P, N = 2, 130, 4, 16, 32
+    xBC = _t(0.5 * rng.standard_normal((b, L, H * P + 2 * N)),
+             torch.float32, cuda)
+    x, B, C = torch.split(xBC, [H * P, N, N], dim=-1)
+    x = x.reshape(b, L, H, P)
+    dt = _t(np.logaddexp(rng.standard_normal((b, L, H)), 0.0),
+            torch.float32, cuda)
+    A = _t(-np.exp(0.3 * rng.standard_normal(H)), torch.float32, cuda)
+    y, _ = ssd(x, dt, A, B, C)
+    want, _ = ssd_ref(x, dt, A, B, C)
+    np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(),
+                               atol=1e-3)
+
+
+def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
+    x, dt, A, B, C = _ssd_inputs(1, 32, 2, 16, 16, torch.float32, cuda)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        ssd(x.clone().requires_grad_(), dt, A, B, C)
+    with pytest.raises(ValueError, match="one device"):
+        ssd(x, dt, A, B.cpu(), C)
+    with pytest.raises(TypeError):
+        ssd(x.half(), dt, A, B.half(), C.half())
+    with pytest.raises(ValueError, match="multiples of 4"):
+        ssd(x[..., :14], dt, A, B, C)
+    big = _ssd_inputs(1, 8, 1, 64, 512, torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd(*big)
+    wide = _ssd_inputs(1, 8, 1, 512, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd(*wide)

@@ -1,11 +1,16 @@
 """The port's serving path against the JAX package, on reduced smollm-360m
-with bf16 params (the JAX decode path needs them).
+and reduced mamba2-130m with bf16 params (the JAX decode path needs
+them).
 
 Greedy tokens must equal the reference's wherever the reference's top-2
 logit gap exceeds MARGIN = 0.3: logits that agree within 0.15 (the bf16
 decode tolerance of `tests/test_models.py`) cannot swap two candidates
 more than 2 x 0.15 apart.  At every step, fed the reference's tokens, the
-port's logits must agree within 0.15.
+port's logits must agree within 0.15.  On mamba2 the loop carries each
+slot's recurrent state through all ~25 steps, and the state drifts by
+O(ulp) a step between the two frameworks' roundings (the reference's
+own reasoning for its SSM decode tolerances, `tests/test_models.py`), so
+there the tolerance is 0.3 and the margin 0.6.
 """
 
 import jax
@@ -22,17 +27,18 @@ from repro_torch.runtime.serve import ServeConfig, generate, make_serve_fns
 from _torch_parity import both_params, configs, numpy_params
 
 TOL, MARGIN = 0.15, 0.3
+SSM_TOL = 0.3
 _STATE = {}
 
 
-def _setup():
-    if not _STATE:
-        jcfg, tcfg = configs("smollm-360m")
+def _setup(arch="smollm-360m"):
+    if arch not in _STATE:
+        jcfg, tcfg = configs(arch)
         jparams, tparams = both_params(numpy_params(jcfg, seed=3),
                                        "bfloat16")
-        _STATE.update(jcfg=jcfg, tcfg=tcfg, jparams=jparams,
-                      tparams=tparams)
-    return _STATE
+        _STATE[arch] = dict(jcfg=jcfg, tcfg=tcfg, jparams=jparams,
+                            tparams=tparams)
+    return _STATE[arch]
 
 
 def _margin(logits):
@@ -40,32 +46,34 @@ def _margin(logits):
     return top2[..., 1] - top2[..., 0]
 
 
-def _check_teacher_forced(port_dec, tparams, tcache, feeds, jlogits):
+def _check_teacher_forced(port_dec, tparams, tcache, feeds, jlogits,
+                          tol=TOL):
     """Feed the port the reference's inputs step by step; compare logits
-    everywhere and argmax where the reference's margin allows."""
+    everywhere (within `tol`) and argmax where the reference's margin
+    exceeds 2 x tol."""
     for t, (feed, want) in enumerate(zip(feeds, jlogits)):
         nxt, got, tcache = port_dec(tparams, tcache, torch.tensor(feed),
                                     t)
         got = got[:, -1].numpy()
         want = want[:, -1]
-        np.testing.assert_allclose(got, want, atol=TOL)
-        sure = _margin(want) > MARGIN
+        np.testing.assert_allclose(got, want, atol=tol)
+        sure = _margin(want) > 2 * tol
         np.testing.assert_array_equal(nxt[:, 0].numpy()[sure],
                                       np.argmax(want, -1)[sure])
 
 
-def _prefix_equal(got, want, margins):
+def _prefix_equal(got, want, margins, margin=MARGIN):
     """Equal up to (and including) the first low-margin choice."""
     for g, w, m in zip(got, want, margins):
         if g != w:
-            assert m <= MARGIN, (got, want, margins)
+            assert m <= margin, (got, want, margins)
             return
-        if m <= MARGIN:
+        if m <= margin:
             return
 
 
-def test_generate_matches_jax():
-    st = _setup()
+def _check_generate(arch, tol=TOL):
+    st = _setup(arch)
     prompt = np.random.default_rng(4).integers(
         1, st["jcfg"].vocab_size, (2, 4)).astype(np.int32)
     n_new = 8
@@ -83,7 +91,7 @@ def test_generate_matches_jax():
         jlogits.append(np.asarray(lg))
     _, tdec, tinit = make_serve_fns(st["tcfg"], ServeConfig(), "cpu")
     _check_teacher_forced(tdec, st["tparams"], tinit(2, 4 + n_new + 1),
-                          feeds, jlogits)
+                          feeds, jlogits, tol)
 
     got = generate(st["tparams"], st["tcfg"], torch.from_numpy(prompt),
                    n_new).numpy()
@@ -91,7 +99,15 @@ def test_generate_matches_jax():
     np.testing.assert_array_equal(got[:, :4], prompt)
     margins = np.stack([_margin(lg[:, -1]) for lg in jlogits], 1)
     for b in range(2):       # token i+1 is chosen at step i
-        _prefix_equal(got[b, 4:], want[b, 4:], margins[b, 3:])
+        _prefix_equal(got[b, 4:], want[b, 4:], margins[b, 3:], 2 * tol)
+
+
+def test_generate_matches_jax():
+    _check_generate("smollm-360m")
+
+
+def test_generate_matches_jax_on_mamba2():
+    _check_generate("mamba2-130m", SSM_TOL)
 
 
 def _jax_serve_loop(jparams, jcfg, queue, slots, max_new, max_len):
@@ -134,8 +150,8 @@ def _jax_serve_loop(jparams, jcfg, queue, slots, max_new, max_len):
     return results, feeds, logits, chosen
 
 
-def test_continuous_batching_loop_matches_jax():
-    st = _setup()
+def _check_loop(arch, tol=TOL):
+    st = _setup(arch)
     slots, max_new, max_len = 4, 8, 96
     queue = make_requests(8, st["jcfg"].vocab_size)
     want, feeds, jlogits, chosen = _jax_serve_loop(
@@ -143,7 +159,7 @@ def test_continuous_batching_loop_matches_jax():
         max_len)
     _, tdec, tinit = make_serve_fns(st["tcfg"], ServeConfig(max_len), "cpu")
     _check_teacher_forced(tdec, st["tparams"], tinit(slots, max_len), feeds,
-                          jlogits)
+                          jlogits, tol)
 
     got, stats = serve_loop(st["tparams"], st["tcfg"],
                             ServeConfig(max_len=max_len), queue, slots,
@@ -152,4 +168,14 @@ def test_continuous_batching_loop_matches_jax():
     assert stats["served"] == 8 and stats["steps"] == len(feeds)
     for rid in want:
         margins = [m for r, m in chosen if r == rid]
-        _prefix_equal(got[rid], want[rid], margins)
+        _prefix_equal(got[rid], want[rid], margins, 2 * tol)
+
+
+def test_continuous_batching_loop_matches_jax():
+    _check_loop("smollm-360m")
+
+
+def test_continuous_batching_loop_matches_jax_on_mamba2():
+    """As above on the SSM: a request admitted into a freed slot inherits
+    the previous request's conv window and state, in both loops."""
+    _check_loop("mamba2-130m", SSM_TOL)
