@@ -13,7 +13,8 @@ Phases, each of which fails the run (exit code 1, no result line):
    kernel, plain version and, where one exists, one PyTorch library
    call timed with CUDA events;
 3. main paths, each with the launch counters reset just before and read
-   just after, through `make_serve_fns(...).prefill` and then the
+   just after (every flash-attention launch must be one of the bf16
+   tensor-core kernel), through `make_serve_fns(...).prefill` and then the
    continuous-batching loop, random bf16 weights from a seed, the
    prefill logits held against the same prefill with the plain routes:
    3.  full-width smollm-360m: prefill 4 x 1024, 8 requests on 4 slots;
@@ -123,6 +124,18 @@ def ssd_cost(b, L, H, P, N, chunk=256):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def fa_cost(B, S, H, K, D):
+    """(flops, bytes, bound ms, what bounds it) of causal bf16 attention
+    with S = T: QK^T and PV over the causal (query, key) pairs, 2 flops a
+    MAC; q, k, v read once, the output written once, positions int32."""
+    pairs = S * (S + 1) // 2
+    flops = 4 * B * H * D * pairs
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D) + 2 * 4 * S
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
@@ -175,6 +188,10 @@ def phase_kernels(torch, dev):
         (1, 100, 100, 2, 2, 32, False, None, None),     # ragged non-causal
         (2, 70, 70, 4, 2, 16, True, 32, None),
         (1, 96, 96, 8, 4, 256, True, 64, 50.0),
+        (1, 1000, 1000, 4, 4, 80, True, None, None),    # D = 80, ragged T
+        (1, 300, 300, 6, 2, 64, True, None, None),      # G = 3, as smollm
+        (1, 512, 512, 4, 4, 80, True, 128, None),       # window at D = 80
+        (1, 64, 1000, 4, 2, 64, True, None, None),      # 64 queries, offsets
     ]
     fa_err = None
     for dname, dtype in dts.items():
@@ -199,6 +216,21 @@ def phase_kernels(torch, dev):
                 fa_err = err          # the prefill shape in fp32 ...
             if dname == "bfloat16" and (B, S) == (4, 1024):
                 fa_err = err          # ... replaced by the working dtype
+        # queries at 0, 4, ..., 508 against 512 keys: the two halves of the
+        # query tile see different key tiles
+        for D in (64, 80):
+            q = randn((1, 128, 2, D), dtype)
+            k = randn((1, 512, 2, D), dtype)
+            v = randn((1, 512, 2, D), dtype, 3.0)
+            qp = 4 * torch.arange(128, dtype=torch.int32, device=dev)
+            kp = torch.arange(512, dtype=torch.int32, device=dev)
+            out = flash_attention(q, k, v, qp, kp)
+            ref = plain_fa(q, k, v, qp, kp, None, None, True)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            check(close(torch, out, ref, atol, rtol),
+                  f"flash_attention {dname} D={D} sparse query positions: "
+                  f"max err {err:.3g} (atol {atol}, rtol {rtol})")
 
     rn_cases = [(4096, 960), (4, 960), (257, 384), (33, 100), (2, 64, 128),
                 (1, 1, 256),
@@ -280,16 +312,14 @@ def phase_kernels(torch, dev):
                                                      None, True), 10)
     fa_lib_ms, _ = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True), 20)
-    pairs = S * (S + 1) // 2                  # causal (query, key) pairs
-    fa_flops = 4 * B * H * D * pairs          # QK^T and PV, 2 flops a MAC
-    fa_bytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 2 * 4 * S
-    fa_bound = max(fa_flops / PEAK_BF16_FLOPS,
-                   fa_bytes / PEAK_BYTES_PER_S) * 1e3
-    fa_by = ("operations" if fa_flops / PEAK_BF16_FLOPS
-             >= fa_bytes / PEAK_BYTES_PER_S else "bytes")
+    fa_flops, fa_bytes, fa_bound, fa_by = fa_cost(B, S, H, K, D)
     zq, zk, zv = (randn((2, S, 32, 80), torch.bfloat16) for _ in range(3))
     fa_zamba_ms, _ = cuda_ms(
         torch, lambda: flash_attention(zq, zk, zv, pos, pos), 20)
+    zqt, zkt, zvt = (t.transpose(1, 2).contiguous() for t in (zq, zk, zv))
+    fa_zamba_lib_ms, _ = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        zqt, zkt, zvt, is_causal=True), 20)
+    _, _, fa_zamba_bound, fa_zamba_by = fa_cost(2, S, 32, 32, 80)
 
     x = randn((4096, 960), torch.bfloat16)
     s = torch.linspace(0.5, 1.5, 960, device=dev).to(torch.bfloat16)
@@ -319,7 +349,8 @@ def phase_kernels(torch, dev):
              >= rn_bytes / PEAK_BYTES_PER_S else "bytes")
     print(f"  flash_attention {fa_ms:.4f} ms (plain {fa_plain_ms:.4f}, sdpa "
           f"{fa_lib_ms:.4f}, bound {fa_bound:.4f} by {fa_by}), at the "
-          f"zamba2 shape {fa_zamba_ms:.4f} ms; rmsnorm "
+          f"zamba2 shape {fa_zamba_ms:.4f} ms (sdpa {fa_zamba_lib_ms:.4f}, "
+          f"bound {fa_zamba_bound:.4f} by {fa_zamba_by}); rmsnorm "
           f"{rn_ms:.4f} ms (plain {rn_plain_ms:.4f}, F.rms_norm "
           f"{rn_lib_ms:.4f}, bound {rn_bound:.4f} by {rn_by}); rmsnorm at "
           f"4 rows {rn_decode_ms:.4f} ms; ssd {ssd_ms:.4f} ms (plain "
@@ -337,7 +368,10 @@ def phase_kernels(torch, dev):
             "max_abs_err": fa_err, "tolerance": FA_TOL["bfloat16"],
             "ms": fa_ms, "plain_ms": fa_plain_ms, "bound_ms": fa_bound,
             "bound_by": fa_by, "library_ms": fa_lib_ms,
-            "zamba2_shape_ms": fa_zamba_ms, "host_us": fa_host_us,
+            "zamba2_shape_ms": fa_zamba_ms,
+            "zamba2_shape_bound_ms": fa_zamba_bound,
+            "zamba2_shape_bound_by": fa_zamba_by,
+            "zamba2_shape_library_ms": fa_zamba_lib_ms, "host_us": fa_host_us,
             "flops": fa_flops, "bytes": fa_bytes},
         "rmsnorm": {
             "name": "rmsnorm", "route": "cuda",
@@ -396,20 +430,27 @@ def phase_serve(torch, dev, arch, batch, n_requests, slots, max_new,
 
     for w in wrappers.values():
         w.launches = 0
+    flash_attention.tc_launches = 0
     t0 = time.perf_counter()
     logits = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     prefill_first_s = time.perf_counter() - t0
     after_prefill = {k: w.launches for k, w in wrappers.items()}
+    tc_prefill = flash_attention.tc_launches
     queue = make_requests(n_requests, cfg.vocab_size)
     results, stats = serve_loop(params, cfg, scfg, queue, slots=slots,
                                 max_new=max_new, device=dev)
     torch.cuda.synchronize()
     counts = {k: w.launches for k, w in wrappers.items()}
+    tc_total = flash_attention.tc_launches
 
     check(after_prefill == per_prefill,
           f"{arch} prefill launched {after_prefill} (expected "
           f"{per_prefill})")
+    check(tc_prefill == after_prefill["flash_attention"]
+          and tc_total == counts["flash_attention"],
+          f"{arch}: every flash-attention launch took the tensor-core "
+          f"kernel ({tc_prefill} in prefill, {tc_total} in all)")
     check(logits.shape == (batch, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{arch} prefill logits {tuple(logits.shape)} finite")
@@ -464,7 +505,8 @@ def phase_serve(torch, dev, arch, batch, n_requests, slots, max_new,
                                      "plain": plain_drift},
             "decode_tok_per_s": stats["tok_per_s"],
             "decode_steps": steps, "decode_wall_s": stats["wall_s"],
-            "peak_memory_bytes": peak_bytes, "params": n_params}, counts
+            "peak_memory_bytes": peak_bytes, "params": n_params,
+            "flash_attention_tc_launches": tc_total}, counts
 
 
 def phase_main_paths(torch, dev):
@@ -589,6 +631,8 @@ def main():
         by_path = {arch: c[name] for arch, c in counts.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
+    kernels["flash_attention"]["tc_launches"] = sum(
+        m["flash_attention_tc_launches"] for m in metrics.values())
     metrics.update(card=card, build_s=build_s)
     print(json.dumps({"metrics": metrics}))
     print(card)

@@ -7,6 +7,14 @@ kernel reads that layout through strides, so nothing is transposed or
 padded.  The kernel source is `kernels/csrc/flash_attention.cu`; its note
 says what bounds it on an H100 and how it differs from the TPU design.
 
+Two routes by dtype, one C entry point: bfloat16 launches the tensor-core
+kernel (wgmma fed by TMA; counted in `flash_attention.tc_launches` as
+well as `flash_attention.launches`), float32 the scalar kernel, which
+parity checks hold to 2e-5.  TMA needs 16-byte aligned bases and nested,
+positive strides that are multiples of 8 elements: a bf16 view that
+misses any of these (an expanded head or batch has stride 0) is copied to
+a contiguous tensor first (the same kernel runs on the copy).
+
 The backward pass differentiates the plain version, as the reference's
 custom VJP does; a backward kernel belongs to the training slice.
 """
@@ -25,16 +33,21 @@ from .ref import attention_ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@functools.cache
-def _bind():
-    lib = _build.load("flash_attention")
+def declare(lib: ctypes.CDLL):
+    """The library's `flash_attention_fwd`, its C signature declared."""
     fn = lib.flash_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_longlong] * 9
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    return lib, fn
+    return fn
+
+
+@functools.cache
+def _bind():
+    lib = _build.load("flash_attention")
+    return lib, declare(lib)
 
 
 def _ref_call(q, k, v, q_pos, k_pos, window, softcap, scale, causal):
@@ -42,6 +55,28 @@ def _ref_call(q, k, v, q_pos, k_pos, window, softcap, scale, causal):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), q_pos,
         k_pos, scale=scale, causal=causal, window=window,
         softcap=softcap).transpose(1, 2)
+
+
+def tc_block_k(D: int) -> int:
+    """KV tile of the tensor-core kernel at head dim D (`flash_plain`'s
+    `block_k` that reproduces its rounding)."""
+    return 128 if D <= 128 else 64
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """`t` if TMA can read it in place, else a contiguous copy.  In place
+    means a 16-byte aligned base and, for each dimension of size > 1 taken
+    by stride, a stride that is a multiple of 8 elements and at least the
+    extent of the dimensions below it: the nested, positive strides a
+    tensor map describes.  So an expanded head or batch (stride 0) and
+    overlapping views are copied."""
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+    extent = t.shape[-1]
+    for st, n in sorted((st, n) for n, st in zip(t.shape[:-1],
+                                                  t.stride()[:-1]) if n > 1):
+        ok = ok and st % 8 == 0 and st >= extent
+        extent = st * n
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _launch(q, k, v, q_pos, k_pos, window, softcap, scale, causal):
@@ -64,7 +99,11 @@ def _launch(q, k, v, q_pos, k_pos, window, softcap, scale, causal):
         raise ValueError("flash_attention: positions must be (S,) and (T,)")
     q_pos = q_pos.to(torch.int32).contiguous()
     k_pos = k_pos.to(torch.int32).contiguous()
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_tma_ready(t) for t in (q, k, v))
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=dev)
     if B * S * H == 0:
         return out
@@ -81,6 +120,8 @@ def _launch(q, k, v, q_pos, k_pos, window, softcap, scale, causal):
               torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "flash_attention", code)
     flash_attention.launches += 1
+    if q.dtype == torch.bfloat16:
+        flash_attention.tc_launches += 1
     return out
 
 
@@ -123,3 +164,5 @@ def flash_attention(q, k, v, q_pos, k_pos, window: Optional[int] = None,
 
 #: kernel launches since the last reset (plain-version calls not counted)
 flash_attention.launches = 0
+#: launches of the tensor-core (bfloat16) kernel alone, since the last reset
+flash_attention.tc_launches = 0

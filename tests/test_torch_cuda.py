@@ -11,6 +11,13 @@ apart, and one bf16 ulp is at most 2^-7 of the value: 2^-5 at [4, 8)).
 SSD in float32: 5e-4 plus a relative 1e-5 (sums of up to 1024 terms in
 64-row tiles against the plain version's chunks, outputs up to ~40;
 2.1e-4 seen on the H100).
+
+bfloat16 flash attention runs the tensor-core kernel, which rounds P to
+bf16 before P.V as `flash_plain` does; it is also held to `flash_plain`
+at 2^-8 plus a relative 2^-7: the two round an fp32 result to bf16 once
+(one output ulp, at most 2^-7 relative) and differ before that only by
+the order of fp32 sums and exp2 against exp, which can move a rare
+weight across a bf16 rounding boundary (2^-8 of that weight).
 """
 
 import numpy as np
@@ -18,8 +25,8 @@ import pytest
 import torch
 
 from repro_torch.kernels import KERNELS, _build
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ops import flash_attention, tc_block_k
+from repro_torch.kernels.flash_attention.ref import attention_ref, flash_plain
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 from repro_torch.kernels.ssd.ops import ssd
@@ -60,6 +67,10 @@ def _t(a, dtype, dev):
     (1, 96, 96, 8, 4, 256, True, 64, 50.0),       # gemma2 head_dim
     (4, 1024, 1024, 15, 5, 64, True, None, None),  # smollm prefill
     (2, 1024, 1024, 32, 32, 80, True, None, None),  # zamba2 prefill
+    (1, 1000, 1000, 4, 4, 80, True, None, None),  # D = 80, ragged T
+    (1, 300, 300, 6, 2, 64, True, None, None),     # G = 3, as smollm
+    (1, 512, 512, 4, 4, 80, True, 128, None),      # window at D = 80
+    (1, 64, 1000, 4, 2, 64, True, None, None),     # 64 queries at offsets
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, S, T, H, K, D, causal,
                                     window, softcap):
@@ -70,17 +81,25 @@ def test_flash_kernel_matches_plain(cuda, dtype, B, S, T, H, K, D, causal,
     qp = torch.arange(T - S, T, dtype=torch.int32, device=cuda)
     kp = torch.arange(T, dtype=torch.int32, device=cuda)
     before = flash_attention.launches
+    tc_before = flash_attention.tc_launches
     out = flash_attention(q, k, v, qp, kp, window=window, softcap=softcap,
                           causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), qp, kp, scale=D ** -0.5,
-                        causal=causal, window=window,
-                        softcap=softcap).transpose(1, 2)
+    # bf16 takes the tensor-core kernel, float32 the scalar one
+    assert flash_attention.tc_launches == tc_before + (dtype == "bfloat16")
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), qp, kp)
+    opts = dict(scale=D ** -0.5, causal=causal, window=window,
+                softcap=softcap)
+    ref = attention_ref(*args, **opts).transpose(1, 2)
     np.testing.assert_allclose(out.float().cpu().numpy(),
                                ref.float().cpu().numpy(), atol=TOL[dtype],
                                rtol=RTOL[dtype])
+    if dtype == "bfloat16":
+        model = flash_plain(*args, **opts, block_k=tc_block_k(D))
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   model.transpose(1, 2).float().cpu().numpy(),
+                                   atol=2.0 ** -8, rtol=2.0 ** -7)
 
 
 def test_flash_kernel_fully_masked_rows_average_v(cuda):
@@ -95,6 +114,108 @@ def test_flash_kernel_fully_masked_rows_average_v(cuda):
     out = flash_attention(q, k, v, qp, kp)
     ref = flash_attention(q.cpu(), k.cpu(), v.cpu(), qp.cpu(), kp.cpu())
     np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), atol=2e-5)
+
+
+def test_flash_kernel_fully_masked_rows_average_v_bf16(cuda):
+    """The same in bf16, through the tensor-core kernel: no key tile may
+    be skipped, and the masked rows average V over every key."""
+    rng = np.random.default_rng(1)
+    q = _t(rng.standard_normal((1, 70, 2, 32)), torch.bfloat16, cuda)
+    k = _t(rng.standard_normal((1, 90, 2, 32)), torch.bfloat16, cuda)
+    v = _t(rng.standard_normal((1, 90, 2, 32)), torch.bfloat16, cuda)
+    qp = torch.arange(70, dtype=torch.int32, device=cuda)
+    kp = torch.arange(90, dtype=torch.int32, device=cuda) + 40
+    tc_before = flash_attention.tc_launches
+    out = flash_attention(q, k, v, qp, kp)
+    torch.cuda.synchronize()
+    assert flash_attention.tc_launches == tc_before + 1
+    ref = flash_attention(q.cpu(), k.cpu(), v.cpu(), qp.cpu(), kp.cpu())
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().numpy(), atol=TOL["bfloat16"],
+                               rtol=RTOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 50),
+                                           (False, None)])
+def test_flash_kernel_arbitrary_positions(cuda, dtype, causal, window):
+    """Shuffled key positions with empty ring slots at int32 max, and
+    queries in no order: the kernel classifies tiles from the positions,
+    never from the indices."""
+    rng = np.random.default_rng(7)
+    T, S = 300, 200
+    kp = rng.permutation(T).astype(np.int32)
+    kp[rng.permutation(T)[:40]] = np.iinfo(np.int32).max
+    qp = rng.integers(0, T, S).astype(np.int32)
+    q = _t(rng.standard_normal((2, S, 4, 64)), DTYPES[dtype], cuda)
+    k = _t(rng.standard_normal((2, T, 2, 64)), DTYPES[dtype], cuda)
+    v = _t(rng.standard_normal((2, T, 2, 64)) + 3.0, DTYPES[dtype], cuda)
+    qp, kp = (torch.from_numpy(a).to(cuda) for a in (qp, kp))
+    out = flash_attention(q, k, v, qp, kp, window=window, causal=causal)
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), qp, kp, scale=0.125,
+                        causal=causal, window=window).transpose(1, 2)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=TOL[dtype],
+                               rtol=RTOL[dtype])
+
+
+def test_flash_kernel_bf16_strided_and_misaligned_views(cuda):
+    """q, k, v split from one fused projection go to TMA in place; a view
+    whose base is not 16-byte aligned, or a KV head expanded with stride
+    0, is copied first; all agree with the plain version."""
+    rng = np.random.default_rng(8)
+    x = _t(rng.standard_normal((2, 128, 3, 4, 64)), torch.bfloat16, cuda)
+    q, k, v = x[:, :, 0], x[:, :, 1], x[:, :, 2]
+    pos = torch.arange(128, dtype=torch.int32, device=cuda)
+    flat = torch.empty(1 + q.numel(), dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:].view(q.shape)
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), pos, pos,
+                        scale=0.125).transpose(1, 2).float().cpu().numpy()
+    for qq in (q, shifted):
+        out = flash_attention(qq, k, v, pos, pos)
+        np.testing.assert_allclose(out.float().cpu().numpy(), ref,
+                                   atol=TOL["bfloat16"],
+                                   rtol=RTOL["bfloat16"])
+    # one KV head expanded to all four (stride 0): copied, then the kernel
+    k1, v1 = (t[:, :, :1].expand(-1, -1, 4, -1) for t in (k, v))
+    assert k1.stride(2) == 0
+    ref1 = attention_ref(q.transpose(1, 2), k1.transpose(1, 2),
+                         v1.transpose(1, 2), pos, pos,
+                         scale=0.125).transpose(1, 2).float().cpu().numpy()
+    tc_before = flash_attention.tc_launches
+    out = flash_attention(q, k1, v1, pos, pos)
+    torch.cuda.synchronize()
+    assert flash_attention.tc_launches == tc_before + 1
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref1,
+                               atol=TOL["bfloat16"], rtol=RTOL["bfloat16"])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("D", [64, 80])
+def test_flash_kernel_queries_sparser_than_keys(cuda, dtype, D):
+    """128 queries at positions 0, 4, ..., 508 against 512 keys: the
+    first half of the query tile sees keys 0..252 only, so key tiles
+    visible to the second half are invisible to the first.  The kernel
+    must still finish and agree with the plain version."""
+    rng = np.random.default_rng(9)
+    S, T = 128, 512
+    q = _t(rng.standard_normal((1, S, 2, D)), DTYPES[dtype], cuda)
+    k = _t(rng.standard_normal((1, T, 2, D)), DTYPES[dtype], cuda)
+    v = _t(rng.standard_normal((1, T, 2, D)) + 3.0, DTYPES[dtype], cuda)
+    qp = 4 * torch.arange(S, dtype=torch.int32, device=cuda)
+    kp = torch.arange(T, dtype=torch.int32, device=cuda)
+    out = flash_attention(q, k, v, qp, kp)
+    torch.cuda.synchronize()
+    ref = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), qp, kp,
+                        scale=D ** -0.5).transpose(1, 2)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), atol=TOL[dtype],
+                               rtol=RTOL[dtype])
 
 
 def test_flash_kernel_grad_flows(cuda):

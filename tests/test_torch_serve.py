@@ -179,3 +179,13 @@ def test_continuous_batching_loop_matches_jax_on_mamba2():
     """As above on the SSM: a request admitted into a freed slot inherits
     the previous request's conv window and state, in both loops."""
     _check_loop("mamba2-130m", SSM_TOL)
+
+
+def test_profile_prefill_on_cpu_reports_operators_and_no_device_numbers():
+    from repro_torch.launch.profile import _busy_us, profile_prefill
+    res = profile_prefill("smollm-360m", batch=1, seq=16, calls=2,
+                          device="cpu", use_reduced=True)
+    assert res["device"] == "cpu" and res["host_ms_per_prefill"] > 0
+    assert res["kernels_us"] and all(v >= 0 for v in res["kernels_us"].values())
+    assert "device_idle_share" not in res
+    assert _busy_us([(0, 4), (2, 6), (8, 9), (8.5, 8.7)]) == 7
