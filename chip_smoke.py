@@ -9,12 +9,14 @@ Phases, each of which fails the run (exit code 1, no result line):
    nvcc per source started together, and print the ptxas lines;
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the serving shapes and at ragged, windowed, softcapped,
-   non-causal and steep-decay ones, with the tolerance stated; then
-   kernel, plain version and, where one exists, one PyTorch library
-   call timed with CUDA events;
+   non-causal and steep-decay ones, and SSD in the models' strided
+   layout, with the tolerance stated (every bf16 SSD call must take the
+   tensor-core kernel); then kernel, plain version and, where one exists,
+   one PyTorch library call timed with CUDA events (SSD also in the
+   strided layout, RMSNorm at every model's prefill width);
 3. main paths, each with the launch counters reset just before and read
-   just after (every flash-attention launch must be one of the bf16
-   tensor-core kernel), through `make_serve_fns(...).prefill` and then the
+   just after (every flash-attention and SSD launch must be one of the
+   bf16 tensor-core kernels), through `make_serve_fns(...).prefill` and then the
    continuous-batching loop, random bf16 weights from a seed, the
    prefill logits held against the same prefill with the plain routes:
    3.  full-width smollm-360m: prefill 4 x 1024, 8 requests on 4 slots;
@@ -120,6 +122,17 @@ def ssd_cost(b, L, H, P, N, chunk=256):
                 + 2 * chunk * H * P * N))
     nbytes = 2 * 2 * b * L * H * P + 4 * b * L * H + 4 * H + 2 * 2 * b * L * N
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rn_cost(rows, d):
+    """(flops, bytes, bound ms, what bounds it) of bf16 RMSNorm: x read
+    once, the output written once, the scale read once; 4 flops an
+    element (square, sum, normalise, scale) at the fp32 rate."""
+    flops = 4 * rows * d
+    nbytes = 2 * (2 * rows * d + d)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -262,6 +275,16 @@ def phase_kernels(torch, dev):
         C = (0.5 * randn((b, L, N), torch.float32)).to(dtype)
         return x, dt, A, B, C
 
+    def ssd_model_layout(b, H, N, L=1024, P=64):
+        """x, B, C as `models/ssm.py` hands them to the kernel: split
+        views of one bf16 conv output, row stride H*P + 2N elements."""
+        xBC = (0.5 * randn((b, L, H * P + 2 * N), torch.float32)).to(
+            torch.bfloat16)
+        x, B, C = torch.split(xBC, [H * P, N, N], dim=-1)
+        dt = F.softplus(randn((b, L, H), torch.float32))
+        A = -torch.exp(0.3 * randn((H,), torch.float32))
+        return x.reshape(b, L, H, P), dt, A, B, C
+
     ssd_cases = [  # b, L, H, P, N, chunk, steep
         (4, 1024, 24, 64, 128, 256, False),   # mamba2-130m prefill
         (2, 1024, 80, 64, 64, 256, False),    # zamba2-2.7b prefill
@@ -277,18 +300,34 @@ def phase_kernels(torch, dev):
         atol, rtol = SSD_TOL[dname]
         for b, L, H, P, N, chunk, steep in ssd_cases:
             x, dt, A, B, C = ssd_inputs(b, L, H, P, N, dtype, steep)
+            tc_before = ssd.tc_launches
             out, _ = ssd(x, dt, A, B, C, chunk=chunk)
             ref = ssd_plain(x, dt, A, B, C, chunk)
             torch.cuda.synchronize()
             err = max_err(out, ref)
+            tc = ssd.tc_launches - tc_before
             check(bool(torch.isfinite(out).all())
-                  and close(torch, out, ref, atol, rtol),
+                  and close(torch, out, ref, atol, rtol)
+                  and tc == (dname == "bfloat16"),
                   f"ssd {dname} b={b} L={L} H={H} P={P} N={N} "
                   f"chunk={chunk} steep={steep}: max err {err:.3g} "
                   f"(atol {atol}, rtol {rtol}; max |y| "
-                  f"{float(ref.float().abs().max()):.3g})")
+                  f"{float(ref.float().abs().max()):.3g}); tensor-core "
+                  f"launches {tc}")
             if dname == "bfloat16" and (b, L, H) == (4, 1024, 24):
                 ssd_err = err
+    atol, rtol = SSD_TOL["bfloat16"]
+    for b, H, N in ((4, 24, 128), (2, 80, 64)):   # the models' split views
+        x, dt, A, B, C = ssd_model_layout(b, H, N)
+        out, _ = ssd(x, dt, A, B, C, chunk=256)
+        ref = ssd_plain(x, dt, A, B, C, 256)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        check(bool(torch.isfinite(out).all())
+              and close(torch, out, ref, atol, rtol),
+              f"ssd bfloat16 b={b} L=1024 H={H} P=64 N={N} in the model's "
+              f"strided layout (views of one (b, L, H*P + 2N) tensor): max "
+              f"err {err:.3g} (atol {atol}, rtol {rtol})")
     x, dt, A, B, C = ssd_inputs(2, 130, 4, 16, 32, torch.float32)
     out, _ = ssd(x, dt, A, B, C)
     ref, _ = ssd_ref(x, dt, A, B, C)
@@ -329,6 +368,18 @@ def phase_kernels(torch, dev):
                            200)
     x4 = randn((4, 960), torch.bfloat16)
     rn_decode_ms, _ = cuda_ms(torch, lambda: rmsnorm(x4, s), 500)
+    rn_decode_lib_ms, _ = cuda_ms(
+        torch, lambda: F.rms_norm(x4, (960,), s, 1e-6), 500)
+    rn_shapes = []  # each model's prefill widths, bf16 x and scale
+    for rows, d in ((4096, 960), (4096, 768), (4096, 1536), (2048, 2560),
+                    (2048, 5120), (4, 960)):
+        xr = randn((rows, d), torch.bfloat16)
+        sr = torch.linspace(0.5, 1.5, d, device=dev).to(torch.bfloat16)
+        k_ms, _ = cuda_ms(torch, lambda: rmsnorm(xr, sr), 200)
+        l_ms, _ = cuda_ms(torch, lambda: F.rms_norm(xr, (d,), sr, 1e-6), 200)
+        _, _, bnd, by = rn_cost(rows, d)
+        rn_shapes.append({"shape": [rows, d], "ms": k_ms, "library_ms": l_ms,
+                          "bound_ms": bnd, "bound_by": by})
 
     b, L, H, P, N = 4, 1024, 24, 64, 128          # mamba2-130m prefill
     sx, sdt, sA, sB, sC = ssd_inputs(b, L, H, P, N, torch.bfloat16)
@@ -341,23 +392,30 @@ def phase_kernels(torch, dev):
     ssd_zamba_ms, _ = cuda_ms(
         torch, lambda: ssd(zx, zdt, zA, zB, zC, chunk=256), 20)
     ssd_zamba_bound = ssd_cost(2, 1024, 80, 64, 64)[2]
-    rn_bytes = 2 * (2 * x.numel() + s.numel())
-    rn_flops = 4 * x.numel()
-    rn_bound = max(rn_flops / PEAK_FP32_FLOPS,
-                   rn_bytes / PEAK_BYTES_PER_S) * 1e3
-    rn_by = ("operations" if rn_flops / PEAK_FP32_FLOPS
-             >= rn_bytes / PEAK_BYTES_PER_S else "bytes")
+    # the same shapes in the model's strided layout (the prefill's inputs)
+    mv = ssd_model_layout(4, 24, 128)
+    ssd_strided_ms, _ = cuda_ms(torch, lambda: ssd(*mv, chunk=256), 20)
+    zv = ssd_model_layout(2, 80, 64)
+    ssd_zamba_strided_ms, _ = cuda_ms(torch, lambda: ssd(*zv, chunk=256), 20)
+    rn_flops, rn_bytes, rn_bound, rn_by = rn_cost(4096, 960)
     print(f"  flash_attention {fa_ms:.4f} ms (plain {fa_plain_ms:.4f}, sdpa "
           f"{fa_lib_ms:.4f}, bound {fa_bound:.4f} by {fa_by}), at the "
           f"zamba2 shape {fa_zamba_ms:.4f} ms (sdpa {fa_zamba_lib_ms:.4f}, "
           f"bound {fa_zamba_bound:.4f} by {fa_zamba_by}); rmsnorm "
           f"{rn_ms:.4f} ms (plain {rn_plain_ms:.4f}, F.rms_norm "
           f"{rn_lib_ms:.4f}, bound {rn_bound:.4f} by {rn_by}); rmsnorm at "
-          f"4 rows {rn_decode_ms:.4f} ms; ssd {ssd_ms:.4f} ms (plain "
-          f"{ssd_plain_ms:.4f}, no library call, bound {ssd_bound:.4f} by "
-          f"{ssd_by}), ssd at the zamba2 shape {ssd_zamba_ms:.4f} ms; host "
-          f"us per call: flash {fa_host_us:.1f}, rmsnorm {rn_host_us:.1f}, "
-          f"ssd {ssd_host_us:.1f}", flush=True)
+          f"4 rows {rn_decode_ms:.4f} ms (F.rms_norm {rn_decode_lib_ms:.4f});"
+          f" ssd {ssd_ms:.4f} ms (plain {ssd_plain_ms:.4f}, no library "
+          f"call, bound {ssd_bound:.4f} by {ssd_by}), in the model's strided "
+          f"layout {ssd_strided_ms:.4f} ms; ssd at the zamba2 shape "
+          f"{ssd_zamba_ms:.4f} ms (bound {ssd_zamba_bound:.4f}), strided "
+          f"{ssd_zamba_strided_ms:.4f} ms; host us per call: flash "
+          f"{fa_host_us:.1f}, rmsnorm {rn_host_us:.1f}, ssd "
+          f"{ssd_host_us:.1f}", flush=True)
+    for r in rn_shapes:
+        print(f"  rmsnorm {r['shape'][0]} x {r['shape'][1]}: {r['ms']:.5f} ms, "
+              f"F.rms_norm {r['library_ms']:.5f} ms, bound "
+              f"{r['bound_ms']:.5f} by {r['bound_by']}", flush=True)
     return {
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
@@ -381,7 +439,9 @@ def phase_kernels(torch, dev):
             "tolerance": RN_TOL["bfloat16"], "ms": rn_ms,
             "plain_ms": rn_plain_ms, "bound_ms": rn_bound,
             "bound_by": rn_by, "library_ms": rn_lib_ms,
-            "decode_rows_ms": rn_decode_ms, "host_us": rn_host_us,
+            "decode_rows_ms": rn_decode_ms,
+            "decode_rows_library_ms": rn_decode_lib_ms,
+            "model_shapes": rn_shapes, "host_us": rn_host_us,
             "flops": rn_flops, "bytes": rn_bytes},
         "ssd": {
             "name": "ssd", "route": "cuda",
@@ -392,7 +452,9 @@ def phase_kernels(torch, dev):
             "ms": ssd_ms, "plain_ms": ssd_plain_ms, "bound_ms": ssd_bound,
             "bound_by": ssd_by, "library_ms": None,
             "library": "none: no PyTorch call computes the SSD scan",
+            "strided_ms": ssd_strided_ms,
             "zamba2_shape_ms": ssd_zamba_ms,
+            "zamba2_shape_strided_ms": ssd_zamba_strided_ms,
             "zamba2_shape_bound_ms": ssd_zamba_bound, "host_us": ssd_host_us,
             "flops": ssd_flops, "bytes": ssd_bytes},
     }
@@ -431,12 +493,14 @@ def phase_serve(torch, dev, arch, batch, n_requests, slots, max_new,
     for w in wrappers.values():
         w.launches = 0
     flash_attention.tc_launches = 0
+    ssd.tc_launches = 0
     t0 = time.perf_counter()
     logits = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     prefill_first_s = time.perf_counter() - t0
     after_prefill = {k: w.launches for k, w in wrappers.items()}
     tc_prefill = flash_attention.tc_launches
+    ssd_tc_prefill = ssd.tc_launches
     queue = make_requests(n_requests, cfg.vocab_size)
     results, stats = serve_loop(params, cfg, scfg, queue, slots=slots,
                                 max_new=max_new, device=dev)
@@ -451,6 +515,9 @@ def phase_serve(torch, dev, arch, batch, n_requests, slots, max_new,
           and tc_total == counts["flash_attention"],
           f"{arch}: every flash-attention launch took the tensor-core "
           f"kernel ({tc_prefill} in prefill, {tc_total} in all)")
+    check(ssd_tc_prefill == after_prefill["ssd"],
+          f"{arch}: every SSD launch of the prefill took the tensor-core "
+          f"kernel ({ssd_tc_prefill} of {after_prefill['ssd']})")
     check(logits.shape == (batch, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           f"{arch} prefill logits {tuple(logits.shape)} finite")
@@ -506,7 +573,8 @@ def phase_serve(torch, dev, arch, batch, n_requests, slots, max_new,
             "decode_tok_per_s": stats["tok_per_s"],
             "decode_steps": steps, "decode_wall_s": stats["wall_s"],
             "peak_memory_bytes": peak_bytes, "params": n_params,
-            "flash_attention_tc_launches": tc_total}, counts
+            "flash_attention_tc_launches": tc_total,
+            "ssd_tc_launches": ssd_tc_prefill}, counts
 
 
 def phase_main_paths(torch, dev):
@@ -633,6 +701,8 @@ def main():
         entry["launches_by_path"] = by_path
     kernels["flash_attention"]["tc_launches"] = sum(
         m["flash_attention_tc_launches"] for m in metrics.values())
+    kernels["ssd"]["tc_launches"] = sum(
+        m["ssd_tc_launches"] for m in metrics.values())
     metrics.update(card=card, build_s=build_s)
     print(json.dumps({"metrics": metrics}))
     print(card)

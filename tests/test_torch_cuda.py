@@ -12,6 +12,14 @@ SSD in float32: 5e-4 plus a relative 1e-5 (sums of up to 1024 terms in
 64-row tiles against the plain version's chunks, outputs up to ~40;
 2.1e-4 seen on the H100).
 
+bfloat16 SSD runs the tensor-core kernel, whose arithmetic (128-row
+chunks, fp32-derived operands split into bf16 hi + lo) `ssd_tc_plain`
+models; it is also held to `ssd_tc_plain` at 2^-9 plus a relative 2^-7:
+the two round the same fp32 function to bf16 once and differ before that
+only by the order of fp32 sums and exp approximations, so they land at
+most one output ulp apart (at most 2^-7 relative), and 2^-9 covers
+outputs near zero.
+
 bfloat16 flash attention runs the tensor-core kernel, which rounds P to
 bf16 before P.V as `flash_plain` does; it is also held to `flash_plain`
 at 2^-8 plus a relative 2^-7: the two round an fp32 result to bf16 once
@@ -29,8 +37,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention, tc_block_k
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_plain
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
-from repro_torch.kernels.ssd.ops import ssd
-from repro_torch.kernels.ssd.ref import ssd_plain, ssd_ref
+from repro_torch.kernels.ssd.ops import TC_CHUNK, ssd
+from repro_torch.kernels.ssd.ref import ssd_plain, ssd_ref, ssd_tc_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -242,7 +250,9 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("shape", [(2, 64, 128), (300, 96), (1, 1, 256),
                                    (257, 384), (4096, 960), (4, 1, 960),
-                                   (33, 100), (4096, 1536), (2048, 5120)])
+                                   (33, 100), (4096, 1536), (2048, 5120),
+                                   (4096, 768), (2048, 2560), (4, 768),
+                                   (4, 1536), (2, 2560), (2, 5120)])
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
     rng = np.random.default_rng(3)
     x = _t(rng.standard_normal(shape), DTYPES[dtype], cuda)
@@ -269,6 +279,7 @@ def test_rmsnorm_kernel_mixed_scale_dtype_and_strided_rows(cuda):
 
 
 SSD_TOL = {"float32": (5e-4, 1e-5), "bfloat16": (2e-2, 2.0 ** -7)}
+TC_PLAIN_TOL = (2.0 ** -9, 2.0 ** -7)
 
 
 def _ssd_inputs(b, L, H, P, N, dtype, dev, steep=False, seed=5):
@@ -296,16 +307,71 @@ def _ssd_inputs(b, L, H, P, N, dtype, dev, steep=False, seed=5):
 ])
 def test_ssd_kernel_matches_plain(cuda, dtype, b, L, H, P, N, chunk, steep):
     x, dt, A, B, C = _ssd_inputs(b, L, H, P, N, DTYPES[dtype], cuda, steep)
-    before = ssd.launches
+    before, tc_before = ssd.launches, ssd.tc_launches
     y, none = ssd(x, dt, A, B, C, chunk=chunk)
     torch.cuda.synchronize()
     assert none is None and ssd.launches == before + 1
+    assert ssd.tc_launches == tc_before + (dtype == "bfloat16")
     assert y.dtype == x.dtype and bool(torch.isfinite(y).all())
     want = ssd_plain(x, dt, A, B, C, chunk)
     atol, rtol = SSD_TOL[dtype]
     np.testing.assert_allclose(y.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=atol,
                                rtol=rtol)
+    if dtype == "bfloat16":
+        model = ssd_tc_plain(x, dt, A, B, C, TC_CHUNK)
+        atol, rtol = TC_PLAIN_TOL
+        np.testing.assert_allclose(y.float().cpu().numpy(),
+                                   model.float().cpu().numpy(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("b,H,N", [(4, 24, 128), (2, 80, 64)])
+def test_ssd_tc_kernel_in_the_models_strided_layout(cuda, b, H, N):
+    """x, B and C as the model hands them in: views of one (b, L, H.P + 2N)
+    bf16 conv output (mamba2-130m's and zamba2-2.7b's widths)."""
+    rng = np.random.default_rng(10)
+    L, P = 1024, 64
+    xBC = _t(0.5 * rng.standard_normal((b, L, H * P + 2 * N)),
+             torch.bfloat16, cuda)
+    x, B, C = torch.split(xBC, [H * P, N, N], dim=-1)
+    x = x.reshape(b, L, H, P)
+    dt = _t(np.logaddexp(rng.standard_normal((b, L, H)), 0.0),
+            torch.float32, cuda)
+    A = _t(-np.exp(0.3 * rng.standard_normal(H)), torch.float32, cuda)
+    before = ssd.tc_launches
+    y, _ = ssd(x, dt, A, B, C, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd.tc_launches == before + 1
+    want = ssd_plain(x, dt, A, B, C, 256)
+    atol, rtol = SSD_TOL["bfloat16"]
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+
+
+def test_ssd_tc_kernel_shorter_than_its_chunk(cuda):
+    """L = 100 < 128: one chunk, the single-launch path, at mamba2's
+    widths."""
+    x, dt, A, B, C = _ssd_inputs(2, 100, 4, 64, 128, torch.bfloat16, cuda,
+                                 seed=11)
+    y, _ = ssd(x, dt, A, B, C)
+    torch.cuda.synchronize()
+    want = ssd_plain(x, dt, A, B, C, 128)
+    atol, rtol = SSD_TOL["bfloat16"]
+    np.testing.assert_allclose(y.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("P,N", [(48, 64), (64, 96), (128, 64), (64, 256),
+                                 (8, 16)])
+def test_ssd_tc_kernel_rejects_unsupported_widths(cuda, P, N):
+    x, dt, A, B, C = _ssd_inputs(1, 64, 2, P, N, torch.bfloat16, cuda)
+    before = ssd.launches
+    with pytest.raises(ValueError, match="tensor-core kernel"):
+        ssd(x, dt, A, B, C)
+    assert ssd.launches == before
 
 
 def test_ssd_kernel_matches_sequential_ref_and_strided_views(cuda):

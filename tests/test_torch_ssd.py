@@ -12,6 +12,12 @@ same float32 values on both sides.  Tolerances:
 - `ssd_ref` vs the reference's `ssd_ref`: 1e-5 (the same fp32
   recurrence);
 - `ssd_plain` vs `ssd_ref`: the reference's own 1e-3 / 1e-1.
+
+`ssd_tc_plain` (the bf16 tensor-core kernel's arithmetic, at that
+kernel's 128-row chunk) is held to the same Pallas kernel and oracle at
+the same tolerances, and to `ssd_plain` at the card's `SSD_TOL` for bf16
+(2e-2 plus 2^-7 relative, `chip_smoke.py`): the split keeps each fp32
+operand to ~2^-16, so the two differ by about one output ulp.
 """
 
 import jax.numpy as jnp
@@ -21,13 +27,15 @@ import torch
 
 from repro.kernels.ssd.ops import ssd as jax_ssd
 from repro.kernels.ssd.ref import ssd_ref as jax_ssd_ref
-from repro_torch.kernels.ssd.ops import ssd
-from repro_torch.kernels.ssd.ref import ssd_plain, ssd_ref
+from repro_torch.kernels.ssd.ops import TC_CHUNK, ssd
+from repro_torch.kernels.ssd.ref import (split_bf16, ssd_plain,
+                                         ssd_ref, ssd_tc_plain)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 KERNEL_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
 REF_TOL = {"float32": 1e-3, "bfloat16": 1e-1}
+SSD_TOL_BF16 = (2e-2, 2.0 ** -7)   # chip_smoke.py's SSD_TOL["bfloat16"]
 SHAPES = [            # b, L, H, P, N, chunk: tests/test_kernels.py's
     (1, 64, 4, 16, 16, 16),
     (2, 256, 8, 32, 32, 128),
@@ -103,6 +111,58 @@ def test_plain_ssd_does_not_depend_on_its_tile(tile):
     want = ssd_plain(x, dt, A, B, C, chunk=32)
     got = ssd_plain(x, dt, A, B, C, chunk=tile)
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,L,H,P,N,chunk", SHAPES)
+def test_tc_plain_matches_jax_kernel(dtype, b, L, H, P, N, chunk):
+    arrays = _inputs(b, L, H, P, N, seed=8)
+    want, _ = jax_ssd(*_jax(arrays, JDT[dtype]), chunk=chunk)
+    got = ssd_tc_plain(*_torch(arrays, TDT[dtype]), chunk=TC_CHUNK)
+    assert got.dtype == TDT[dtype] and got.shape == (b, L, H, P)
+    atol, rtol = KERNEL_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,L,H,P,N,chunk", SHAPES)
+def test_tc_plain_matches_sequential_ref(dtype, b, L, H, P, N, chunk):
+    arrays = _inputs(b, L, H, P, N, seed=9)
+    x, dt, A, B, C = _torch(arrays, TDT[dtype])
+    got = ssd_tc_plain(x, dt, A, B, C, chunk=TC_CHUNK)
+    want, _ = ssd_ref(x.float(), dt, A, B.float(), C.float())
+    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                               atol=REF_TOL[dtype])
+
+
+def test_tc_plain_matches_plain_at_the_cards_tolerance():
+    """Ragged L = 1000 at mamba2's widths (P = 64, N = 128), bf16: the
+    split arithmetic against the fp32 chunked function, at the tolerance
+    the card holds the tensor-core kernel to."""
+    x, dt, A, B, C = _torch(_inputs(1, 1000, 4, 64, 128, seed=10),
+                            torch.bfloat16)
+    got = ssd_tc_plain(x, dt, A, B, C, chunk=TC_CHUNK)
+    want = ssd_plain(x, dt, A, B, C, chunk=256)
+    atol, rtol = SSD_TOL_BF16
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               atol=atol, rtol=rtol)
+
+
+def test_split_bf16_reproduces_fp32():
+    """hi + lo keeps 16 significant bits: within 2^-16 of the value over
+    the exponents the kernel's operands take."""
+    rng = np.random.default_rng(11)
+    v = torch.from_numpy((rng.standard_normal(4096)
+                          * np.exp2(rng.integers(-40, 40, 4096)))
+                         .astype(np.float32))
+    hi, lo = split_bf16(v)
+    assert hi.dtype == lo.dtype == torch.float32
+    assert torch.equal(hi, hi.to(torch.bfloat16).float())
+    assert torch.equal(lo, lo.to(torch.bfloat16).float())
+    rel = ((hi + lo) - v).abs() / v.abs()
+    assert float(rel.max()) <= 2.0 ** -16
 
 
 def test_plain_ssd_steep_decay_is_finite():
