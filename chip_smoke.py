@@ -24,7 +24,17 @@ Phases, each of which fails the run (exit code 1, no result line):
    3c. full-width zamba2-2.7b: prefill 2 x 1024, 4 requests on 2 slots;
 4. reference checks on small inputs: the kernel path on the card against
    the plain path on the CPU (float32), and token-by-token decode against
-   the full forward (the repository's decode-vs-forward invariant).
+   the full forward (the repository's decode-vs-forward invariant);
+5. training, full-width smollm-360m (bf16, AdamW, remat, 8 x 1024 tokens
+   from the data pipeline), through `make_train_step`, the launcher's
+   `train_loop` and the checkpointer: exact launch counts of one step
+   (remat's recompute included), one step with the kernels against the
+   plain path in bf16 and in float32, 20 steps with the CE falling and no
+   recovery, a checkpoint restored into a fresh state whose next step
+   matches the uninterrupted run bit for bit, and a profile of 3 steps
+   (`launch/profile.py`: the plain attention backward's share).
+   Phase 2 also holds the RMSNorm backward kernel to `rmsnorm_bwd_ref`,
+   and phase 2b times it.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
@@ -70,6 +80,30 @@ ZAMBA_PREFILL_TOL = 3.0
 # through 24-54 layers (at most 1.5e-3 on an H100)
 FULL_FP32_TOL = 1e-2
 DECODE_TOL = 0.15       # tests/test_models.py, decode vs forward in bf16
+# One full-width train step (smollm-360m, 8 x 1024, bf16), kernels vs plain
+# path: the two round attention at different points (online softmax in the
+# kernel, the full bf16 row in the plain path), and their backward passes
+# differ (the fp32 VJP of attention_ref against autograd of the bf16 plain
+# attention), through 32 layers; the mean CE over 8192 tokens differs by
+# 3e-4 on an H100 80GB HBM3.
+TRAIN_LOSS_TOL = 0.02
+# The same step with float32 weights: the same arithmetic in fp32, sums in
+# another order, 32 layers: 8.4e-8 relative on the same card (2 layers
+# agree to 1.5e-7 on the CPU, JAX vs port)
+TRAIN_FP32_LOSS_RTOL = 1e-5
+# float32 first moments (0.1 x the clipped gradient), per leaf, as a share of
+# the leaf's largest: 1.7e-6 on the same card (2 reduced layers: 1.5e-5 on
+# the CPU, JAX vs port)
+TRAIN_FP32_GRAD_TOL = 1e-4
+# float32 updated weights where the first moment's sign is settled: AdamW's
+# first step moves each by about lr0 * sign(g) (5e-4 here), so gradients
+# 1e-6 apart move the weights by ~1e-10 apart, plus fp32 rounding (~1e-7)
+TRAIN_FP32_PARAM_TOL = 1e-6
+TRAIN_STEPS = 20
+# the CE of random-init smollm-360m on the pipeline's Zipf-bigram tokens
+# starts near log(49152) = 10.8, is 9.6 after one step and about 6.5 after
+# 20 on an H100 80GB HBM3
+TRAIN_CE_DROP = 1.0
 PARITY_TOL = 1e-4       # float32 card vs CPU, as tests/test_torch_model.py
 SLEEP_CYCLES = 100_000_000   # ~50 ms at the H100's clocks
 
@@ -137,6 +171,29 @@ def rn_cost(rows, d):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def rn_bwd_cost(rows, d):
+    """(flops, bytes, bound ms, what bounds it) of the bf16 RMSNorm
+    backward: x and g read once, dx written once, the scale read and
+    dscale written once; ~10 flops an element (the two row sums, dx, the
+    dscale term) at the fp32 rate."""
+    flops = 10 * rows * d
+    nbytes = 2 * (3 * rows * d + 2 * d)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def dscale_ok(torch, got, want, x, g, dtype):
+    """dscale within float32 sums in another order (1e-5 of the sum of
+    the terms' magnitudes |g x r|) plus, in bf16, one ulp of the result."""
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+    mag = (gf * xf * r).abs().reshape(-1, x.shape[-1]).sum(0)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    err = (got.float() - want.float()).abs()
+    return bool((err <= 1e-5 * mag + rtol * want.float().abs()).all())
+
+
 def fa_cost(B, S, H, K, D):
     """(flops, bytes, bound ms, what bounds it) of causal bf16 attention
     with S = T: QK^T and PV over the causal (query, key) pairs, 2 flops a
@@ -158,19 +215,14 @@ def close(torch, got, want, atol, rtol):
                                rtol=rtol))
 
 
-def tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def phase_kernels(torch, dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.kernels.flash_attention.ops import _ref_call
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
     from repro_torch.kernels.ssd.ops import ssd
     from repro_torch.kernels.ssd.ref import ssd_plain, ssd_ref
 
@@ -264,6 +316,37 @@ def phase_kernels(torch, dev):
                   f"(atol {atol}, rtol {rtol})")
             if dname == "bfloat16" and shape == (4096, 960):
                 rn_err = err
+
+    # the backward kernel: smollm-360m's training rows (8 x 1024), odd row
+    # counts, d not a multiple of 8, wider rows, both scale dtypes
+    rn_bwd_cases = [(8192, 960), (8, 1024, 960), (257, 384), (33, 100),
+                    (1, 1, 256), (3, 12), (1001, 1536), (2049, 5120),
+                    (5, 20000)]
+    rn_bwd_err = None
+    for dname, dtype in dts.items():
+        atol, rtol = RN_TOL[dname]
+        for sdtype in dts.values():
+            for shape in rn_bwd_cases:
+                x, g = randn(shape, dtype), randn(shape, dtype)
+                s = (torch.linspace(0.5, 1.5, shape[-1], device=dev)).to(
+                    sdtype)
+                dx, ds = rmsnorm_bwd(x, g, s)
+                rdx, rds = rmsnorm_bwd_ref(x, g, s)
+                torch.cuda.synchronize()
+                err = max_err(dx, rdx)
+                again = rmsnorm_bwd(x, g, s)
+                check(close(torch, dx, rdx, atol, rtol)
+                      and dscale_ok(torch, ds, rds, x, g, sdtype)
+                      and torch.equal(again[0], dx)
+                      and torch.equal(again[1], ds),
+                      f"rmsnorm backward {dname} x, {sdtype} scale {shape}: "
+                      f"dx max err {err:.3g} (atol {atol}, rtol {rtol}), "
+                      f"dscale max err {max_err(ds, rds):.3g} (1e-5 of the "
+                      f"terms' magnitudes + one ulp); same bits when "
+                      f"repeated")
+                if (dname == "bfloat16" and sdtype == torch.bfloat16
+                        and shape == (8192, 960)):
+                    rn_bwd_err = err
 
     def ssd_inputs(b, L, H, P, N, dtype, steep=False):
         x = (0.5 * randn((b, L, H, P), torch.float32)).to(dtype)
@@ -366,6 +449,44 @@ def phase_kernels(torch, dev):
     rn_plain_ms, _ = cuda_ms(torch, lambda: rmsnorm_ref(x, s), 200)
     rn_lib_ms, _ = cuda_ms(torch, lambda: F.rms_norm(x, (960,), s, 1e-6),
                            200)
+    # the backward at smollm-360m's training rows; the library yardstick is
+    # aten's fused RMSNorm backward where this torch has it (it reads the
+    # rstd its forward saved), else autograd's backward through F.rms_norm
+    xb, gb = randn((8192, 960), torch.bfloat16), randn((8192, 960),
+                                                        torch.bfloat16)
+    rn_bwd_ms, rn_bwd_host_us = cuda_ms(
+        torch, lambda: rmsnorm_bwd(xb, gb, s), 200)
+    rn_bwd_plain_ms, _ = cuda_ms(torch, lambda: rmsnorm_bwd_ref(xb, gb, s),
+                                 50)
+    if hasattr(torch.ops.aten, "_fused_rms_norm_backward"):
+        _, rstd = torch.ops.aten._fused_rms_norm(xb, [960], s, 1e-6)
+        rn_bwd_lib = "torch.ops.aten._fused_rms_norm_backward"
+        rn_bwd_lib_ms, _ = cuda_ms(
+            torch, lambda: torch.ops.aten._fused_rms_norm_backward(
+                gb, xb, [960], rstd, s, [True, True]), 200)
+    else:
+        xr, sr = xb.clone().requires_grad_(), s.clone().requires_grad_()
+        yr = F.rms_norm(xr, (960,), sr, 1e-6)
+        rn_bwd_lib = "autograd backward of F.rms_norm"
+        rn_bwd_lib_ms, _ = cuda_ms(torch, lambda: torch.autograd.grad(
+            yr, (xr, sr), gb, retain_graph=True), 200)
+    rn_bwd_flops, rn_bwd_bytes, rn_bwd_bound, rn_bwd_by = rn_bwd_cost(
+        8192, 960)
+    # the plain attention backward the training path runs (the VJP of
+    # `attention_ref`, its forward recomputed), at smollm's training shape
+    tq = randn((8, 1024, 15, 64), torch.bfloat16)
+    tk, tv = (randn((8, 1024, 5, 64), torch.bfloat16) for _ in range(2))
+    tg = randn((8, 1024, 15, 64), torch.bfloat16)
+
+    def fa_plain_bwd():
+        qkv = [t.detach().requires_grad_() for t in (tq, tk, tv)]
+        with torch.enable_grad():
+            out = _ref_call(*qkv, pos, pos, None, None, 64 ** -0.5, True)
+            return torch.autograd.grad(out, qkv, tg)
+
+    fa_train_ms, _ = cuda_ms(torch, lambda: flash_attention(tq, tk, tv, pos,
+                                                            pos), 20)
+    fa_plain_bwd_ms, _ = cuda_ms(torch, fa_plain_bwd, 5)
     x4 = randn((4, 960), torch.bfloat16)
     rn_decode_ms, _ = cuda_ms(torch, lambda: rmsnorm(x4, s), 500)
     rn_decode_lib_ms, _ = cuda_ms(
@@ -416,6 +537,12 @@ def phase_kernels(torch, dev):
         print(f"  rmsnorm {r['shape'][0]} x {r['shape'][1]}: {r['ms']:.5f} ms, "
               f"F.rms_norm {r['library_ms']:.5f} ms, bound "
               f"{r['bound_ms']:.5f} by {r['bound_by']}", flush=True)
+    print(f"  rmsnorm backward 8192 x 960: {rn_bwd_ms:.5f} ms (plain "
+          f"{rn_bwd_plain_ms:.5f}, {rn_bwd_lib} {rn_bwd_lib_ms:.5f}, bound "
+          f"{rn_bwd_bound:.5f} by {rn_bwd_by}; host us {rn_bwd_host_us:.1f}); "
+          f"flash attention at the training shape (8,1024,15,64) "
+          f"{fa_train_ms:.4f} ms, its plain backward (forward recomputed, "
+          f"VJP) {fa_plain_bwd_ms:.4f} ms", flush=True)
     return {
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
@@ -430,7 +557,11 @@ def phase_kernels(torch, dev):
             "zamba2_shape_bound_ms": fa_zamba_bound,
             "zamba2_shape_bound_by": fa_zamba_by,
             "zamba2_shape_library_ms": fa_zamba_lib_ms, "host_us": fa_host_us,
-            "flops": fa_flops, "bytes": fa_bytes},
+            "flops": fa_flops, "bytes": fa_bytes,
+            "train_shape_ms": fa_train_ms,
+            "train_plain_backward_ms": fa_plain_bwd_ms,
+            "train_backward": "the VJP of the plain attention (no backward "
+                              "kernel, as in the reference)"},
         "rmsnorm": {
             "name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -442,7 +573,13 @@ def phase_kernels(torch, dev):
             "decode_rows_ms": rn_decode_ms,
             "decode_rows_library_ms": rn_decode_lib_ms,
             "model_shapes": rn_shapes, "host_us": rn_host_us,
-            "flops": rn_flops, "bytes": rn_bytes},
+            "flops": rn_flops, "bytes": rn_bytes,
+            "bwd_shape": "x, g (8192,960) bf16, scale bf16",
+            "bwd_max_abs_err": rn_bwd_err, "bwd_ms": rn_bwd_ms,
+            "bwd_plain_ms": rn_bwd_plain_ms, "bwd_bound_ms": rn_bwd_bound,
+            "bwd_bound_by": rn_bwd_by, "bwd_library_ms": rn_bwd_lib_ms,
+            "bwd_library": rn_bwd_lib, "bwd_host_us": rn_bwd_host_us,
+            "bwd_flops": rn_bwd_flops, "bwd_bytes": rn_bwd_bytes},
         "ssd": {
             "name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
@@ -475,6 +612,7 @@ def phase_serve(torch, dev, arch, batch, n_requests, slots, max_new,
     from repro_torch.launch.serve import make_requests, serve_loop
     from repro_torch.models import build_model, param_count
     from repro_torch.runtime.serve import ServeConfig, make_serve_fns
+    from repro_torch.tree import tree_map
 
     wrappers = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
                 "ssd": ssd}
@@ -605,6 +743,7 @@ def phase_reference_checks(torch, dev):
 
     from repro_torch.configs import ARCHS, reduced
     from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
 
     print("phase 4: reference checks on small inputs", flush=True)
     for arch in ("smollm-360m", "gemma2-2b", "mamba2-130m", "zamba2-2.7b"):
@@ -662,6 +801,234 @@ def phase_reference_checks(torch, dev):
           f"(tol {DECODE_TOL})")
 
 
+def tree_max_err(torch, a, b):
+    from repro_torch.tree import leaves
+    return max(max_err(x, y) for x, y in zip(leaves(a), leaves(b)))
+
+
+def tree_equal(torch, a, b):
+    from repro_torch.tree import leaves
+    return all(x.dtype == y.dtype and torch.equal(x, y)
+               for x, y in zip(leaves(a), leaves(b)))
+
+
+def phase_train(torch, dev):
+    """Full-width smollm-360m training (bf16 weights from seed 0, AdamW,
+    remat on, 8 x 1024 tokens a step from the data pipeline)."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import (AsyncCheckpointer,
+                                                     latest_steps, restore)
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.launch.profile import profile_train
+    from repro_torch.launch.train import device_batch, train_loop
+    from repro_torch.models import param_count
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+    from repro_torch.tree import leaves, named_leaves, tree_map
+
+    print("phase 5: training, full-width smollm-360m", flush=True)
+    arch, B, S = "smollm-360m", 8, 1024
+    cfg = ARCHS[arch]
+    dcfg = DataConfig(seq_len=S, global_batch=B, vocab_size=cfg.vocab_size)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+
+    def tcfg(impl):
+        return TrainConfig(optimizer=opt, attention_impl=impl, remat=True)
+
+    step_fn, init_fn = make_train_step(cfg, tcfg("auto"), dev)
+    plain_fn, _ = make_train_step(cfg, tcfg("naive"), dev)
+
+    def batch_fn(step):
+        return device_batch(cfg, dcfg, step, dev)
+
+    state0 = init_fn(torch.Generator(device=dev).manual_seed(0))
+    n_params = param_count(state0["params"])
+    b0 = batch_fn(0)
+
+    # 5a: launches of one step, derived from the model: every block's norm
+    # runs in the forward and again in remat's recompute, the final norm
+    # once; every attention block likewise; one norm backward per norm
+    blocks = len(cfg.unit) * cfg.n_units
+    attn = sum(b.kind == "attn" for b in cfg.unit) * cfg.n_units
+    expected = {"flash_attention": 2 * attn, "rmsnorm": 2 * blocks + 1,
+                "rmsnorm.bwd": blocks + 1, "ssd": 0}
+    for w in (flash_attention, rmsnorm, ssd):
+        w.launches = 0
+    rmsnorm.bwd_launches = flash_attention.tc_launches = 0
+    t0 = time.perf_counter()
+    state1, m1 = step_fn(state0, b0)
+    torch.cuda.synchronize()
+    first_step_s = time.perf_counter() - t0
+    counts = {"flash_attention": flash_attention.launches,
+              "rmsnorm": rmsnorm.launches,
+              "rmsnorm.bwd": rmsnorm.bwd_launches, "ssd": ssd.launches}
+    check(counts == expected and flash_attention.tc_launches == 2 * attn,
+          f"{arch} train step launched {counts} (expected {expected}: "
+          f"{blocks} blocks, {attn} attention, remat's recompute included; "
+          f"all {flash_attention.tc_launches} flash launches on the "
+          f"tensor-core kernel)")
+    check(all(bool(torch.isfinite(t).all()) for t in leaves(state1))
+          and int(state1["step"]) == 1,
+          f"{arch} one step: loss {float(m1['loss']):.5f}, every leaf of "
+          f"the new state finite")
+
+    # 5b: the same step on the plain path (plain attention and norms)
+    p1, pm1 = plain_fn(state0, b0)
+    loss_err = abs(float(m1["loss"]) - float(pm1["loss"]))
+    lr0 = float(opt.lr) / opt.warmup_steps
+    worst = 0.0
+    for (_, a), b, p in zip(named_leaves(state1["params"]),
+                            leaves(p1["params"]), leaves(state0["params"])):
+        # at most two steps apart (a gradient near zero may change sign)
+        # plus one bf16 ulp of the weight
+        excess = ((a.float() - b.float()).abs() - 2.2 * lr0
+                  - 2.0 ** -7 * p.float().abs()).max()
+        worst = max(worst, float(excess))
+    differ = sum(int((a != b).sum()) for a, b in zip(
+        leaves(state1["params"]), leaves(p1["params"])))
+    check(loss_err <= TRAIN_LOSS_TOL and worst <= 0.0,
+          f"{arch} bf16 step, kernels vs plain path: loss "
+          f"{float(m1['loss']):.5f} vs {float(pm1['loss']):.5f} (diff "
+          f"{loss_err:.3g}, tol {TRAIN_LOSS_TOL}); updated params within "
+          f"two steps (2 lr = {2 * lr0:.3g}) plus one bf16 ulp; "
+          f"{differ} of {n_params} weights differ")
+    del p1
+    # ... and with float32 weights: the first moments (0.1 x the clipped
+    # gradient) agree per leaf; the loss to TRAIN_FP32_LOSS_RTOL
+    state0_f32 = dict(state0, params=tree_map(lambda t: t.float(),
+                                              state0["params"]))
+    k1, km = step_fn(state0_f32, b0)
+    q1, qm = plain_fn(state0_f32, b0)
+    fp32_rel = abs(float(km["loss"]) - float(qm["loss"])) / abs(
+        float(qm["loss"]))
+    mu_err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                 for a, b in zip(leaves(k1["opt"]["mu"]),
+                                 leaves(q1["opt"]["mu"])))
+    # updated weights: where the first moment is clear of zero (twice its
+    # tolerance) the step's sign is settled and the two agree to
+    # TRAIN_FP32_PARAM_TOL; elsewhere within two steps
+    p_err, unsettled, within_two = 0.0, 0, True
+    for a, b, mu in zip(leaves(k1["params"]), leaves(q1["params"]),
+                        leaves(q1["opt"]["mu"])):
+        settled = mu.abs() > 2 * TRAIN_FP32_GRAD_TOL * mu.abs().max()
+        d = (a - b).abs()
+        p_err = max(p_err, float(d[settled].max()) if settled.any() else 0.0)
+        unsettled += int((~settled).sum())
+        within_two &= float(d.max()) <= 2.2 * lr0 + 2.0 ** -22 * float(
+            b.abs().max())
+    check(fp32_rel <= TRAIN_FP32_LOSS_RTOL and mu_err <= TRAIN_FP32_GRAD_TOL
+          and p_err <= TRAIN_FP32_PARAM_TOL and within_two,
+          f"{arch} float32 step, kernels vs plain path: loss relative diff "
+          f"{fp32_rel:.3g} (tol {TRAIN_FP32_LOSS_RTOL}); first moments "
+          f"(0.1 x clipped gradient) per leaf {mu_err:.3g} of the leaf's "
+          f"largest (tol {TRAIN_FP32_GRAD_TOL}); updated weights {p_err:.3g} "
+          f"apart where the step's sign is settled (tol "
+          f"{TRAIN_FP32_PARAM_TOL}; {unsettled} weights with a first moment "
+          f"within twice its tolerance of zero held to two steps: "
+          f"{within_two})")
+    del k1, q1, state0_f32, state1, state0
+    torch.cuda.empty_cache()
+
+    # 5c: TRAIN_STEPS steps through the launcher's loop, checkpoints async;
+    # the initial state is made again from its seed, so that no reference
+    # outside the loop keeps it alive (peak memory is the loop's own)
+    def initial_state():
+        return init_fn(torch.Generator(device=dev).manual_seed(0))
+
+    ckdir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ck = AsyncCheckpointer(str(ckdir), keep=3)
+    torch.cuda.reset_peak_memory_stats()
+    state, stats = train_loop(step_fn, initial_state(), batch_fn,
+                              TRAIN_STEPS, ck, ckpt_every=10,
+                              log_every=TRAIN_STEPS,
+                              restart_fn=initial_state)
+    torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    ck.save_async(state, TRAIN_STEPS)
+    ck.wait()
+    ce = [stats["ce"][i] for i in range(TRAIN_STEPS)]
+    ce_end = sum(ce[-3:]) / 3
+    check(stats["recoveries"] == 0 and stats["steps_run"] == TRAIN_STEPS
+          and ce_end < ce[0] - TRAIN_CE_DROP,
+          f"{arch}: {TRAIN_STEPS} steps, ce {ce[0]:.4f} -> {ce[-1]:.4f} (the "
+          f"last 3 average {ce_end:.4f}, must be more than {TRAIN_CE_DROP} "
+          f"below the first), {stats['recoveries']} recoveries; checkpoints "
+          f"{latest_steps(str(ckdir))}")
+    warm = sorted(stats["step_s"][i] for i in range(2, TRAIN_STEPS))
+    step_s = warm[len(warm) // 2]
+
+    # 5d: restore into a fresh state; the next step matches the
+    # uninterrupted run bit for bit
+    fresh = init_fn(torch.Generator(device=dev).manual_seed(1))
+    restored = restore(str(ckdir), fresh)
+    check(tree_equal(torch, restored, state)
+          and int(restored["step"]) == TRAIN_STEPS,
+          f"{arch}: checkpoint step {TRAIN_STEPS} restored into a fresh "
+          f"state, bit for bit (bf16 params, fp32 moments, int32 step)")
+    del fresh
+    nb = batch_fn(TRAIN_STEPS)
+    cont, cm = step_fn(state, nb)
+    again, am = step_fn(restored, nb)
+    diff = tree_max_err(torch, cont, again)
+    check(tree_equal(torch, cont, again) and float(cm["loss"]) == float(
+        am["loss"]),
+          f"{arch}: step {TRAIN_STEPS} from the restored state matches the "
+          f"uninterrupted run bit for bit (max diff {diff:.3g}, loss "
+          f"{float(cm['loss']):.6f})")
+    del cont, again, restored, state
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 5e: where a step's device time goes (torch.profiler, 3 warm steps)
+    prof = profile_train(arch, B, S, calls=3, device=str(dev))
+    top = list(prof["kernels_us"].items())[:8]
+
+    tokens = B * S
+    H, D = cfg.n_heads, cfg.head_dim
+    attn_flops = 3 * 4 * B * H * D * (S * (S + 1) // 2) * attn
+    model_flops = 6 * n_params * tokens + attn_flops
+    mfu = model_flops / step_s / PEAK_BF16_FLOPS
+    bwd_share_of_step = prof["plain_attention_bwd_ms_per_step"] / (
+        step_s * 1e3)
+    print(f"  {arch} train step {step_s * 1e3:.2f} ms (median of steps 2-"
+          f"{TRAIN_STEPS - 1}; first {first_step_s:.2f} s), {tokens / step_s:,.0f} "
+          f"tokens/s, peak memory {peak_bytes} B, MFU {mfu:.4f} "
+          f"({model_flops:.4g} model FLOPs a step over 989 TFLOP/s); "
+          f"profile: device busy {prof['device_busy_ms_per_step']:.2f} of "
+          f"{prof['device_window_ms_per_step']:.2f} ms a step (idle share "
+          f"{prof['device_idle_share']:.3f}), plain attention backward "
+          f"{prof['plain_attention_bwd_ms_per_step']:.2f} ms a step "
+          f"({prof['plain_attention_bwd_share_of_busy']:.3f} of busy, "
+          f"{bwd_share_of_step:.3f} of the untraced step)", flush=True)
+    for name, us in top:
+        print(f"    {us / 3 / 1e3:9.4f} ms a step  {name[:100]}", flush=True)
+    metrics = {
+        "step_ms": step_s * 1e3, "first_step_s": first_step_s,
+        "tokens_per_s": tokens / step_s, "peak_memory_bytes": peak_bytes,
+        "mfu": mfu, "model_flops_per_step": model_flops, "params": n_params,
+        "ce_first": ce[0], "ce_last": ce[-1], "ce": ce,
+        "recoveries": stats["recoveries"],
+        "loss_kernels_vs_plain_bf16": loss_err,
+        "loss_rel_kernels_vs_plain_fp32": fp32_rel,
+        "first_moment_rel_kernels_vs_plain_fp32": mu_err,
+        "params_max_diff_settled_fp32": p_err,
+        "weights_differing_bf16": differ,
+        "resume_max_diff": diff,
+        "plain_attention_bwd_share_of_step": bwd_share_of_step,
+        "profile": {k: v for k, v in prof.items() if k != "kernels_us"},
+        "profile_top_kernels_us": dict(top)}
+    counts = {"flash_attention": counts["flash_attention"],
+              "rmsnorm": counts["rmsnorm"], "ssd": counts["ssd"],
+              "rmsnorm.bwd": counts["rmsnorm.bwd"]}
+    return metrics, counts
+
+
 def main():
     import torch
 
@@ -694,15 +1061,20 @@ def main():
     kernels = phase_kernels(torch, dev)
     metrics, counts = phase_main_paths(torch, dev)
     phase_reference_checks(torch, dev)
+    metrics["smollm-360m-train"], counts["smollm-360m-train"] = \
+        phase_train(torch, dev)
 
     for name, entry in kernels.items():
         by_path = {arch: c[name] for arch, c in counts.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
+    kernels["rmsnorm"]["bwd_launches"] = \
+        counts["smollm-360m-train"]["rmsnorm.bwd"]
+    serve = [m for m in metrics.values() if "flash_attention_tc_launches" in m]
     kernels["flash_attention"]["tc_launches"] = sum(
-        m["flash_attention_tc_launches"] for m in metrics.values())
-    kernels["ssd"]["tc_launches"] = sum(
-        m["ssd_tc_launches"] for m in metrics.values())
+        m["flash_attention_tc_launches"] for m in serve) + \
+        counts["smollm-360m-train"]["flash_attention"]
+    kernels["ssd"]["tc_launches"] = sum(m["ssd_tc_launches"] for m in serve)
     metrics.update(card=card, build_s=build_s)
     print(json.dumps({"metrics": metrics}))
     print(card)

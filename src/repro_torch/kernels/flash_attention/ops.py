@@ -31,6 +31,8 @@ from .. import _build
 from .ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: profiler range around the backward pass (the plain attention's VJP)
+PLAIN_BACKWARD = "flash_attention.plain_backward"
 
 
 def declare(lib: ctypes.CDLL):
@@ -134,8 +136,11 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # the VJP of the plain attention, as the reference's `_fa_bwd`;
+        # the named range lets a profile attribute its device time
         q, k, v, q_pos, k_pos = ctx.saved_tensors
-        with torch.enable_grad():
+        with torch.profiler.record_function(PLAIN_BACKWARD), \
+                torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             out = _ref_call(*qkv, q_pos, k_pos, *ctx.opts)
             dq, dk, dv = torch.autograd.grad(out, qkv, g)

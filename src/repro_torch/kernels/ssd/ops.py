@@ -125,19 +125,24 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     """x: (b, L, H, P); dt: (b, L, H) post-softplus; A: (H,) negative;
     B, C: (b, L, N).  Returns (y (b, L, H, P) in x's dtype, None).
 
-    A CPU tensor takes the plain version in chunks of `chunk`; a CUDA
-    tensor launches the kernel (its own chunk of rows; the result does
-    not depend on the chunk apart from rounding) or raises.  There is no
-    backward on either device, so an input that needs a gradient raises.
+    A CPU tensor takes the plain version in chunks of `chunk`, and
+    autograd differentiates it, as the other wrappers' CPU routes are.  A
+    CUDA tensor launches the kernel (its own chunk of rows; the result
+    does not depend on the chunk apart from rounding) or raises.  The
+    kernel has no backward, so a CUDA input that needs a gradient raises:
+    SSM training on the card waits for the SSD backward (ROADMAP.md, Next,
+    "SSD backward and SSM training on the card").
     """
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError("the ssd kernel has no backward yet "
-                                  "(training slice, ROADMAP Queue 1 item 7)")
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, B, C, chunk), None
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B, C)):
+        raise NotImplementedError(
+            "the ssd kernel has no backward yet, so a Mamba2 model cannot "
+            "train on the card (ROADMAP.md, Next: SSD backward and SSM "
+            "training on the card)")
     return _launch(x, dt, A, B, C), None
 
 

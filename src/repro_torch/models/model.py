@@ -18,6 +18,7 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ModelConfig
+from ..tree import leaves
 from . import transformer
 
 
@@ -50,17 +51,9 @@ def build_model(cfg: ModelConfig, impl: str = "auto", remat: bool = True,
     return Model(cfg, init, apply, init_cache, decode)
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def param_count(params) -> int:
-    return sum(x.numel() for x in _leaves(params))
+    return sum(x.numel() for x in leaves(params))
 
 
 def param_bytes(params) -> int:
-    return sum(x.numel() * x.element_size() for x in _leaves(params))
+    return sum(x.numel() * x.element_size() for x in leaves(params))

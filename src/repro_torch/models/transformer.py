@@ -102,6 +102,19 @@ def _unit(params: Params, u: int):
     return params[u]
 
 
+def _unbind(params: Params, n: int):
+    """The n units' parameters from one `unbind` of each stacked tensor.
+
+    Views, as `_unit` gives; but under autograd one unbind has one
+    backward node that stacks the n units' gradients once, where n
+    separate `params[u]` would each allocate and add a zero tensor of
+    the whole stack's size."""
+    if isinstance(params, dict):
+        per_key = {k: _unbind(v, n) for k, v in params.items()}
+        return [{k: per_key[k][u] for k in params} for u in range(n)]
+    return params.unbind(0)
+
+
 # --------------------------------------------------------------------------
 # full-sequence forward (prefill)
 # --------------------------------------------------------------------------
@@ -133,9 +146,8 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
         shared = params["shared"]
 
         def unit_fn(x, unit_params):
-            for k in range(cfg.shared_attn_every):
-                x = _apply_block(_unit(unit_params, k), cfg.unit[0], x, cfg,
-                                 positions, impl)
+            for inner in _unbind(unit_params, cfg.shared_attn_every):
+                x = _apply_block(inner, cfg.unit[0], x, cfg, positions, impl)
             h = rmsnorm(shared["norm1"], x, cfg.norm_eps, impl)
             x = x + attention(shared["attn"], h, cfg, positions, impl=impl)
             h = rmsnorm(shared["norm2"], x, cfg.norm_eps, impl)
@@ -149,8 +161,7 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
             return x
         n_outer = cfg.n_units
 
-    for u in range(n_outer):
-        up = _unit(params["units"], u)
+    for up in _unbind(params["units"], n_outer):
         if remat and torch.is_grad_enabled():
             x = checkpoint(unit_fn, x, up, use_reentrant=False)
         else:

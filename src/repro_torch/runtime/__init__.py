@@ -1,5 +1,7 @@
-"""Serving runtime of the port."""
+"""Serving and training runtime of the port."""
 
 from .serve import ServeConfig, generate, make_serve_fns
+from .train import TrainConfig, cross_entropy, make_loss_fn, make_train_step
 
-__all__ = ["ServeConfig", "generate", "make_serve_fns"]
+__all__ = ["ServeConfig", "TrainConfig", "cross_entropy", "generate",
+           "make_loss_fn", "make_serve_fns", "make_train_step"]

@@ -11,6 +11,8 @@ from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import reduced as jax_reduced
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.convert import params_from_jax
+from repro_torch.data.pipeline import DataConfig, batch_for_model
+from repro_torch.tree import named_leaves
 
 #: reduced dense configs, smollm with an 8-token sliding window so that
 #: decode wraps its ring buffer, and the Mamba2 SSM and zamba2 hybrid
@@ -61,3 +63,25 @@ def both_params(tree, dtype):
     jparams = jax.tree_util.tree_map_with_path(cast, tree)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     return jparams, tparams
+
+
+def train_batch(tcfg, seq, batch, seed=0, step=0):
+    """The data pipeline's batch (bit-equal in both packages) as a JAX
+    dict and a torch dict."""
+    import torch
+    b = batch_for_model(tcfg, DataConfig(seed=seed, seq_len=seq,
+                                         global_batch=batch), step)
+    return ({k: jnp.asarray(v) for k, v in b.items()},
+            {k: torch.from_numpy(v) for k, v in b.items()})
+
+
+def flat_jax(tree):
+    """{"a/b/c": float32 numpy} of a JAX tree, in JAX's leaf order."""
+    return {"/".join(k.key for k in path): np.asarray(v, np.float32)
+            for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def flat_torch(tree):
+    """{"a/b/c": float32 numpy} of a port tree, in the same order."""
+    return {"/".join(path): v.float().numpy()
+            for path, v in named_leaves(tree)}

@@ -35,8 +35,8 @@ import torch
 from repro_torch.kernels import KERNELS, _build
 from repro_torch.kernels.flash_attention.ops import flash_attention, tc_block_k
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_plain
-from repro_torch.kernels.rmsnorm.ops import rmsnorm
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 from repro_torch.kernels.ssd.ops import TC_CHUNK, ssd
 from repro_torch.kernels.ssd.ref import ssd_plain, ssd_ref, ssd_tc_plain
 
@@ -395,7 +395,7 @@ def test_ssd_kernel_matches_sequential_ref_and_strided_views(cuda):
 
 def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
     x, dt, A, B, C = _ssd_inputs(1, 32, 2, 16, 16, torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="SSD backward"):
         ssd(x.clone().requires_grad_(), dt, A, B, C)
     with pytest.raises(ValueError, match="one device"):
         ssd(x, dt, A, B.cpu(), C)
@@ -409,3 +409,105 @@ def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
     wide = _ssd_inputs(1, 8, 1, 512, 64, torch.float32, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         ssd(*wide)
+
+
+# ---- training: the RMSNorm backward kernel and one train step ------------
+
+def _dscale_bound(x, g, dtype):
+    """float32 sums over rows in another order (1e-5 of the sum of the
+    terms' magnitudes |g x r|) plus, in bf16, one ulp of the result."""
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+    mag = (gf * xf * r).abs().reshape(-1, x.shape[-1]).sum(0)
+    return 1e-5 * mag, (2.0 ** -7 if dtype == "bfloat16" else 0.0)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("scale_dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [
+    (8192, 960),        # smollm-360m's training rows
+    (4, 1024, 960), (257, 384), (33, 100), (1, 1, 256), (3, 12),
+    (1001, 1536), (7, 2560), (2049, 5120), (5, 20000)])
+def test_rmsnorm_backward_kernel_matches_plain(cuda, dtype, scale_dtype,
+                                               shape):
+    rng = np.random.default_rng(11)
+    x = _t(rng.standard_normal(shape), DTYPES[dtype], cuda)
+    g = _t(rng.standard_normal(shape), DTYPES[dtype], cuda)
+    s = _t(1.0 + 0.3 * rng.standard_normal(shape[-1]), DTYPES[scale_dtype],
+           cuda)
+    before = rmsnorm.bwd_launches
+    dx, ds = rmsnorm_bwd(x, g, s)
+    torch.cuda.synchronize()
+    assert rmsnorm.bwd_launches == before + 1
+    rdx, rds = rmsnorm_bwd_ref(x, g, s)
+    assert dx.dtype == x.dtype and ds.dtype == s.dtype
+    torch.testing.assert_close(dx.float(), rdx.float(), atol=TOL[dtype],
+                               rtol=RTOL[dtype])
+    atol, rtol = _dscale_bound(x, g, scale_dtype)
+    err = (ds.float() - rds.float()).abs()
+    assert bool((err <= atol + rtol * rds.float().abs()).all())
+    dx2, ds2 = rmsnorm_bwd(x, g, s)           # no atomics: the same bits
+    assert torch.equal(dx2, dx) and torch.equal(ds2, ds)
+
+
+def test_rmsnorm_autograd_launches_the_backward_kernel(cuda):
+    rng = np.random.default_rng(12)
+    x = _t(rng.standard_normal((2, 37, 96)), torch.bfloat16, cuda)
+    s = _t(1.0 + 0.3 * rng.standard_normal(96), torch.bfloat16, cuda)
+    g = _t(rng.standard_normal((2, 37, 96)), torch.bfloat16, cuda)
+    xa, sa = x.clone().requires_grad_(), s.clone().requires_grad_()
+    fwd0, bwd0 = rmsnorm.launches, rmsnorm.bwd_launches
+    rmsnorm(xa, sa).backward(g)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, rmsnorm.bwd_launches) == (fwd0 + 1, bwd0 + 1)
+    rdx, rds = rmsnorm_bwd_ref(x, g, s)
+    assert torch.equal(xa.grad, rmsnorm_bwd(x, g, s)[0])
+    torch.testing.assert_close(xa.grad.float(), rdx.float(),
+                               atol=TOL["bfloat16"], rtol=RTOL["bfloat16"])
+    atol, rtol = _dscale_bound(x, g, "bfloat16")
+    err = (sa.grad.float() - rds.float()).abs()
+    assert bool((err <= atol + rtol * rds.float().abs()).all())
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "gemma2-2b"])
+def test_train_step_kernels_match_plain_path(cuda, arch):
+    """One reduced train step on the card, float32 weights, remat on:
+    impl "auto" (the flash-attention and RMSNorm kernels, the RMSNorm
+    backward kernel) against impl "naive" (plain attention and norms).
+    Loss 1e-5 relative; gradients 1e-4 of each leaf's largest (float32
+    sums in another order through two layers, as on the CPU against JAX);
+    the launch counts of one step with remat: each block's norm twice
+    (forward and recompute) plus the final norm, each attention block
+    twice, and one norm backward per norm."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train import (TrainConfig, make_loss_fn,
+                                           value_and_grad)
+    from repro_torch.tree import leaves, named_leaves, tree_map
+    cfg = reduced(ARCHS[arch])
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    params = tree_map(lambda t: t.float().to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    out = {}
+    for impl in ("auto", "naive"):
+        rmsnorm.launches = rmsnorm.bwd_launches = 0
+        flash_attention.launches = 0
+        loss_fn = make_loss_fn(cfg, TrainConfig(attention_impl=impl,
+                                                remat=True), cuda)
+        out[impl] = value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        counts = (rmsnorm.launches, rmsnorm.bwd_launches,
+                  flash_attention.launches)
+        blocks = len(cfg.unit) * cfg.n_units
+        attn = sum(b.kind == "attn" for b in cfg.unit) * cfg.n_units
+        assert counts == ((2 * blocks + 1, blocks + 1, 2 * attn)
+                          if impl == "auto" else (0, 0, 0)), counts
+    ((la, _), ga), ((ln, _), gn) = out["auto"], out["naive"]
+    assert float(la) == pytest.approx(float(ln), rel=1e-5)
+    for (path, a), b in zip(named_leaves(ga), leaves(gn)):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale,
+                                   msg=str(path))

@@ -10,6 +10,7 @@ kernel's arithmetic, also rounds P to bf16 before P.V (one ulp of a weight,
 2^-8 relative) and stays within the same bounds.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,12 +18,13 @@ import torch
 
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.rmsnorm.ops import rmsnorm as jax_rmsnorm
+from repro.models.layers import rmsnorm as jax_layer_rmsnorm
 from repro_torch.kernels.flash_attention.ops import (_tma_ready,
                                                      flash_attention,
                                                      tc_block_k)
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_plain
 from repro_torch.kernels.rmsnorm.ops import rmsnorm
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -192,6 +194,49 @@ def test_plain_rmsnorm_matches_jax_kernel(dtype, shape):
                                np.asarray(want, np.float32), atol=2e-2)
 
 
+def dscale_bound(x, g, dtype):
+    """Allowed |error| of each dscale element: float32 sums over the rows
+    in another order (1e-5 of the sum of |g x r|, the terms' magnitudes),
+    plus, in bf16, one ulp of the result (2^-7 of it)."""
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + 1e-6)
+    mag = (gf * xf * r).abs().reshape(-1, x.shape[-1]).sum(0)
+    return 1e-5 * mag, (2.0 ** -7 if dtype == "bfloat16" else 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 64, 128), (300, 96), (1, 1, 256),
+                                   (257, 384), (4096, 960)])
+def test_rmsnorm_backward_ref_matches_autograd_and_jax_vjp(dtype, shape):
+    """`rmsnorm_bwd_ref` (the formula the backward kernel computes),
+    autograd through `rmsnorm_ref`, and `jax.vjp` of the reference's
+    model norm (`repro/models/layers.py:35`) agree.  dx: 2e-5 in float32,
+    2e-2 plus 2^-7 relative in bf16 (each rounds an fp32 value once);
+    dscale: `dscale_bound`."""
+    rng = np.random.default_rng(5)
+    xj, xt = _both(rng.standard_normal(shape), dtype)
+    gj, gt = _both(rng.standard_normal(shape), dtype)
+    sj, st = _both(1.0 + 0.3 * rng.standard_normal(shape[-1]), dtype)
+    _, vjp = jax.vjp(lambda x, s: jax_layer_rmsnorm({"scale": s}, x), xj, sj)
+    jdx, jds = vjp(gj)
+    dx, ds = rmsnorm_bwd_ref(xt, gt, st)
+    xa, sa = xt.clone().requires_grad_(), st.clone().requires_grad_()
+    rmsnorm(xa, sa).backward(gt)
+    assert dx.dtype == ds.dtype == TDT[dtype]
+    assert dx.shape == xt.shape and ds.shape == st.shape
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    ds_atol, ds_rtol = dscale_bound(xt, gt, dtype)
+    for got_dx, got_ds in ((dx, ds), (xa.grad, sa.grad)):
+        np.testing.assert_allclose(got_dx.float().numpy(),
+                                   np.asarray(jdx, np.float32),
+                                   atol=TOL[dtype], rtol=rtol)
+        want = np.asarray(jds, np.float32)
+        err = np.abs(got_ds.float().numpy() - want)
+        assert (err <= ds_atol.numpy() + ds_rtol * np.abs(want)).all()
+    torch.testing.assert_close(dx.float(), xa.grad.float(), atol=TOL[dtype],
+                               rtol=rtol)
+
+
 def test_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
     rng = np.random.default_rng(3)
     q = torch.from_numpy(rng.standard_normal((2, 40, 4, 16),
@@ -208,7 +253,11 @@ def test_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():
                         window=8, softcap=30.0).transpose(1, 2)
     assert torch.equal(out, ref)
     assert torch.equal(rmsnorm(x, s), rmsnorm_ref(x, s))
-    assert (flash_attention.launches, rmsnorm.launches) == (fa0, rn0)
+    bw0 = rmsnorm.bwd_launches
+    xg = x.clone().requires_grad_()
+    rmsnorm(xg, s).sum().backward()         # autograd through the plain one
+    assert (flash_attention.launches, rmsnorm.launches,
+            rmsnorm.bwd_launches) == (fa0, rn0, bw0)
 
 
 def test_flash_attention_wrapper_grad_flows():

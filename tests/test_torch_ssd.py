@@ -193,10 +193,24 @@ def test_wrapper_on_cpu_is_the_plain_version_and_counts_nothing():
 
 
 def test_wrapper_raises_under_autograd():
+    """Under autograd a CPU tensor takes the plain version and autograd
+    differentiates it (the kernel's raise is for CUDA tensors, which
+    `tests/test_torch_cuda.py` covers); the gradients are those of
+    `ssd_plain` itself, and match the sequential `ssd_ref`'s."""
     x, dt, A, B, C = _torch(_inputs(1, 16, 2, 8, 8, seed=7), torch.float32)
-    x.requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ssd(x, dt, A, B, C)
+    inputs = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    y, _ = ssd(*inputs, chunk=8)
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        tuple(y.shape)).astype(np.float32))
+    got = torch.autograd.grad(y, inputs, g)
+    plain = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    want = torch.autograd.grad(ssd_plain(*plain, chunk=8), plain, g)
+    seq = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    oracle = torch.autograd.grad(ssd_ref(*seq)[0], seq, g)
+    for a, b, c in zip(got, want, oracle):
+        assert bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, atol=1e-4, rtol=1e-4)
     with torch.no_grad():
-        y, _ = ssd(x, dt, A, B, C)
+        y, _ = ssd(*inputs)
     assert y.shape == x.shape
