@@ -8,12 +8,17 @@ Phases, each of which fails the run (exit code 1, no result line):
    every kernel of the port from `src/repro_torch/kernels/csrc/`, one
    nvcc per source started together, and print the ptxas lines;
 2. kernels: each kernel against its plain PyTorch version on the card,
-   at the serving shapes and at ragged, windowed, softcapped,
-   non-causal and steep-decay ones, and SSD in the models' strided
-   layout, with the tolerance stated (every bf16 SSD call must take the
-   tensor-core kernel); then kernel, plain version and, where one exists,
-   one PyTorch library call timed with CUDA events (SSD also in the
-   strided layout, RMSNorm at every model's prefill width);
+   at the serving shapes (flash attention also at D = 112 and 128 and as
+   seamless's non-causal encoder and S != T cross-attention) and at
+   ragged, windowed, softcapped, non-causal and steep-decay ones, and SSD
+   in the models' strided layout, with the tolerance stated (every bf16
+   SSD call must take the tensor-core kernel); then kernel, plain version
+   and, where one exists, one PyTorch library call timed with CUDA events
+   (SSD also in the strided layout, RMSNorm at every model's prefill
+   width, flash attention at every model's prefill shape);
+   2c. the MoE grouped GEMM, a library call (`torch._grouped_mm`), against
+   its per-expert loop at mixtral's and kimi's prefill shapes, timed
+   beside its bound;
 3. main paths, each with the launch counters reset just before and read
    just after (every flash-attention and SSD launch must be one of the
    bf16 tensor-core kernels), through `make_serve_fns(...).prefill` and then the
@@ -22,9 +27,21 @@ Phases, each of which fails the run (exit code 1, no result line):
    3.  full-width smollm-360m: prefill 4 x 1024, 8 requests on 4 slots;
    3b. full-width mamba2-130m: prefill 4 x 1024, 8 requests on 4 slots;
    3c. full-width zamba2-2.7b: prefill 2 x 1024, 4 requests on 2 slots;
+   3d. mixtral-8x22b at published widths, depth 56 -> 4: prefill 4 x
+       1024, 8 requests on 4 slots; then a profile of its prefill;
+   3e. kimi-k2 at published widths, depth 61 -> 1: prefill 2 x 1024
+       (flash attention at D = 112), 4 requests on 2 slots;
+   3f. full-width pixtral-12b: prefill of 2 x 1024 bf16 embeddings from a
+       seed, 4 requests on 2 slots (on tokens);
+   3g. full-width seamless-m4t-large-v2: prefill 4 x (1000 source frames
+       + 1024 tokens), `prefill_cross` and 16 greedy decode steps, then 8
+       requests on 4 slots;
+   the MoE phases hold the rows whose experts agree in both routes, and
+   count the tokens whose experts differ;
 4. reference checks on small inputs: the kernel path on the card against
-   the plain path on the CPU (float32), and token-by-token decode against
-   the full forward (the repository's decode-vs-forward invariant);
+   the plain path on the CPU (float32; seamless in bf16), and
+   token-by-token decode against the full forward (the repository's
+   decode-vs-forward invariant);
 5. training, full-width smollm-360m (bf16, AdamW, remat, 8 x 1024 tokens
    from the data pipeline), through `make_train_step`, the launcher's
    `train_loop` and the checkpointer: exact launch counts of one step
@@ -40,8 +57,10 @@ The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -64,7 +83,9 @@ SSD_TOL = {"float32": (5e-4, 1e-5), "bfloat16": (2e-2, 2.0 ** -7)}
 # the plain path rounds scores and probabilities to bf16 where the kernel
 # keeps fp32, a difference of about one bf16 ulp per layer that 32 layers
 # carry to logits of order 1-4; bound 0.25 (the reference's 2-layer bf16
-# tolerance of 0.15 plus headroom for 16 times the depth).
+# tolerance of 0.15 plus headroom for 16 times the depth).  The same bound
+# holds the MoE models (on the rows whose experts agree in both routes),
+# pixtral and seamless: 0.078-0.117 on an H100 80GB HBM3.
 PREFILL_TOL = 0.25
 # mamba2-130m and zamba2-2.7b in bf16, kernel routes vs plain routes: the
 # plain route rounds the gate, x*dt and the chunk states to bf16 (as the
@@ -106,6 +127,23 @@ TRAIN_STEPS = 20
 TRAIN_CE_DROP = 1.0
 PARITY_TOL = 1e-4       # float32 card vs CPU, as tests/test_torch_model.py
 SLEEP_CYCLES = 100_000_000   # ~50 ms at the H100's clocks
+# Flash attention at the prefill shapes of phases 3d-3g: (name, B, S, T, H,
+# K, D, causal); seamless's 1000 source frames leave a partial key tile
+FA_MODEL_CASES = [
+    ("mixtral-8x22b", 4, 1024, 1024, 48, 8, 128, True),
+    ("kimi-k2-1t-a32b", 2, 1024, 1024, 64, 8, 112, True),
+    ("pixtral-12b", 2, 1024, 1024, 32, 8, 128, True),
+    ("seamless encoder", 4, 1000, 1000, 16, 16, 64, False),
+    ("seamless cross", 4, 1024, 1000, 16, 16, 64, False),
+]
+# The MoE block's grouped GEMM (torch._grouped_mm, a library call) against
+# its per-expert loop: (name, rows, experts, d, f, skewed); the gate/up
+# product of a prefill, mixtral 4 x 1024 tokens top 2, kimi 2 x 1024 top 8
+# with a skewed draw of experts (uneven and empty groups).  Tolerances as
+# the kernels': both round an fp32 sum to the output dtype.
+GMM_CASES = [("mixtral-8x22b", 8192, 8, 6144, 16384, False),
+             ("kimi-k2-1t-a32b", 16384, 384, 7168, 2048, True)]
+GMM_TOL = {"float32": (2e-5, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
 
 
 class SmokeFailure(RuntimeError):
@@ -194,13 +232,27 @@ def dscale_ok(torch, got, want, x, g, dtype):
     return bool((err <= 1e-5 * mag + rtol * want.float().abs()).all())
 
 
-def fa_cost(B, S, H, K, D):
-    """(flops, bytes, bound ms, what bounds it) of causal bf16 attention
-    with S = T: QK^T and PV over the causal (query, key) pairs, 2 flops a
-    MAC; q, k, v read once, the output written once, positions int32."""
-    pairs = S * (S + 1) // 2
+def fa_cost(B, S, H, K, D, T=None, causal=True):
+    """(flops, bytes, bound ms, what bounds it) of bf16 attention, S
+    queries against T keys (T = S unless given): QK^T and PV over the
+    visible (query, key) pairs (causal with S = T: S(S+1)/2; else S T),
+    2 flops a MAC; q, k, v read once, the output written once, positions
+    int32."""
+    T = S if T is None else T
+    pairs = S * (S + 1) // 2 if causal else S * T
     flops = 4 * B * H * D * pairs
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D) + 2 * 4 * S
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * K * D) + 4 * (S + T)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def gmm_cost(rows, d, f, experts_used):
+    """(flops, bytes, bound ms, what bounds it) of a bf16 grouped GEMM:
+    2 flops a MAC over the rows; the rows read once, the weights of the
+    experts that have rows read once, the output written once."""
+    flops = 2 * rows * d * f
+    nbytes = 2 * (rows * d + experts_used * d * f + rows * f)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -257,7 +309,7 @@ def phase_kernels(torch, dev):
         (1, 300, 300, 6, 2, 64, True, None, None),      # G = 3, as smollm
         (1, 512, 512, 4, 4, 80, True, 128, None),       # window at D = 80
         (1, 64, 1000, 4, 2, 64, True, None, None),      # 64 queries, offsets
-    ]
+    ] + [case[1:] + (None, None) for case in FA_MODEL_CASES]
     fa_err = None
     for dname, dtype in dts.items():
         atol, rtol = FA_TOL[dname]
@@ -279,7 +331,7 @@ def phase_kernels(torch, dev):
                   f"(atol {atol}, rtol {rtol})")
             if fa_err is None:
                 fa_err = err          # the prefill shape in fp32 ...
-            if dname == "bfloat16" and (B, S) == (4, 1024):
+            if dname == "bfloat16" and (B, S, H) == (4, 1024, 15):
                 fa_err = err          # ... replaced by the working dtype
         # queries at 0, 4, ..., 508 against 512 keys: the two halves of the
         # query tile see different key tiles
@@ -300,7 +352,9 @@ def phase_kernels(torch, dev):
     rn_cases = [(4096, 960), (4, 960), (257, 384), (33, 100), (2, 64, 128),
                 (1, 1, 256),
                 (4096, 768), (4096, 1536), (4, 768), (4, 1536),  # mamba2
-                (2048, 2560), (2048, 5120), (2, 2560), (2, 5120)]  # zamba2
+                (2048, 2560), (2048, 5120), (2, 2560), (2, 5120),  # zamba2
+                (4096, 6144), (4, 6144), (2048, 7168), (2, 7168),  # MoE
+                (4096, 1024), (4, 1024)]                  # pixtral, seamless
     rn_err = None
     for dname, dtype in dts.items():
         atol, rtol = RN_TOL[dname]
@@ -493,7 +547,8 @@ def phase_kernels(torch, dev):
         torch, lambda: F.rms_norm(x4, (960,), s, 1e-6), 500)
     rn_shapes = []  # each model's prefill widths, bf16 x and scale
     for rows, d in ((4096, 960), (4096, 768), (4096, 1536), (2048, 2560),
-                    (2048, 5120), (4, 960)):
+                    (2048, 5120), (4, 960), (4096, 6144), (2048, 7168),
+                    (4096, 1024)):
         xr = randn((rows, d), torch.bfloat16)
         sr = torch.linspace(0.5, 1.5, d, device=dev).to(torch.bfloat16)
         k_ms, _ = cuda_ms(torch, lambda: rmsnorm(xr, sr), 200)
@@ -501,6 +556,29 @@ def phase_kernels(torch, dev):
         _, _, bnd, by = rn_cost(rows, d)
         rn_shapes.append({"shape": [rows, d], "ms": k_ms, "library_ms": l_ms,
                           "bound_ms": bnd, "bound_by": by})
+
+    fa_shapes = []  # the new phases' prefill attention, bf16
+    for name, B, S, T, H, K, D, causal in FA_MODEL_CASES:
+        mq = randn((B, S, H, D), torch.bfloat16)
+        mk, mv = (randn((B, T, K, D), torch.bfloat16) for _ in range(2))
+        qp = torch.arange(S, dtype=torch.int32, device=dev)
+        kp = torch.arange(T, dtype=torch.int32, device=dev)
+        k_ms, _ = cuda_ms(torch, lambda: flash_attention(
+            mq, mk, mv, qp, kp, causal=causal), 20)
+        p_ms, _ = cuda_ms(torch, lambda: plain_fa(
+            mq, mk, mv, qp, kp, None, None, causal), 5)
+        mqt, mkt, mvt = (t.transpose(1, 2).contiguous() for t in (mq, mk, mv))
+        l_ms, _ = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            mqt, mkt, mvt, is_causal=causal, enable_gqa=K != H), 20)
+        _, _, bnd, by = fa_cost(B, S, H, K, D, T, causal)
+        fa_shapes.append({"name": name, "shape": [B, S, T, H, K, D],
+                          "causal": causal, "ms": k_ms, "plain_ms": p_ms,
+                          "library_ms": l_ms, "bound_ms": bnd,
+                          "bound_by": by})
+        print(f"  flash_attention at {name} (B={B} S={S} T={T} H={H} K={K} "
+              f"D={D} causal={causal}): {k_ms:.4f} ms, plain {p_ms:.4f}, "
+              f"sdpa {l_ms:.4f}, bound {bnd:.4f} by {by}", flush=True)
+        del mq, mk, mv, mqt, mkt, mvt
 
     b, L, H, P, N = 4, 1024, 24, 64, 128          # mamba2-130m prefill
     sx, sdt, sA, sB, sC = ssd_inputs(b, L, H, P, N, torch.bfloat16)
@@ -561,7 +639,8 @@ def phase_kernels(torch, dev):
             "train_shape_ms": fa_train_ms,
             "train_plain_backward_ms": fa_plain_bwd_ms,
             "train_backward": "the VJP of the plain attention (no backward "
-                              "kernel, as in the reference)"},
+                              "kernel, as in the reference)",
+            "model_shapes": fa_shapes},
         "rmsnorm": {
             "name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -597,58 +676,234 @@ def phase_kernels(torch, dev):
     }
 
 
+def phase_grouped_mm(torch, dev):
+    """Phase 2c: the MoE block's grouped GEMM, a PyTorch library call
+    (`torch._grouped_mm`, the reference's `jax.lax.ragged_dot`, no Pallas
+    kernel), against its per-expert loop at the MoE prefills' shapes;
+    then both timed beside the bound.  Reported as a library call, not
+    as a kernel."""
+    from repro_torch.models.moe import grouped_mm, grouped_mm_plain
+
+    print("phase 2c: the MoE grouped GEMM (torch._grouped_mm) against its "
+          "per-expert loop", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    for name, rows, E, d, f, skewed in GMM_CASES:
+        draw = torch.Generator().manual_seed(8)
+        weights = torch.rand(E, generator=draw) ** 3 if skewed \
+            else torch.ones(E)
+        pick = torch.multinomial(weights, rows, replacement=True,
+                                 generator=draw)
+        sizes_cpu = torch.bincount(pick, minlength=E)
+        sizes = sizes_cpu.to(dev)
+        used = int((sizes_cpu > 0).sum())
+        for dname, dtype in (("bfloat16", torch.bfloat16),
+                             ("float32", torch.float32)):
+            x = torch.randn((rows, d), generator=gen, device=dev).to(dtype)
+            w = torch.randn((E, d, f), generator=gen, device=dev).div_(
+                d ** 0.5).to(dtype)
+            got = grouped_mm(x, w, sizes)
+            want = grouped_mm_plain(x, w, sizes_cpu)
+            torch.cuda.synchronize()
+            atol, rtol = GMM_TOL[dname]
+            err = max_err(got, want)
+            check(close(torch, got, want, atol, rtol),
+                  f"grouped_mm {dname} {name}: {rows} rows over {E} experts "
+                  f"({E - used} empty, largest group "
+                  f"{int(sizes_cpu.max())}), {d} -> {f}: max err {err:.3g} "
+                  f"(atol {atol}, rtol {rtol})")
+            if dname == "bfloat16":
+                g_ms, g_host_us = cuda_ms(
+                    torch, lambda: grouped_mm(x, w, sizes), 20)
+                p_ms, _ = cuda_ms(
+                    torch, lambda: grouped_mm_plain(x, w, sizes_cpu), 5)
+                flops, nbytes, bnd, by = gmm_cost(rows, d, f, used)
+                out[name] = {
+                    "name": "grouped_mm", "route": "library",
+                    "call": "torch._grouped_mm",
+                    "replaces": "src/repro/models/moe.py:105 "
+                                "(jax.lax.ragged_dot)",
+                    "rows": rows, "experts": E, "empty_groups": E - used,
+                    "largest_group": int(sizes_cpu.max()), "d": d, "f": f,
+                    "max_abs_err": err, "tolerance": GMM_TOL[dname],
+                    "ms": g_ms, "per_expert_loop_ms": p_ms,
+                    "bound_ms": bnd, "bound_by": by, "flops": flops,
+                    "bytes": nbytes, "host_us": g_host_us}
+                print(f"  grouped_mm {name} bf16: {g_ms:.4f} ms, per-expert "
+                      f"loop {p_ms:.4f} ms, bound {bnd:.4f} by {by} "
+                      f"({flops:.4g} flops, {nbytes:.4g} bytes)", flush=True)
+            del x, w, got, want
+            torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """The experts each MoE `route` call chooses, in call order: one
+    (tokens, K) tensor a call, sorted along K (the block's output does not
+    depend on the order).  Empty for a model without MoE."""
+    from repro_torch.models import moe
+    log, route = [], moe.route
+
+    def recording(params, x2d, cfg):
+        w, idx, aux = route(params, x2d, cfg)
+        log.append(idx.sort(-1).values)
+        return w, idx, aux
+
+    moe.route = recording
+    try:
+        yield log
+    finally:
+        moe.route = route
+
+
+def route_flips(torch, a, b, batch):
+    """(rows whose last position's experts differ between the recordings
+    a and b in any layer, as a (batch,) bool tensor; tokens whose experts
+    differ in any layer, counted over every position)."""
+    last = torch.zeros(batch, dtype=torch.bool)
+    tokens = None
+    for x, y in zip(a, b):
+        differ = (x != y).any(-1).cpu()
+        tokens = differ if tokens is None else tokens | differ
+        last |= differ.reshape(batch, -1)[:, -1]
+    return last, 0 if tokens is None else int(tokens.sum())
+
+
+def compare_prefills(torch, run_a, run_b, batch):
+    """Run two prefills, recording their MoE routes; (max |diff| of the
+    last-position logits over the rows whose routes agree, argmax
+    agreement over those rows, rows compared, tokens whose routes
+    flipped, the two logits)."""
+    with recorded_routes() as ra:
+        a = run_a()
+    with recorded_routes() as rb:
+        b = run_b()
+    torch.cuda.synchronize()
+    flipped, n_tokens = route_flips(torch, ra, rb, batch)
+    keep = (~flipped).to(a.device)
+    err = max_err(a[keep], b[keep]) if bool(keep.any()) else float("inf")
+    agree = int((a.argmax(-1) == b.argmax(-1))[keep].sum())
+    return err, agree, int(keep.sum()), n_tokens, a, b
+
+
 def phase_serve(torch, dev, arch, batch, n_requests, slots, max_new,
-                per_prefill, per_step, tol):
+                per_prefill, per_step, tol, layers=None, feed="tokens",
+                fp32=True, cross=None):
     """Full-width `arch` (bf16, random weights from seed 0): prefill
     `batch` x 1024 tokens, then the continuous-batching loop, with every
     launch counter set to 0 just before and read just after;
     `per_prefill` / `per_step` are the launches each kernel must show.
-    The prefill logits are held against the plain routes within `tol`.
+    The prefill logits are held against the plain routes within `tol`,
+    on the rows whose MoE routes agree in every layer (a route flips
+    where two experts' probabilities tie within the routes' rounding;
+    flipped tokens are counted and reported).
+
+    layers: the depth is cut to this many layers (printed);
+    feed: "tokens"; "embeds", 1024 bf16 embeddings a row from a seed (the
+        float32 check then feeds token ids: a float32 model cannot take
+        the bf16-cast embeddings, in either package); or "encdec", 1000
+        source frames of bf16 embeddings and 1024 tokens;
+    fp32: True for the float32 check of the same prefill, else the reason
+        it does not run (printed);
+    cross: for an encoder-decoder, (launches per `prefill_cross`, greedy
+        decode steps) run after the prefill against 1000 encoded source
+        frames, before the loop.
     """
+    import dataclasses
+
     from repro_torch.configs import ARCHS
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.kernels.ssd.ops import ssd
     from repro_torch.launch.serve import make_requests, serve_loop
-    from repro_torch.models import build_model, param_count
+    from repro_torch.models import build_model, encdec, param_count
     from repro_torch.runtime.serve import ServeConfig, make_serve_fns
-    from repro_torch.tree import tree_map
 
     wrappers = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
                 "ssd": ssd}
     cfg = ARCHS[arch]
+    if layers:
+        print(f"  {arch}: depth cut from {cfg.n_layers} to {layers} layers "
+              f"(published widths)", flush=True)
+        cfg = dataclasses.replace(cfg, n_layers=layers, unit=())
     torch.cuda.reset_peak_memory_stats()
     params = build_model(cfg, remat=False, device=dev).init(
         torch.Generator(device=dev).manual_seed(0))
     n_params = param_count(params)
     print(f"  {arch}: {n_params} parameters", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (batch, 1024), device=dev,
-                           generator=torch.Generator(device=dev)
-                           .manual_seed(1))
+                           generator=gen)
+    inputs = {"tokens": tokens}
+    if feed == "embeds":
+        inputs = {"embeds": torch.randn((batch, 1024, cfg.d_model),
+                                        generator=gen, device=dev).to(
+            torch.bfloat16)}
+    elif feed == "encdec":
+        inputs["src_embeds"] = torch.randn(
+            (batch, 1000, cfg.d_model), generator=gen, device=dev).to(
+            torch.bfloat16)
     scfg = ServeConfig(max_len=96)
-    prefill, _, _ = make_serve_fns(cfg, scfg, dev)
+    prefill, decode_step, init_cache = make_serve_fns(cfg, scfg, dev)
+
+    def counted():
+        return {k: w.launches for k, w in wrappers.items()}
 
     for w in wrappers.values():
         w.launches = 0
     flash_attention.tc_launches = 0
     ssd.tc_launches = 0
     t0 = time.perf_counter()
-    logits = prefill(params, {"tokens": tokens})
+    logits = prefill(params, inputs)
     torch.cuda.synchronize()
     prefill_first_s = time.perf_counter() - t0
-    after_prefill = {k: w.launches for k, w in wrappers.items()}
+    after_prefill = counted()
     tc_prefill = flash_attention.tc_launches
     ssd_tc_prefill = ssd.tc_launches
+    if cross:
+        # encode the source once into the cross caches, then decode greedily
+        per_cross, cross_steps = cross
+        cache = init_cache(batch, 1024, src_len=1000)
+        with torch.no_grad():
+            cache = encdec.prefill_cross(params, inputs["src_embeds"], cfg,
+                                         cache)
+        torch.cuda.synchronize()
+        after_cross = counted()
+        tok, cross_logits = tokens[:, :1], []
+        for i in range(cross_steps):
+            tok, lg, cache = decode_step(params, cache, tok, i)
+            cross_logits.append(lg[:, 0])
+        torch.cuda.synchronize()
+        after_decode = counted()
+        del cache
+    else:
+        after_cross = after_decode = after_prefill
     queue = make_requests(n_requests, cfg.vocab_size)
     results, stats = serve_loop(params, cfg, scfg, queue, slots=slots,
                                 max_new=max_new, device=dev)
     torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in wrappers.items()}
+    counts = counted()
     tc_total = flash_attention.tc_launches
+
+    def minus(a, b):
+        return {k: a[k] - b[k] for k in a}
 
     check(after_prefill == per_prefill,
           f"{arch} prefill launched {after_prefill} (expected "
           f"{per_prefill})")
+    if cross:
+        in_cross = minus(after_cross, after_prefill)
+        in_steps = minus(after_decode, after_cross)
+        check(in_cross == per_cross
+              and in_steps == {k: n * cross_steps
+                               for k, n in per_step.items()},
+              f"{arch} prefill_cross of 1000 source frames launched "
+              f"{in_cross} (expected {per_cross}); {cross_steps} greedy "
+              f"decode steps against it launched {in_steps} ({per_step} a "
+              f"step)")
+        check(all(bool(torch.isfinite(lg).all()) for lg in cross_logits),
+              f"{arch}: {cross_steps} decode steps' logits finite")
     check(tc_prefill == after_prefill["flash_attention"]
           and tc_total == counts["flash_attention"],
           f"{arch}: every flash-attention launch took the tensor-core "
@@ -660,7 +915,7 @@ def phase_serve(torch, dev, arch, batch, n_requests, slots, max_new,
           and bool(torch.isfinite(logits).all()),
           f"{arch} prefill logits {tuple(logits.shape)} finite")
     steps = stats["steps"]
-    in_loop = {k: counts[k] - after_prefill[k] for k in counts}
+    in_loop = minus(counts, after_decode)
     check(in_loop == {k: n * steps for k, n in per_step.items()},
           f"{arch} decode loop: {steps} steps launched {in_loop} "
           f"({per_step} a step; decode attention is the plain path and "
@@ -675,44 +930,129 @@ def phase_serve(torch, dev, arch, batch, n_requests, slots, max_new,
 
     naive_prefill, _, _ = make_serve_fns(
         cfg, ServeConfig(max_len=96, attention_impl="naive"), dev)
-    plain = naive_prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    err = max_err(logits, plain)
-    agree = int((logits.argmax(-1) == plain.argmax(-1)).sum())
+    err, agree, rows, flipped, logits, plain = compare_prefills(
+        torch, lambda: prefill(params, inputs),
+        lambda: naive_prefill(params, inputs), batch)
     check(err <= tol,
           f"{arch} prefill logits, kernels vs plain path: max diff "
-          f"{err:.4g} (tol {tol}; logits max |x| "
-          f"{float(plain.abs().max()):.3g}); argmax agrees on "
-          f"{agree}/{batch}")
+          f"{err:.4g} over the {rows}/{batch} rows whose routes agree (tol "
+          f"{tol}; logits max |x| {float(plain.abs().max()):.3g}; "
+          f"{flipped} of {batch * 1024} tokens changed experts); argmax "
+          f"agrees on {agree}/{rows}")
+    out = {"prefill_max_diff_vs_plain": err, "argmax_agree": agree,
+           "rows_compared": rows, "tokens_route_flipped": flipped}
+    if cross:
+        # decode at position 0 against the forward's position 0 (the
+        # mirrored cross-attention RoPE leaves position 0 unrotated in
+        # both, so they agree there and not after)
+        with torch.no_grad():
+            full, _ = build_model(cfg, remat=False, device=dev).apply(
+                params, inputs)
+        first_err = max_err(cross_logits[0], full[:, 0])
+        del full
+        check(first_err <= tol,
+              f"{arch}: the first decode step against prefill_cross's "
+              f"cache vs the forward's position 0: max diff "
+              f"{first_err:.4g} (tol {tol})")
+        out["decode_pos0_max_diff_vs_forward"] = first_err
 
-    prefill_ms, _ = cuda_ms(
-        torch, lambda: prefill(params, {"tokens": tokens}), 5)
+    prefill_ms, _ = cuda_ms(torch, lambda: prefill(params, inputs), 5)
     plain_prefill_ms, _ = cuda_ms(
-        torch, lambda: naive_prefill(params, {"tokens": tokens}), 5)
+        torch, lambda: naive_prefill(params, inputs), 5)
 
-    params = tree_map(lambda t: t.float(), params)
-    fp32 = naive_prefill(params, {"tokens": tokens})
-    fp32_err = max_err(prefill(params, {"tokens": tokens}), fp32)
-    check(fp32_err <= FULL_FP32_TOL,
-          f"{arch} prefill with float32 weights, kernels vs plain path: "
-          f"max diff {fp32_err:.3g} (tol {FULL_FP32_TOL})")
-    # how far bf16 rounding alone moves each route's logits (reported)
-    kernel_drift, plain_drift = max_err(logits, fp32), max_err(plain, fp32)
-    print(f"  {arch} bf16 prefill vs the float32 one: kernels "
-          f"{kernel_drift:.4g}, plain path {plain_drift:.4g}", flush=True)
-    del params, logits, plain, fp32
+    if fp32 is True:
+        # cast leaf by leaf, so that the peak is the float32 tree, not
+        # both trees
+        def to_fp32(tree):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    to_fp32(v)
+                else:
+                    tree[k] = v.float()
+                    del v
+                    torch.cuda.empty_cache()
+        to_fp32(params)
+        fp32_in = inputs if feed == "tokens" else {"tokens": tokens}
+        fp32_err, _, fp32_rows, fp32_flipped, kernel32, plain32 = \
+            compare_prefills(torch, lambda: prefill(params, fp32_in),
+                             lambda: naive_prefill(params, fp32_in), batch)
+        check(fp32_err <= FULL_FP32_TOL,
+              f"{arch} prefill with float32 weights, kernels vs plain path: "
+              f"max diff {fp32_err:.3g} over the {fp32_rows}/{batch} rows "
+              f"whose routes agree (tol {FULL_FP32_TOL}; {fp32_flipped} "
+              f"tokens changed experts)")
+        out.update(fp32_prefill_max_diff_vs_plain=fp32_err,
+                   fp32_tokens_route_flipped=fp32_flipped)
+        if fp32_in is inputs and fp32_flipped == 0 and flipped == 0:
+            # how far bf16 rounding alone moves each route's logits
+            kernel_drift = max_err(logits, plain32)
+            plain_drift = max_err(plain, plain32)
+            print(f"  {arch} bf16 prefill vs the float32 one: kernels "
+                  f"{kernel_drift:.4g}, plain path {plain_drift:.4g}",
+                  flush=True)
+            out["bf16_drift_from_fp32"] = {"kernels": kernel_drift,
+                                           "plain": plain_drift}
+        del kernel32, plain32
+    else:
+        print(f"  {arch}: no float32 check ({fp32})", flush=True)
+    del params, logits, plain, inputs
     torch.cuda.empty_cache()
-    return {"prefill_ms": prefill_ms, "prefill_first_s": prefill_first_s,
-            "plain_prefill_ms": plain_prefill_ms,
-            "prefill_max_diff_vs_plain": err, "argmax_agree": agree,
-            "fp32_prefill_max_diff_vs_plain": fp32_err,
-            "bf16_drift_from_fp32": {"kernels": kernel_drift,
-                                     "plain": plain_drift},
-            "decode_tok_per_s": stats["tok_per_s"],
-            "decode_steps": steps, "decode_wall_s": stats["wall_s"],
-            "peak_memory_bytes": peak_bytes, "params": n_params,
-            "flash_attention_tc_launches": tc_total,
-            "ssd_tc_launches": ssd_tc_prefill}, counts
+    out.update({"prefill_ms": prefill_ms, "prefill_first_s": prefill_first_s,
+                "plain_prefill_ms": plain_prefill_ms,
+                "decode_tok_per_s": stats["tok_per_s"],
+                "decode_steps": steps, "decode_wall_s": stats["wall_s"],
+                "peak_memory_bytes": peak_bytes, "params": n_params,
+                "layers": cfg.n_layers,
+                "flash_attention_tc_launches": tc_total,
+                "ssd_tc_launches": ssd_tc_prefill})
+    if cross:
+        out.update(prefill_cross_launches=minus(after_cross, after_prefill))
+    return out, counts
+
+
+# kernel names by what they do in an MoE prefill (torch.profiler's names)
+PROFILE_GROUPS = [
+    ("grouped GEMM", re.compile(r"group", re.I)),
+    ("flash attention", re.compile(r"flash", re.I)),
+    ("RMSNorm", re.compile(r"rmsnorm", re.I)),
+    ("sort, scatter and gather",
+     re.compile(r"sort|radix|scatter|gather|index|histogram|scan|repeat",
+                re.I)),
+    ("dense GEMM", re.compile(r"gemm|xmma|cutlass|nvjet|cublas", re.I)),
+]
+
+
+def profile_moe_prefill(torch, dev):
+    """Where mixtral-8x22b's prefill (4 layers, 4 x 1024 tokens) spends
+    the card's time: `launch/profile.py` over 3 warm prefills, the kernels
+    grouped by name (PROFILE_GROUPS; the rest is elementwise work and
+    copies), and the idle share of the traced window (the host)."""
+    from repro_torch.launch.profile import profile_prefill
+
+    prof = profile_prefill("mixtral-8x22b", 4, 1024, calls=3,
+                           device=str(dev), layers=4)
+    busy_us = prof["device_busy_ms_per_prefill"] * 3 * 1e3
+    groups = {name: 0.0 for name, _ in PROFILE_GROUPS}
+    groups["elementwise and copies"] = 0.0
+    for kernel, us in prof["kernels_us"].items():
+        name = next((n for n, pat in PROFILE_GROUPS if pat.search(kernel)),
+                    "elementwise and copies")
+        groups[name] += us
+    shares = {name: us / busy_us for name, us in groups.items()}
+    print(f"  mixtral-8x22b prefill profile (4 layers, 4 x 1024): device "
+          f"busy {prof['device_busy_ms_per_prefill']:.3f} of a "
+          f"{prof['device_window_ms_per_prefill']:.3f} ms window a prefill "
+          f"(idle share {prof['device_idle_share']:.3f}); host "
+          f"{prof['host_ms_per_prefill']:.3f} ms a prefill", flush=True)
+    for name, share in shares.items():
+        print(f"    {share:.3f} of busy  {name} "
+              f"({groups[name] / 3 / 1e3:.4f} ms a prefill)", flush=True)
+    for kernel, us in list(prof["kernels_us"].items())[:12]:
+        print(f"    {us / 3 / 1e3:9.4f} ms a prefill  {kernel[:100]}",
+              flush=True)
+    return {"busy_shares": shares,
+            **{k: v for k, v in prof.items() if k != "kernels_us"},
+            "top_kernels_us": dict(list(prof["kernels_us"].items())[:12])}
 
 
 def phase_main_paths(torch, dev):
@@ -731,8 +1071,42 @@ def phase_main_paths(torch, dev):
         torch, dev, "zamba2-2.7b", 2, 4, 2, 8,
         {"flash_attention": 9, "rmsnorm": 127, "ssd": 54},
         {"flash_attention": 0, "rmsnorm": 127, "ssd": 0}, ZAMBA_PREFILL_TOL)
+    print("phase 3d: main path, mixtral-8x22b at published widths",
+          flush=True)
+    mixtral = phase_serve(
+        torch, dev, "mixtral-8x22b", 4, 8, 4, 8,
+        {"flash_attention": 4, "rmsnorm": 9, "ssd": 0},
+        {"flash_attention": 0, "rmsnorm": 9, "ssd": 0}, PREFILL_TOL,
+        layers=4)
+    mixtral[0]["profile"] = profile_moe_prefill(torch, dev)
+    print("phase 3e: main path, kimi-k2 at published widths", flush=True)
+    kimi = phase_serve(
+        torch, dev, "kimi-k2-1t-a32b", 2, 4, 2, 8,
+        {"flash_attention": 1, "rmsnorm": 3, "ssd": 0},
+        {"flash_attention": 0, "rmsnorm": 3, "ssd": 0}, PREFILL_TOL,
+        layers=1, fp32="its float32 weights, 77.5 GB, and the bf16 ones "
+                       "exceed the card")
+    print("phase 3f: main path, full-width pixtral-12b fed embeddings",
+          flush=True)
+    pixtral = phase_serve(
+        torch, dev, "pixtral-12b", 2, 4, 2, 8,
+        {"flash_attention": 40, "rmsnorm": 81, "ssd": 0},
+        {"flash_attention": 0, "rmsnorm": 81, "ssd": 0}, PREFILL_TOL,
+        feed="embeds")
+    print("phase 3g: main path, full-width seamless-m4t-large-v2",
+          flush=True)
+    seamless = phase_serve(
+        torch, dev, "seamless-m4t-large-v2", 4, 8, 4, 8,
+        {"flash_attention": 72, "rmsnorm": 122, "ssd": 0},
+        {"flash_attention": 0, "rmsnorm": 73, "ssd": 0}, PREFILL_TOL,
+        feed="encdec", cross=({"flash_attention": 24, "rmsnorm": 49,
+                               "ssd": 0}, 16),
+        fp32="the encoder casts the source embeddings to bf16, which a "
+             "float32 model cannot take (in either package)")
     runs = {"smollm-360m": smollm, "mamba2-130m": mamba,
-            "zamba2-2.7b": zamba}
+            "zamba2-2.7b": zamba, "mixtral-8x22b": mixtral,
+            "kimi-k2-1t-a32b": kimi, "pixtral-12b": pixtral,
+            "seamless-m4t-large-v2": seamless}
     metrics = {arch: m for arch, (m, _) in runs.items()}
     counts = {arch: c for arch, (_, c) in runs.items()}
     return metrics, counts
@@ -746,7 +1120,8 @@ def phase_reference_checks(torch, dev):
     from repro_torch.tree import tree_map
 
     print("phase 4: reference checks on small inputs", flush=True)
-    for arch in ("smollm-360m", "gemma2-2b", "mamba2-130m", "zamba2-2.7b"):
+    for arch in ("smollm-360m", "gemma2-2b", "mamba2-130m", "zamba2-2.7b",
+                 "mixtral-8x22b", "kimi-k2-1t-a32b", "pixtral-12b"):
         cfg = reduced(ARCHS[arch])
         cpu_params = build_model(cfg, device="cpu").init(
             torch.Generator().manual_seed(2))
@@ -765,6 +1140,28 @@ def phase_reference_checks(torch, dev):
         check(err <= PARITY_TOL,
               f"reduced {arch} float32: kernel path on the card vs plain "
               f"path on the CPU, max diff {err:.3g} (tol {PARITY_TOL})")
+
+    # the encoder-decoder in bf16 (its encoder casts the source to bf16,
+    # which a float32 model cannot take), at the repository's bf16
+    # tolerance
+    cfg = reduced(ARCHS["seamless-m4t-large-v2"])
+    cpu_params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(2))
+    gen = torch.Generator().manual_seed(3)
+    batch = {"src_embeds": torch.randn((2, 20, cfg.d_model), generator=gen),
+             "tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     generator=gen)}
+    with torch.no_grad():
+        want, _ = build_model(cfg, impl="naive", remat=False,
+                              device="cpu").apply(cpu_params, batch)
+        got, _ = build_model(cfg, impl="auto", remat=False, device=dev).apply(
+            tree_map(lambda t: t.to(dev), cpu_params),
+            {k: v.to(dev) for k, v in batch.items()})
+    err = max_err(got.cpu(), want)
+    check(err <= DECODE_TOL,
+          f"reduced seamless bf16 (20 source frames, 24 tokens): kernel "
+          f"path on the card vs plain path on the CPU, max diff {err:.3g} "
+          f"(tol {DECODE_TOL})")
 
     cfg = dataclasses.replace(reduced(ARCHS["smollm-360m"]),
                               sliding_window=8, unit=())
@@ -1059,7 +1456,9 @@ def main():
                 print(f"  [{name}] {line.strip()}")
 
     kernels = phase_kernels(torch, dev)
+    grouped_mm = phase_grouped_mm(torch, dev)
     metrics, counts = phase_main_paths(torch, dev)
+    metrics["grouped_mm"] = grouped_mm
     phase_reference_checks(torch, dev)
     metrics["smollm-360m-train"], counts["smollm-360m-train"] = \
         phase_train(torch, dev)

@@ -1,13 +1,18 @@
-"""Architecture registry of the port: the dense decoder-only models, the
-Mamba2 SSM and the zamba2 hybrid."""
+"""Architecture registry of the port: the same ten archs as the JAX
+package's (dense, the Mamba2 SSM, the zamba2 hybrid, the MoE models, the
+embedding-fed VLM backbone and the encoder-decoder)."""
 
 import dataclasses
 
 from .base import BlockSpec, ModelConfig
 from .chatglm3_6b import CONFIG as chatglm3_6b
 from .gemma2_2b import CONFIG as gemma2_2b
+from .kimi_k2_1t import CONFIG as kimi_k2_1t
 from .mamba2_130m import CONFIG as mamba2_130m
+from .mixtral_8x22b import CONFIG as mixtral_8x22b
+from .pixtral_12b import CONFIG as pixtral_12b
 from .qwen2p5_32b import CONFIG as qwen2p5_32b
+from .seamless_m4t_v2 import CONFIG as seamless_m4t_v2
 from .smollm_360m import CONFIG as smollm_360m
 from .zamba2_2p7b import CONFIG as zamba2_2p7b
 
@@ -18,6 +23,10 @@ ARCHS = {
     "qwen2.5-32b": qwen2p5_32b,
     "mamba2-130m": mamba2_130m,
     "zamba2-2.7b": zamba2_2p7b,
+    "kimi-k2-1t-a32b": kimi_k2_1t,
+    "mixtral-8x22b": mixtral_8x22b,
+    "pixtral-12b": pixtral_12b,
+    "seamless-m4t-large-v2": seamless_m4t_v2,
 }
 
 

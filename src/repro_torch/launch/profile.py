@@ -5,9 +5,12 @@ card's time goes.
         --batch 4 --seq 1024
     PYTHONPATH=src python -m repro_torch.launch.profile --train \
         --arch smollm-360m --batch 8 --seq 1024
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch mixtral-8x22b --layers 4
 
 Full width unless `--reduced`, random bf16 weights from seed 0, as
-`chip_smoke.py` runs them (train steps: AdamW, remat on).
+`chip_smoke.py` runs them (train steps: AdamW, remat on); `--layers`
+cuts the depth (mixtral-8x22b and kimi-k2 fit one card only so).
 `torch.profiler` traces `--calls` warm prefills or steps and reports the
 device time of each kernel (summed over the calls, largest first), the
 device's busy time against the wall time of the traced window (its idle
@@ -20,9 +23,10 @@ the CPU's operators and no device numbers.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -105,11 +109,15 @@ def _trace(run, calls: int, on_card: bool, per: str) -> Dict:
 
 
 def profile_prefill(arch: str, batch: int, seq: int, calls: int = 3,
-                    device: str = "cuda", use_reduced: bool = False) -> Dict:
-    """Trace `calls` warm prefills (see `_trace`)."""
+                    device: str = "cuda", use_reduced: bool = False,
+                    layers: Optional[int] = None) -> Dict:
+    """Trace `calls` warm prefills of token ids (see `_trace`), at
+    `layers` layers where given."""
     cfg = ARCHS[arch]
     if use_reduced:
         cfg = reduced(cfg)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers, unit=())
     params = build_model(cfg, remat=False, device=device).init(
         torch.Generator(device=device).manual_seed(0))
     tokens = torch.randint(0, cfg.vocab_size, (batch, seq), device=device,
@@ -119,7 +127,8 @@ def profile_prefill(arch: str, batch: int, seq: int, calls: int = 3,
     prefill(params, {"tokens": tokens})
     out = _trace(lambda: prefill(params, {"tokens": tokens}), calls,
                  torch.device(device).type == "cuda", "prefill")
-    return dict(out, what="prefill", arch=arch, batch=batch, seq=seq)
+    return dict(out, what="prefill", arch=arch, batch=batch, seq=seq,
+                layers=cfg.n_layers)
 
 
 def profile_train(arch: str, batch: int, seq: int, calls: int = 3,
@@ -151,14 +160,19 @@ def main(argv=None):
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--top", type=int, default=12)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (prefill)")
     ap.add_argument("--train", action="store_true",
                     help="trace train steps instead of prefills")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    fn = profile_train if args.train else profile_prefill
-    res = fn(args.arch, args.batch, args.seq, args.calls, args.device,
-             args.reduced)
+    if args.train:
+        res = profile_train(args.arch, args.batch, args.seq, args.calls,
+                            args.device, args.reduced)
+    else:
+        res = profile_prefill(args.arch, args.batch, args.seq, args.calls,
+                              args.device, args.reduced, args.layers)
     what = res["what"]
     log.info(f"{res['arch']} {what} {res['batch']} x {res['seq']} on "
              f"{res['device']}: host {res[f'host_ms_per_{what}']:.3f} ms a "

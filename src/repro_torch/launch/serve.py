@@ -9,8 +9,11 @@ position counter, and a slot whose request finished takes the next
 request from the queue.  As in the reference, a new request continues at
 the shared position of its slot, so it also sees the keys the slot's
 previous request left in the cache; on an SSM (mamba2, zamba2) it also
-inherits that request's recurrent state and conv window.  `--arch`
-takes every registered arch (`configs.ARCHS`).
+inherits that request's recurrent state and conv window.  An
+encoder-decoder (seamless) decodes against the cross cache that
+`init_cache` leaves (zeros of 1024 source positions), as the reference's
+loop does: no source is encoded.  `--arch` takes every registered arch
+(`configs.ARCHS`).
 """
 
 from __future__ import annotations

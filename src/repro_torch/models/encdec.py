@@ -1,0 +1,174 @@
+"""Encoder-decoder model (SeamlessM4T backbone).
+
+Encoder: bidirectional self-attention + MLP over precomputed frame
+embeddings (the speech frontend is a stub, as in the reference: the
+caller supplies (B, S_src, d) embeddings).  Decoder: causal
+self-attention + cross-attention + MLP, with ring-buffer KV-cache decode
+against cross K/V computed once from the encoder output.
+
+A port of `repro.models.encdec`: the same parameter keys and stacked
+(n_layers, ...) unit axes, a Python loop over the unit index where the
+reference scans, `torch.utils.checkpoint` where it uses `jax.checkpoint`.
+Norms and prefill attention take the hand-written kernels under impl
+"auto"/"kernel" on CUDA tensors, as in `models/transformer.py`.
+
+Cross-attention RoPE, mirrored from the reference on purpose: the
+teacher-forced `forward` rotates the cross query at the decoder
+positions (the `kv_override` branch of `attention`) and leaves the
+encoder keys unrotated (`_rope_kv_cross`), while `decode_step`'s cross
+attention rotates neither.  So decode does not reproduce the forward
+after position 0, in either package; a test pins the port's divergence
+to the reference's.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..configs.base import ModelConfig
+from .attention import (_project_qkv, attention, attention_init,
+                        decode_attention, init_kv_cache)
+from .layers import (embed, embedding_init, mlp, mlp_init, rmsnorm,
+                     rmsnorm_init, unembed)
+from .transformer import _stack, _stacked_zeros, _unbind, _unit
+
+Params = Dict[str, Any]
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                device=None) -> Params:
+    """Same keys, shapes, dtypes and distributions as the reference's
+    `init_params`; the numbers differ (another generator)."""
+    d = cfg.d_model
+
+    def enc_unit():
+        return {"norm1": rmsnorm_init(d, device),
+                "attn": attention_init(gen, cfg, device),
+                "norm2": rmsnorm_init(d, device),
+                "mlp": mlp_init(gen, d, cfg.d_ff, cfg.activation, device)}
+
+    def dec_unit():
+        return {"norm1": rmsnorm_init(d, device),
+                "self_attn": attention_init(gen, cfg, device),
+                "norm_x": rmsnorm_init(d, device),
+                "cross_attn": attention_init(gen, cfg, device),
+                "norm2": rmsnorm_init(d, device),
+                "mlp": mlp_init(gen, d, cfg.d_ff, cfg.activation, device)}
+
+    return {
+        "embed": embedding_init(gen, cfg, device),
+        "enc_units": _stack(enc_unit, cfg.n_encoder_layers),
+        "dec_units": _stack(dec_unit, cfg.n_layers),
+        "enc_norm": rmsnorm_init(d, device),
+        "final_norm": rmsnorm_init(d, device),
+    }
+
+
+def _run_units(unit_fn, x, stacked, n, remat):
+    for p in _unbind(stacked, n):
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(unit_fn, x, p, use_reentrant=False)
+        else:
+            x = unit_fn(x, p)
+    return x
+
+
+def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig,
+           impl: str = "auto", remat: bool = True) -> torch.Tensor:
+    """src_embeds: (B, S_src, d) -> encoder states (B, S_src, d)."""
+    x = src_embeds.to(torch.bfloat16)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+    def unit(x, p):
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
+        # bidirectional self-attention (the encoder is non-causal)
+        x = x + attention(p["attn"], h, cfg, positions, impl=impl,
+                          causal=False)
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
+        return x + mlp(p["mlp"], h, cfg.activation)
+
+    x = _run_units(unit, x, params["enc_units"], cfg.n_encoder_layers, remat)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps, impl)
+
+
+def forward(params: Params, src_embeds: torch.Tensor,
+            dec_tokens: torch.Tensor, cfg: ModelConfig,
+            impl: str = "auto", remat: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced forward. Returns (logits fp32 (B, S, V), aux=0)."""
+    enc = encode(params, src_embeds, cfg, impl, remat)
+    x = embed(params["embed"], dec_tokens, cfg)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    enc_pos = torch.arange(enc.shape[1], dtype=torch.int32, device=x.device)
+
+    def unit(x, p):
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
+        x = x + attention(p["self_attn"], h, cfg, positions, impl=impl)
+        h = rmsnorm(p["norm_x"], x, cfg.norm_eps, impl)
+        ck, cv = _rope_kv_cross(p["cross_attn"], enc, cfg)
+        # the query is rotated at the decoder positions (see the module
+        # docstring: mirrored from the reference)
+        x = x + attention(p["cross_attn"], h, cfg, positions, impl=impl,
+                          kv_override=(ck, cv, enc_pos), causal=False)
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
+        return x + mlp(p["mlp"], h, cfg.activation)
+
+    x = _run_units(unit, x, params["dec_units"], cfg.n_layers, remat)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return unembed(params["embed"], x, cfg), aux
+
+
+def _rope_kv_cross(attn_params: Params, enc: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention keys/values from encoder states (no RoPE)."""
+    _, k, v = _project_qkv(attn_params, enc, cfg)
+    return k, v
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int,
+               device=None) -> Params:
+    """Self-attention ring caches + cross K/V (filled by `prefill_cross`),
+    stacked over the decoder layers."""
+    lead = (cfg.n_layers,)
+    return {"self": _stacked_zeros(init_kv_cache(cfg, batch, max_len,
+                                                 device=device), lead),
+            "cross": _stacked_zeros(init_kv_cache(cfg, batch, src_len,
+                                                  device=device), lead)}
+
+
+def prefill_cross(params: Params, src_embeds: torch.Tensor,
+                  cfg: ModelConfig, cache: Params,
+                  impl: str = "auto") -> Params:
+    """Run the encoder once and store each decoder layer's cross K/V."""
+    enc = encode(params, src_embeds, cfg, impl)
+    ks, vs = zip(*(_rope_kv_cross(p["cross_attn"], enc, cfg)
+                   for p in _unbind(params["dec_units"], cfg.n_layers)))
+    cross = {"k": torch.stack(ks).to(torch.bfloat16),
+             "v": torch.stack(vs).to(torch.bfloat16)}
+    return {"self": cache["self"], "cross": cross}
+
+
+def decode_step(params: Params, cache: Params, token: torch.Tensor,
+                pos: int, cfg: ModelConfig, impl: str = "auto"
+                ) -> Tuple[torch.Tensor, Params]:
+    """token: (B, 1) int; pos: int position.  Returns (logits (B, 1, V)
+    fp32, cache); the self-attention caches are updated in place, as in
+    `transformer.decode_step`, and the cross caches only read."""
+    x = embed(params["embed"], token, cfg)
+    for u in range(cfg.n_layers):
+        p = _unit(params["dec_units"], u)
+        h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
+        y, _ = decode_attention(p["self_attn"], h, _unit(cache["self"], u),
+                                cfg, pos)
+        x = x + y
+        h = rmsnorm(p["norm_x"], x, cfg.norm_eps, impl)
+        y, _ = decode_attention(p["cross_attn"], h, _unit(cache["cross"], u),
+                                cfg, pos, cross=True)
+        x = x + y
+        h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
+        x = x + mlp(p["mlp"], h, cfg.activation)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
+    return unembed(params["embed"], x, cfg), cache

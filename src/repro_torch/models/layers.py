@@ -29,10 +29,12 @@ KERNEL_IMPLS = ("auto", "kernel")
 def _dense_init(gen: torch.Generator, shape, scale_axis: int = 0,
                 device=None) -> torch.Tensor:
     """N(0, 1) / sqrt(fan) in fp32, cast to bf16, as the reference's
-    `_dense_init` draws (different numbers: another generator)."""
+    `_dense_init` draws (different numbers: another generator).  Scaled
+    in place: a (384, 7168, 2048) expert stack is 22.5 GB in fp32, and a
+    second fp32 tensor would add as much again to the peak."""
     scale = 1.0 / math.sqrt(max(1, shape[scale_axis]))
     w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (w * scale).to(DTYPE)
+    return w.mul_(scale).to(DTYPE)
 
 
 # --------------------------------------------------------------------------

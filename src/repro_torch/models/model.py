@@ -1,5 +1,5 @@
-"""Model facade: one interface over the decoder-only archs (dense, SSM,
-hybrid).
+"""Model facade: one interface over the decoder-only archs (dense, MoE,
+SSM, hybrid) and the encoder-decoder.
 
     model = build_model(cfg, device="cuda")
     params = model.init(torch.Generator("cuda").manual_seed(0))
@@ -7,7 +7,8 @@ hybrid).
     cache = model.init_cache(batch_size, max_len)
     logits, cache = model.decode(params, cache, token, pos)
 
-`batch` is a dict: {"tokens"} or {"embeds"} (frontend stubs).
+`batch` is a dict: {"tokens"} or {"embeds"} (frontend stubs), plus
+{"src_embeds"} for enc-dec.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..tree import leaves
-from . import transformer
+from . import encdec, transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,20 +34,34 @@ class Model:
 
 def build_model(cfg: ModelConfig, impl: str = "auto", remat: bool = True,
                 device="cuda") -> Model:
-    transformer.check_supported(cfg)
+    if cfg.is_encdec:
+        def init(gen: torch.Generator):
+            return encdec.init_params(gen, cfg, device)
 
-    def init(gen: torch.Generator):
-        return transformer.init_params(gen, cfg, device)
+        def apply(params, batch):
+            return encdec.forward(params, batch["src_embeds"],
+                                  batch["tokens"], cfg, impl, remat)
 
-    def apply(params, batch):
-        inputs = batch.get("embeds", batch.get("tokens"))
-        return transformer.forward(params, inputs, cfg, impl, remat)
+        def init_cache(batch_size, max_len, src_len=1024):
+            return encdec.init_cache(cfg, batch_size, max_len, src_len,
+                                     device)
 
-    def init_cache(batch_size, max_len):
-        return transformer.init_cache(cfg, batch_size, max_len, device)
+        def decode(params, cache, token, pos):
+            return encdec.decode_step(params, cache, token, pos, cfg, impl)
+    else:
+        def init(gen: torch.Generator):
+            return transformer.init_params(gen, cfg, device)
 
-    def decode(params, cache, token, pos):
-        return transformer.decode_step(params, cache, token, pos, cfg, impl)
+        def apply(params, batch):
+            inputs = batch.get("embeds", batch.get("tokens"))
+            return transformer.forward(params, inputs, cfg, impl, remat)
+
+        def init_cache(batch_size, max_len, src_len=1024):
+            return transformer.init_cache(cfg, batch_size, max_len, device)
+
+        def decode(params, cache, token, pos):
+            return transformer.decode_step(params, cache, token, pos, cfg,
+                                           impl)
 
     return Model(cfg, init, apply, init_cache, decode)
 

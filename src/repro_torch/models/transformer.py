@@ -1,5 +1,5 @@
-"""Decoder-only LM assembled from pattern units: dense, Mamba2 (SSM) and
-the zamba2-style hybrid.
+"""Decoder-only LM assembled from pattern units: dense, MoE, Mamba2 (SSM)
+and the zamba2-style hybrid.
 
 Parameters are stacked (n_units, ...) as in the reference, where
 `lax.scan` runs the unit body over that axis; here a Python loop over the
@@ -10,8 +10,8 @@ followed by ONE shared attention+MLP block whose weights live outside
 the stack and are reused by every application.  Their Mamba params are
 stacked (u_outer, every, ...) with no `b{j}` key, and the shared block is
 `params["shared"]` = {norm1, attn, norm2, mlp}, as in the reference; the
-reference's nested scans become nested loops.  MoE units raise
-`NotImplementedError` (a later slice of the port).
+reference's nested scans become nested loops.  Encoder-decoder models are
+`models/encdec.py`.
 """
 
 from __future__ import annotations
@@ -22,23 +22,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..tree import tree_map
 from .attention import (attention, attention_init, decode_attention,
                         init_kv_cache)
 from .layers import (embed, embedding_init, mlp, mlp_init, rmsnorm,
                      rmsnorm_init, unembed)
+from .moe import moe_block, moe_init
 from .ssm import decode_mamba, init_ssm_cache, mamba_block, mamba_init
 
 Params = Dict[str, Any]
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models "
-                                  f"(ROADMAP Queue 1 item 11)")
-    if any(spec.kind == "moe" for spec in cfg.unit):
-        raise NotImplementedError(f"{cfg.name}: MoE units "
-                                  f"(ROADMAP Queue 1 item 10)")
 
 
 # --------------------------------------------------------------------------
@@ -52,34 +44,44 @@ def _block_init(gen, spec, cfg: ModelConfig, device) -> Params:
     elif spec.kind == "mlp":
         p["mlp"] = mlp_init(gen, cfg.d_model, spec.d_ff or cfg.d_ff,
                             cfg.activation, device)
+    elif spec.kind == "moe":
+        p["moe"] = moe_init(gen, cfg, device)
     elif spec.kind == "mamba":
         p["mamba"] = mamba_init(gen, cfg, device)
     return p
 
 
-def _stack(trees):
-    """List of identical nested dicts -> one dict of stacked tensors."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+def _stack(make, n: int):
+    """n calls of `make` (each an identical nested dict of tensors) ->
+    one dict of (n, ...) stacked tensors.  Each unit is copied into
+    stacks allocated from the first one's shapes as soon as it is made,
+    so the peak is the stacks plus one unit, not a list of every unit
+    and the stacks beside it; a single unit is stacked as a view."""
+    first = make()
+    if n == 1:
+        return tree_map(lambda t: t.unsqueeze(0), first)
+    out = tree_map(lambda t: t.new_empty((n,) + t.shape), first)
+    tree_map(lambda dst, src: dst[0].copy_(src), out, first)
+    del first
+    for u in range(1, n):
+        tree_map(lambda dst, src: dst[u].copy_(src), out, make())
+    return out
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
                 device=None) -> Params:
     """Same keys, shapes, dtypes and distributions as the reference's
     `init_params`; the numbers differ (another generator)."""
-    check_supported(cfg)
     params: Params = {
         "embed": embedding_init(gen, cfg, device),
         "final_norm": rmsnorm_init(cfg.d_model, device),
     }
     if cfg.shared_attn_every:
         u_outer = cfg.n_layers // cfg.shared_attn_every
-        params["units"] = _stack([
-            _stack([_block_init(gen, cfg.unit[0], cfg, device)
-                    for _ in range(cfg.shared_attn_every)])
-            for _ in range(u_outer)])
+        params["units"] = _stack(
+            lambda: _stack(lambda: _block_init(gen, cfg.unit[0], cfg,
+                                               device),
+                           cfg.shared_attn_every), u_outer)
         params["shared"] = {
             "norm1": rmsnorm_init(cfg.d_model, device),
             "attn": attention_init(gen, cfg, device),
@@ -88,10 +90,9 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
                             device),
         }
         return params
-    units = [{f"b{j}": _block_init(gen, spec, cfg, device)
-              for j, spec in enumerate(cfg.unit)}
-             for _ in range(cfg.n_units)]
-    params["units"] = _stack(units)
+    params["units"] = _stack(
+        lambda: {f"b{j}": _block_init(gen, spec, cfg, device)
+                 for j, spec in enumerate(cfg.unit)}, cfg.n_units)
     return params
 
 
@@ -119,16 +120,20 @@ def _unbind(params: Params, n: int):
 # full-sequence forward (prefill)
 # --------------------------------------------------------------------------
 
-def _apply_block(p: Params, spec, x, cfg: ModelConfig, positions, impl):
+def _apply_block(p: Params, spec, x, cfg: ModelConfig, positions, impl,
+                 aux):
     h = rmsnorm(p["norm"], x, cfg.norm_eps, impl)
     if spec.kind == "attn":
         y = attention(p["attn"], h, cfg, positions, window=spec.window,
                       impl=impl)
+    elif spec.kind == "moe":
+        y, a = moe_block(p["moe"], h, cfg)
+        aux = aux + a
     elif spec.kind == "mamba":
         y = mamba_block(p["mamba"], h, cfg, impl=impl)
     else:
         y = mlp(p["mlp"], h, cfg.activation)
-    return x + y
+    return x + y, aux
 
 
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
@@ -147,27 +152,30 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
 
         def unit_fn(x, unit_params):
             for inner in _unbind(unit_params, cfg.shared_attn_every):
-                x = _apply_block(inner, cfg.unit[0], x, cfg, positions, impl)
+                x, _ = _apply_block(inner, cfg.unit[0], x, cfg, positions,
+                                    impl, 0.0)
             h = rmsnorm(shared["norm1"], x, cfg.norm_eps, impl)
             x = x + attention(shared["attn"], h, cfg, positions, impl=impl)
             h = rmsnorm(shared["norm2"], x, cfg.norm_eps, impl)
-            return x + mlp(shared["mlp"], h, cfg.activation)
+            return x + mlp(shared["mlp"], h, cfg.activation), 0.0
         n_outer = cfg.n_layers // cfg.shared_attn_every
     else:
         def unit_fn(x, unit_params):
+            aux = 0.0
             for j, spec in enumerate(cfg.unit):
-                x = _apply_block(unit_params[f"b{j}"], spec, x, cfg,
-                                 positions, impl)
-            return x
+                x, aux = _apply_block(unit_params[f"b{j}"], spec, x, cfg,
+                                      positions, impl, aux)
+            return x, aux
         n_outer = cfg.n_units
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for up in _unbind(params["units"], n_outer):
         if remat and torch.is_grad_enabled():
-            x = checkpoint(unit_fn, x, up, use_reentrant=False)
+            x, a = checkpoint(unit_fn, x, up, use_reentrant=False)
         else:
-            x = unit_fn(x, up)
+            x, a = unit_fn(x, up)
+        aux = aux + a
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params["embed"], x, cfg), aux
 
 
@@ -186,7 +194,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Stacked per-unit caches (leading axis = unit index; hybrids stack
     their Mamba caches (u_outer, every) and keep one KV cache for each
     application of the shared block)."""
-    check_supported(cfg)
     if cfg.shared_attn_every:
         u_outer = cfg.n_layers // cfg.shared_attn_every
         return {
@@ -215,6 +222,8 @@ def _decode_block(p, spec, cache_b, x, cfg: ModelConfig, pos: int, impl):
                                 window=spec.window)
     elif spec.kind == "mamba":
         y, _ = decode_mamba(p["mamba"], h, cache_b, cfg, impl)
+    elif spec.kind == "moe":
+        y, _ = moe_block(p["moe"], h, cfg)
     else:
         y = mlp(p["mlp"], h, cfg.activation)
     return x + y

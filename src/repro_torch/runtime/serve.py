@@ -46,8 +46,9 @@ def make_serve_fns(cfg: ModelConfig, scfg: ServeConfig, device="cuda"):
             nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
         return nxt.to(torch.int32)[:, None], logits, cache
 
-    def init_cache(batch_size: int, max_len: Optional[int] = None):
-        return model.init_cache(batch_size, max_len or scfg.max_len)
+    def init_cache(batch_size: int, max_len: Optional[int] = None,
+                   src_len: int = 1024):
+        return model.init_cache(batch_size, max_len or scfg.max_len, src_len)
 
     return prefill, decode_step, init_cache
 

@@ -1,6 +1,7 @@
 """Shared set-up of the port-vs-JAX parity tests: one set of weights,
 made by the JAX initialiser, handed to both frameworks as numpy."""
 
+import contextlib
 import dataclasses
 
 import jax
@@ -15,9 +16,12 @@ from repro_torch.data.pipeline import DataConfig, batch_for_model
 from repro_torch.tree import named_leaves
 
 #: reduced dense configs, smollm with an 8-token sliding window so that
-#: decode wraps its ring buffer, and the Mamba2 SSM and zamba2 hybrid
+#: decode wraps its ring buffer, the Mamba2 SSM and zamba2 hybrid, the MoE
+#: models (mixtral's window of 32 binds at 40 tokens) and pixtral, fed
+#: embeddings (`inputs`)
 PARITY_ARCHS = ("smollm-360m", "gemma2-2b", "chatglm3-6b", "qwen2.5-32b",
-                "smollm-swa8", "mamba2-130m", "zamba2-2.7b")
+                "smollm-swa8", "mamba2-130m", "zamba2-2.7b",
+                "mixtral-8x22b", "kimi-k2-1t-a32b", "pixtral-12b")
 #: leaves the reference initialises in float32 (`mamba_init`); they stay
 #: float32 when the rest of the tree is bf16, as in serving
 FP32_LEAVES = ("A_log", "D", "dt_bias")
@@ -31,6 +35,25 @@ def configs(name):
         jcfg = dataclasses.replace(jcfg, sliding_window=8, unit=())
         tcfg = dataclasses.replace(tcfg, sliding_window=8, unit=())
     return jcfg, tcfg
+
+
+def feeds_embeddings(cfg, dtype):
+    """Whether a parity test feeds `cfg` embeddings: a frontend stub
+    (pixtral) with bf16 params.  With float32 params the reference cannot
+    take embeddings (its forward casts them to bf16, and the unit scan's
+    carry then turns float32 after the first block, which `lax.scan`
+    refuses), so float32 checks feed it token ids, as a dense model."""
+    return cfg.frontend == "embed" and dtype == "bfloat16"
+
+
+def inputs(jcfg, B, S, dtype, seed=1):
+    """(name, numpy array) of a forward's input: token ids from a seed,
+    or (`feeds_embeddings`) (B, S, d) float32 embeddings from it."""
+    rng = np.random.default_rng(seed)
+    if feeds_embeddings(jcfg, dtype):
+        return "embeds", rng.standard_normal(
+            (B, S, jcfg.d_model)).astype(np.float32)
+    return "tokens", rng.integers(0, jcfg.vocab_size, (B, S))
 
 
 def numpy_params(jcfg, seed=0):
@@ -65,10 +88,13 @@ def both_params(tree, dtype):
     return jparams, tparams
 
 
-def train_batch(tcfg, seq, batch, seed=0, step=0):
+def train_batch(tcfg, seq, batch, dtype, seed=0, step=0):
     """The data pipeline's batch (bit-equal in both packages) as a JAX
-    dict and a torch dict."""
+    dict and a torch dict; token ids in place of a stub's embeddings
+    where `feeds_embeddings` says no."""
     import torch
+    if tcfg.frontend == "embed" and not feeds_embeddings(tcfg, dtype):
+        tcfg = dataclasses.replace(tcfg, frontend="none")
     b = batch_for_model(tcfg, DataConfig(seed=seed, seq_len=seq,
                                          global_batch=batch), step)
     return ({k: jnp.asarray(v) for k, v in b.items()},
@@ -85,3 +111,45 @@ def flat_torch(tree):
     """{"a/b/c": float32 numpy} of a port tree, in the same order."""
     return {"/".join(path): v.float().numpy()
             for path, v in named_leaves(tree)}
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Record the experts every MoE `route` call chooses, in both
+    packages: yields (JAX list, port list), one (tokens, K) numpy array a
+    call, sorted along K (the block's output does not depend on the
+    order).  The JAX side records through `jax.debug.callback`, so it
+    sees the routes of the compiled scan itself; read the JAX list after
+    `jax.effects_barrier()`."""
+    import repro.models.moe as jmoe
+    import repro_torch.models.moe as tmoe
+    jlog, tlog = [], []
+    jroute, troute = jmoe.route, tmoe.route
+
+    def jax_route(params, x2d, cfg):
+        w, idx, aux = jroute(params, x2d, cfg)
+        jax.debug.callback(lambda i: jlog.append(np.sort(np.asarray(i), -1)),
+                           idx, ordered=True)
+        return w, idx, aux
+
+    def port_route(params, x2d, cfg):
+        w, idx, aux = troute(params, x2d, cfg)
+        tlog.append(np.sort(idx.numpy(), -1))
+        return w, idx, aux
+
+    jmoe.route, tmoe.route = jax_route, port_route
+    try:
+        yield jlog, tlog
+    finally:
+        jmoe.route, tmoe.route = jroute, troute
+
+
+def route_flips(a, b, shape):
+    """Boolean `shape` (the tokens' (B, S) or (B,)): where the two
+    recordings `a`, `b` (lists of (tokens, K) arrays, one per MoE layer)
+    chose different experts in any layer."""
+    flips = np.zeros(int(np.prod(shape)), bool)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        flips |= (x != y).any(-1)
+    return flips.reshape(shape)

@@ -79,6 +79,11 @@ def _t(a, dtype, dev):
     (1, 300, 300, 6, 2, 64, True, None, None),     # G = 3, as smollm
     (1, 512, 512, 4, 4, 80, True, 128, None),      # window at D = 80
     (1, 64, 1000, 4, 2, 64, True, None, None),     # 64 queries at offsets
+    (4, 1024, 1024, 48, 8, 128, True, None, None),  # mixtral prefill
+    (2, 1024, 1024, 64, 8, 112, True, None, None),  # kimi prefill, D = 112
+    (2, 1024, 1024, 32, 8, 128, True, None, None),  # pixtral prefill
+    (4, 1000, 1000, 16, 16, 64, False, None, None),  # seamless encoder
+    (4, 1024, 1000, 16, 16, 64, False, None, None),  # seamless cross
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, B, S, T, H, K, D, causal,
                                     window, softcap):
@@ -252,7 +257,9 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda):
                                    (257, 384), (4096, 960), (4, 1, 960),
                                    (33, 100), (4096, 1536), (2048, 5120),
                                    (4096, 768), (2048, 2560), (4, 768),
-                                   (4, 1536), (2, 2560), (2, 5120)])
+                                   (4, 1536), (2, 2560), (2, 5120),
+                                   (4096, 6144), (2048, 7168), (4096, 1024),
+                                   (4, 6144), (2, 7168)])
 def test_rmsnorm_kernel_matches_plain(cuda, dtype, shape):
     rng = np.random.default_rng(3)
     x = _t(rng.standard_normal(shape), DTYPES[dtype], cuda)
@@ -511,3 +518,32 @@ def test_train_step_kernels_match_plain_path(cuda, arch):
         scale = float(b.abs().max())
         torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale,
                                    msg=str(path))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("E,d,f,rows", [
+    (8, 6144, 16384, 8192),      # mixtral: 4 x 1024 tokens, top 2
+    (384, 7168, 2048, 16384),    # kimi: 2 x 1024 tokens, top 8
+    (8, 64, 32, 40),             # reduced configs
+])
+def test_grouped_mm_on_the_card_matches_the_per_expert_loop(cuda, dtype, E,
+                                                            d, f, rows):
+    """The MoE block's grouped GEMM (`torch._grouped_mm`, a library call)
+    against its plain per-expert loop, with uneven and empty groups (a
+    skewed draw of each row's expert); tolerances as the kernels'."""
+    from repro_torch.models.moe import grouped_mm, grouped_mm_plain
+    gen = torch.Generator().manual_seed(0)
+    pick = torch.multinomial(torch.rand(E, generator=gen) ** 3, rows,
+                             replacement=True, generator=gen)
+    sizes = torch.bincount(pick, minlength=E).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(rows, d, generator=gen, device=cuda).to(DTYPES[dtype])
+    w = (torch.randn(E, d, f, generator=gen, device=cuda) / d ** 0.5).to(
+        DTYPES[dtype])
+    got = grouped_mm(x, w, sizes)
+    want = grouped_mm_plain(x, w, sizes)
+    torch.cuda.synchronize()
+    assert got.dtype == x.dtype and got.shape == (rows, f)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=TOL[dtype],
+                               rtol=RTOL[dtype])

@@ -125,3 +125,18 @@ def test_embed_scale_rounds_to_activation_dtype():
     table = torch.ones((4, cfg.d_model), dtype=torch.bfloat16)
     x = tl.embed({"table": table}, torch.tensor([[1]]), cfg)
     assert float(x[0, 0, 0]) == 31.0
+
+
+@pytest.mark.parametrize("shape,axis", [((384, 16, 8), 0), ((64, 48), 0),
+                                        ((256, 64), 1), ((5,), 0)])
+def test_dense_init_scales_in_place_to_the_same_bits(shape, axis):
+    """`_dense_init` scales its fp32 draw in place (one fp32 tensor, not
+    two, at the peak: 22.5 GB less for a kimi expert stack); the result
+    is the bits of the out-of-place `(w * scale).to(bf16)` from the same
+    generator state."""
+    got = tl._dense_init(torch.Generator().manual_seed(3), shape, axis)
+    w = torch.randn(shape, generator=torch.Generator().manual_seed(3),
+                    dtype=torch.float32)
+    want = (w * (1.0 / np.sqrt(max(1, shape[axis])))).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == shape
+    assert torch.equal(got, want)

@@ -1,6 +1,6 @@
-"""The port's serving path against the JAX package, on reduced smollm-360m
-and reduced mamba2-130m with bf16 params (the JAX decode path needs
-them).
+"""The port's serving path against the JAX package, on reduced smollm-360m,
+mamba2-130m, mixtral-8x22b and seamless-m4t-large-v2 with bf16 params
+(the JAX decode path needs them).
 
 Greedy tokens must equal the reference's wherever the reference's top-2
 logit gap exceeds MARGIN = 0.3: logits that agree within 0.15 (the bf16
@@ -10,7 +10,10 @@ port's logits must agree within 0.15.  On mamba2 the loop carries each
 slot's recurrent state through all ~25 steps, and the state drifts by
 O(ulp) a step between the two frameworks' roundings (the reference's
 own reasoning for its SSM decode tolerances, `tests/test_models.py`), so
-there the tolerance is 0.3 and the margin 0.6.
+there the tolerance is 0.3 and the margin 0.6.  On mixtral a row whose
+experts differ between the two packages at a step (a route flipped by
+rounding, `test_torch_model.py`) is left out of that step's logit
+comparison, and its request's tokens are compared up to that step.
 """
 
 import jax
@@ -24,7 +27,8 @@ from repro.runtime.serve import make_serve_fns as jax_make_serve_fns
 from repro_torch.launch.serve import make_requests, serve_loop
 from repro_torch.runtime.serve import ServeConfig, generate, make_serve_fns
 
-from _torch_parity import both_params, configs, numpy_params
+from _torch_parity import (both_params, configs, numpy_params,
+                           recorded_routes, route_flips)
 
 TOL, MARGIN = 0.15, 0.3
 SSM_TOL = 0.3
@@ -47,24 +51,38 @@ def _margin(logits):
 
 
 def _check_teacher_forced(port_dec, tparams, tcache, feeds, jlogits,
-                          tol=TOL):
+                          tol=TOL, jroutes=None):
     """Feed the port the reference's inputs step by step; compare logits
-    everywhere (within `tol`) and argmax where the reference's margin
-    exceeds 2 x tol."""
+    (within `tol`) and argmax where the reference's margin exceeds
+    2 x tol, on every row whose routes agree with `jroutes` (the
+    reference's, one list of per-layer (rows, K) arrays a step; None for
+    a model without MoE).  Returns the (steps, rows) flip mask."""
+    flips = np.zeros((len(feeds), len(feeds[0])), bool)
     for t, (feed, want) in enumerate(zip(feeds, jlogits)):
-        nxt, got, tcache = port_dec(tparams, tcache, torch.tensor(feed),
-                                    t)
-        got = got[:, -1].numpy()
-        want = want[:, -1]
+        with recorded_routes() as (_, troutes):
+            nxt, got, tcache = port_dec(tparams, tcache, torch.tensor(feed),
+                                        t)
+        if jroutes is not None:
+            flips[t] = route_flips(jroutes[t], troutes, (len(feed),))
+        keep = ~flips[t]
+        got = got[:, -1].numpy()[keep]
+        want = want[:, -1][keep]
         np.testing.assert_allclose(got, want, atol=tol)
         sure = _margin(want) > 2 * tol
-        np.testing.assert_array_equal(nxt[:, 0].numpy()[sure],
+        np.testing.assert_array_equal(nxt[:, 0].numpy()[keep][sure],
                                       np.argmax(want, -1)[sure])
+    assert flips.mean() <= 0.1, int(flips.sum())
+    return flips
 
 
-def _prefix_equal(got, want, margins, margin=MARGIN):
-    """Equal up to (and including) the first low-margin choice."""
-    for g, w, m in zip(got, want, margins):
+def _prefix_equal(got, want, margins, margin=MARGIN, flipped=None):
+    """Equal up to (and including) the first low-margin choice, or up to
+    the first choice made on a flipped route (`flipped`, one bool a
+    token)."""
+    flipped = flipped if flipped is not None else [False] * len(want)
+    for g, w, m, f in zip(got, want, margins, flipped):
+        if f:
+            return
         if g != w:
             assert m <= margin, (got, want, margins)
             return
@@ -112,54 +130,61 @@ def test_generate_matches_jax_on_mamba2():
 
 def _jax_serve_loop(jparams, jcfg, queue, slots, max_new, max_len):
     """The scheduler of `repro/launch/serve.py` (lines 50-91) on given
-    params, recording each step's feed and logits."""
+    params, recording each step's feed, logits and MoE routes, and for
+    each chosen token its request, margin, step and slot."""
     _, decode_step, init_cache = jax_make_serve_fns(
         jcfg, JaxServeConfig(max_len=max_len))
     dec = jax.jit(decode_step)
     cache = init_cache(slots, max_len)
     active = [None] * slots
-    results, feeds, logits, chosen = {}, [], [], []
+    results, feeds, logits, chosen, routes = {}, [], [], [], []
     served = pos = 0
-    while (queue or any(active)) and pos < max_len - 1:
-        for s in range(slots):
-            if active[s] is None and queue:
-                active[s] = [served, queue.pop(0), []]
-                served += 1
-        feed = np.zeros((slots, 1), np.int32)
-        for s, a in enumerate(active):
-            if a is None:
-                continue
-            _, prompt, out = a
-            feed[s, 0] = prompt.pop(0) if prompt else out[-1]
-        nxt, lg, cache = dec(jparams, cache, jnp.asarray(feed),
-                             jnp.int32(pos))
-        nxt = np.asarray(nxt)
-        feeds.append(feed)
-        logits.append(np.asarray(lg))
-        for s, a in enumerate(active):
-            if a is None:
-                continue
-            rid, prompt, out = a
-            if not prompt:
-                out.append(int(nxt[s, 0]))
-                chosen.append((rid, float(_margin(logits[-1][s, -1]))))
-                if len(out) >= max_new:
-                    results[rid] = out
-                    active[s] = None
-        pos += 1
-    return results, feeds, logits, chosen
+    with recorded_routes() as (jlog, _):
+        while (queue or any(active)) and pos < max_len - 1:
+            for s in range(slots):
+                if active[s] is None and queue:
+                    active[s] = [served, queue.pop(0), []]
+                    served += 1
+            feed = np.zeros((slots, 1), np.int32)
+            for s, a in enumerate(active):
+                if a is None:
+                    continue
+                _, prompt, out = a
+                feed[s, 0] = prompt.pop(0) if prompt else out[-1]
+            n_before = len(jlog)
+            nxt, lg, cache = dec(jparams, cache, jnp.asarray(feed),
+                                 jnp.int32(pos))
+            jax.effects_barrier()
+            routes.append(jlog[n_before:])
+            nxt = np.asarray(nxt)
+            feeds.append(feed)
+            logits.append(np.asarray(lg))
+            for s, a in enumerate(active):
+                if a is None:
+                    continue
+                rid, prompt, out = a
+                if not prompt:
+                    out.append(int(nxt[s, 0]))
+                    chosen.append((rid, float(_margin(logits[-1][s, -1])), pos,
+                                   s))
+                    if len(out) >= max_new:
+                        results[rid] = out
+                        active[s] = None
+            pos += 1
+    return results, feeds, logits, chosen, routes
 
 
 def _check_loop(arch, tol=TOL):
     st = _setup(arch)
     slots, max_new, max_len = 4, 8, 96
     queue = make_requests(8, st["jcfg"].vocab_size)
-    want, feeds, jlogits, chosen = _jax_serve_loop(
+    want, feeds, jlogits, chosen, jroutes = _jax_serve_loop(
         st["jparams"], st["jcfg"], [list(p) for p in queue], slots, max_new,
         max_len)
     _, tdec, tinit = make_serve_fns(st["tcfg"], ServeConfig(max_len), "cpu")
-    _check_teacher_forced(tdec, st["tparams"], tinit(slots, max_len), feeds,
-                          jlogits, tol)
+    flips = _check_teacher_forced(
+        tdec, st["tparams"], tinit(slots, max_len), feeds, jlogits, tol,
+        jroutes if st["jcfg"].n_experts else None)
 
     got, stats = serve_loop(st["tparams"], st["tcfg"],
                             ServeConfig(max_len=max_len), queue, slots,
@@ -167,8 +192,9 @@ def _check_loop(arch, tol=TOL):
     assert sorted(got) == sorted(want) == list(range(8))
     assert stats["served"] == 8 and stats["steps"] == len(feeds)
     for rid in want:
-        margins = [m for r, m in chosen if r == rid]
-        _prefix_equal(got[rid], want[rid], margins, 2 * tol)
+        mine = [c for c in chosen if c[0] == rid]
+        _prefix_equal(got[rid], want[rid], [m for _, m, _, _ in mine],
+                      2 * tol, [flips[t, s] for _, _, t, s in mine])
 
 
 def test_continuous_batching_loop_matches_jax():
@@ -179,6 +205,17 @@ def test_continuous_batching_loop_matches_jax_on_mamba2():
     """As above on the SSM: a request admitted into a freed slot inherits
     the previous request's conv window and state, in both loops."""
     _check_loop("mamba2-130m", SSM_TOL)
+
+
+def test_continuous_batching_loop_matches_jax_on_mixtral():
+    """The MoE decode: each step routes the slots' tokens (top 2 of 8)."""
+    _check_loop("mixtral-8x22b")
+
+
+def test_continuous_batching_loop_matches_jax_on_seamless():
+    """The encoder-decoder decodes against the cross cache that
+    `init_cache` leaves (zeros, no source encoded), in both loops."""
+    _check_loop("seamless-m4t-large-v2")
 
 
 def test_profile_prefill_on_cpu_reports_operators_and_no_device_numbers():

@@ -61,7 +61,7 @@ STATE_ATOL = 1e-6
 def test_train_step_matches_jax_float32(arch):
     jcfg, tcfg = configs(arch)
     jparams, tparams = both_params(numpy_params(jcfg), "float32")
-    jb, tb = train_batch(tcfg, S, B)
+    jb, tb = train_batch(tcfg, S, B, "float32")
 
     jloss_fn = jax_make_loss_fn(jcfg, JTrainConfig(attention_impl="auto",
                                                    remat=False))

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.models import build_model as jax_build_model
 from repro.optim.optimizers import OptimizerConfig as JOptimizerConfig
 from repro.optim.optimizers import build_optimizer as jax_build_optimizer
 from repro.runtime.compression import CompressionConfig as JCompression
@@ -26,6 +27,7 @@ from repro.runtime.train import TrainConfig as JTrainConfig
 from repro.runtime.train import cross_entropy as jax_cross_entropy
 from repro.runtime.train import make_loss_fn as jax_make_loss_fn
 from repro.runtime.train import make_train_step as jax_make_train_step
+from repro_torch.models import build_model
 from repro_torch.optim.optimizers import OptimizerConfig, build_optimizer
 from repro_torch.runtime.compression import CompressionConfig
 from repro_torch.runtime.train import (TrainConfig, compute_grads,
@@ -34,7 +36,8 @@ from repro_torch.runtime.train import (TrainConfig, compute_grads,
 from repro_torch.tree import leaves, named_leaves
 
 from _torch_parity import (PARITY_ARCHS, both_params, configs, flat_jax,
-                           flat_torch, numpy_params, train_batch)
+                           flat_torch, numpy_params, recorded_routes,
+                           route_flips, train_batch)
 
 B, S = 2, 40
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
@@ -68,7 +71,7 @@ def test_train_step_matches_jax_make_train_step(variant):
           "gather": dict(loss_impl="gather")}.get(variant, {})
     jcfg, tcfg = configs("smollm-360m")
     jparams, tparams = both_params(numpy_params(jcfg), "float32")
-    jb, tb = train_batch(tcfg, S, B)
+    jb, tb = train_batch(tcfg, S, B, "float32")
     jstep, _ = jax_make_train_step(jcfg, JTrainConfig(
         optimizer=JOptimizerConfig(**OPT), remat=False,
         compression=JCompression() if variant == "compression" else None,
@@ -100,18 +103,51 @@ def test_train_step_matches_jax_make_train_step(variant):
     assert int(new["step"]) == int(jnew["step"]) == 1
 
 
+def _token_ce(logits, labels):
+    """Each token's CE (B, S) from fp32 logits (B, S, V), in float64."""
+    x = np.asarray(logits, np.float64)
+    top = x.max(-1, keepdims=True)
+    lse = np.log(np.exp(x - top).sum(-1)) + top[..., 0]
+    return lse - np.take_along_axis(x, labels[..., None], -1)[..., 0]
+
+
 @pytest.mark.parametrize("arch", PARITY_ARCHS)
 def test_bf16_loss_matches_jax(arch):
+    """The bf16 loss and CE within BF16_LOSS_TOL.  On the MoE archs a
+    token whose experts differ between the two packages (a route flipped
+    by rounding, `test_torch_model.py`) can move its CE by ~1, and 1/80
+    of that is over the tolerance; where a route flipped, the mean CE of
+    the tokens whose routes agree is compared instead (each package's
+    logits from its own forward, routes recorded in that forward), and
+    at most a tenth of the tokens may flip."""
     jcfg, tcfg = configs(arch)
     jparams, tparams = both_params(numpy_params(jcfg), "bfloat16")
-    jb, tb = train_batch(tcfg, S, B)
-    jloss, jm = jax.jit(jax_make_loss_fn(
-        jcfg, JTrainConfig(attention_impl="auto", remat=False)))(jparams, jb)
-    loss_fn = make_loss_fn(tcfg, TrainConfig(remat=False), "cpu")
-    with torch.no_grad():
-        loss, m = loss_fn(tparams, tb)
-    assert abs(float(loss) - float(jloss)) <= BF16_LOSS_TOL
-    assert abs(float(m["ce"]) - float(jm["ce"])) <= BF16_LOSS_TOL
+    jb, tb = train_batch(tcfg, S, B, "bfloat16")
+    with recorded_routes() as (jr, tr):
+        jloss, jm = jax.jit(jax_make_loss_fn(
+            jcfg, JTrainConfig(attention_impl="auto", remat=False)))(
+                jparams, jb)
+        jax.effects_barrier()
+        loss_fn = make_loss_fn(tcfg, TrainConfig(remat=False), "cpu")
+        with torch.no_grad():
+            loss, m = loss_fn(tparams, tb)
+    if not route_flips(jr, tr, (B, S)).any():
+        assert abs(float(loss) - float(jloss)) <= BF16_LOSS_TOL
+        assert abs(float(m["ce"]) - float(jm["ce"])) <= BF16_LOSS_TOL
+        return
+    with recorded_routes() as (jr, tr):
+        jlogits, _ = jax.jit(jax_build_model(jcfg, impl="auto",
+                                             remat=False).apply)(jparams, jb)
+        jax.effects_barrier()
+        with torch.no_grad():
+            tlogits, _ = build_model(tcfg, remat=False, device="cpu").apply(
+                tparams, tb)
+    flips = route_flips(jr, tr, (B, S))
+    assert flips.mean() <= 0.1, int(flips.sum())
+    labels = tb["labels"].numpy()
+    want = _token_ce(jlogits, labels)[~flips].mean()
+    got = _token_ce(tlogits.numpy(), labels)[~flips].mean()
+    assert abs(got - want) <= BF16_LOSS_TOL, (got, want, int(flips.sum()))
 
 
 def test_gradient_dtypes_follow_the_reference():
@@ -120,7 +156,7 @@ def test_gradient_dtypes_follow_the_reference():
     float32 accumulators."""
     jcfg, tcfg = configs("mamba2-130m")
     _, tparams = both_params(numpy_params(jcfg), "bfloat16")
-    _, tb = train_batch(tcfg, S, B)
+    _, tb = train_batch(tcfg, S, B, "bfloat16")
     loss_fn = make_loss_fn(tcfg, TrainConfig(remat=False), "cpu")
     _, _, g1 = compute_grads(loss_fn, tparams, tb, 1)
     for (path, p), g in zip(named_leaves(tparams), leaves(g1)):
@@ -133,7 +169,7 @@ def test_gradient_dtypes_follow_the_reference():
 def test_microbatches_2_matches_1():
     jcfg, tcfg = configs("smollm-360m")
     _, tparams = both_params(numpy_params(jcfg), "float32")
-    _, tb = train_batch(tcfg, S, B)
+    _, tb = train_batch(tcfg, S, B, "float32")
     loss_fn = make_loss_fn(tcfg, TrainConfig(remat=False), "cpu")
     loss1, m1, g1 = compute_grads(loss_fn, tparams, tb, 1)
     loss2, m2, g2 = compute_grads(loss_fn, tparams, tb, 2)
@@ -152,7 +188,7 @@ def test_remat_on_and_off_give_equal_gradients(arch):
     the gradients are the same bit for bit on the CPU."""
     jcfg, tcfg = configs(arch)
     _, tparams = both_params(numpy_params(jcfg), "float32")
-    _, tb = train_batch(tcfg, S, B)
+    _, tb = train_batch(tcfg, S, B, "float32")
     out = []
     for remat in (False, True):
         loss_fn = make_loss_fn(tcfg, TrainConfig(remat=remat), "cpu")
