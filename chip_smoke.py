@@ -41,7 +41,11 @@ Phases, each of which fails the run (exit code 1, no result line):
 4. reference checks on small inputs: the kernel path on the card against
    the plain path on the CPU (float32; seamless in bf16), and
    token-by-token decode against the full forward (the repository's
-   decode-vs-forward invariant);
+   decode-vs-forward invariant); then the process group starts (one
+   rank: NCCL for CUDA tensors, gloo for CPU ones; an all-reduce on the
+   card proves NCCL up) and the expert-parallel MoE block at capacity
+   1.25 on the card's host mesh is held to the same block on the CPU's:
+   the same rows dropped, values within 1e-4 (float32);
 5. training, full-width smollm-360m (bf16, AdamW, remat, 8 x 1024 tokens
    from the data pipeline), through `make_train_step`, the launcher's
    `train_loop` and the checkpointer: exact launch counts of one step
@@ -51,7 +55,22 @@ Phases, each of which fails the run (exit code 1, no result line):
    matches the uninterrupted run bit for bit, and a profile of 3 steps
    (`launch/profile.py`: the plain attention backward's share).
    Phase 2 also holds the RMSNorm backward kernel to `rmsnorm_bwd_ref`,
-   and phase 2b times it.
+   and phase 2b times it;
+6. distribution, on the 1-rank group's host mesh (1, 1), as the
+   launchers run it (`--mesh host`, under the default ParallelContext):
+   6a. mixtral-8x22b at published widths, depth 56 -> 4, launch counters
+       set to 0 just before and read just after: prefill 4 x 1024
+       through `moe_block_expert_parallel` (4 calls), then 8 requests on
+       4 slots through `serve_loop` (and again, warm); the rows each
+       layer's capacity buckets drop in prefill and at each decode step;
+       the prefill at capacity factor 8 (nothing drops) against the
+       dropless path; the bucketed expert products timed at the
+       prefill's shape;
+   6b. smollm-360m at full width trained 3 steps through `train_loop` on
+       the mesh, the state placed by `state_shardings`, against the
+       meshless step (and whether they are bit-equal); 4 more steps of
+       each timed in turns; a checkpoint of the sharded state restored
+       with `shardings=` bit for bit.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
@@ -61,6 +80,7 @@ import contextlib
 import json
 import pathlib
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1426,6 +1446,410 @@ def phase_train(torch, dev):
     return metrics, counts
 
 
+@contextlib.contextmanager
+def recorded_drops(torch):
+    """The rows each capacity-bucketed expert call (`moe._grouped_ffn`)
+    drops, in call order: one bool tensor a call, True where a row is
+    past its expert's capacity (padding rows are not counted).  Counted
+    here from a stable sort of the expert ids, apart from the port's
+    cumulative-sum positions."""
+    from repro_torch.models import moe
+    log, inner = [], moe._grouped_ffn
+
+    def recording(rows, ids, n_experts, cap, *weights):
+        order = ids.argsort(stable=True)
+        sorted_ids = ids[order]
+        # a row's rank among its expert's rows: its index in the sorted
+        # ids less the index of that expert's first row
+        rank = (torch.arange(ids.numel(), device=ids.device)
+                - torch.searchsorted(sorted_ids, sorted_ids))
+        dropped = torch.zeros_like(ids, dtype=torch.bool)
+        dropped[order] = (rank >= cap) & (sorted_ids < n_experts)
+        log.append(dropped)
+        return inner(rows, ids, n_experts, cap, *weights)
+
+    moe._grouped_ffn = recording
+    try:
+        yield log
+    finally:
+        moe._grouped_ffn = inner
+
+
+def start_group(torch, dev):
+    """The launchers' 1-rank group (`launch.mesh.init_process_group`),
+    and one all-reduce on the card to prove NCCL up (its start is lazy).
+    Raises if either fails."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+    init_process_group("cuda")
+    backend = str(dist.get_backend())
+    one = torch.ones(1, device=dev)
+    dist.all_reduce(one)
+    torch.cuda.synchronize()
+    check("nccl" in backend and float(one) == 1.0
+          and dist.get_world_size() == 1,
+          f"process group: 1 rank, backend {backend!r}; an all-reduce on "
+          f"the card returns {float(one)}")
+    return backend
+
+
+def check_expert_parallel(torch, dev):
+    """Phase 4's check of the explicit MoE path: reduced mixtral's block
+    at the default capacity 1.25, float32, on the card's host mesh and on
+    the CPU's, at a prefill-like 2 x 64 tokens and a decode-like 4 x 1
+    (where each expert's bucket holds one row): the same rows dropped,
+    values within PARITY_TOL."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+    from repro_torch.models import moe
+    from repro_torch.runtime.parallel import ParallelContext, parallel_context
+
+    cfg = reduced(ARCHS["mixtral-8x22b"])
+    gen = torch.Generator().manual_seed(8)
+    params = {k: v.float() for k, v in moe.moe_init(gen, cfg).items()}
+    out = {}
+    for shape in ((2, 64), (4, 1)):
+        x = torch.randn(shape + (cfg.d_model,), generator=gen)
+        runs = {}
+        for where in ("cpu", "cuda"):
+            calls = moe.moe_block_expert_parallel.calls
+            with recorded_drops(torch) as drops, \
+                    use_mesh(make_host_mesh(where)), \
+                    parallel_context(ParallelContext()):
+                y, aux = moe.moe_block({k: v.to(where) for k, v in
+                                        params.items()}, x.to(where), cfg)
+            runs[where] = (y.cpu(), float(aux), [d.cpu() for d in drops],
+                           moe.moe_block_expert_parallel.calls - calls)
+        (y_cpu, aux_cpu, d_cpu, n_cpu), (y_card, aux_card, d_card, n_card) \
+            = runs.values()
+        same = len(d_cpu) == len(d_card) == 1 and all(
+            torch.equal(a, b) for a, b in zip(d_cpu, d_card))
+        n_dropped = int(d_cpu[0].sum())
+        err = max_err(y_card, y_cpu)
+        check(n_cpu == n_card == 1 and same
+              and err <= PARITY_TOL and abs(aux_card - aux_cpu) <= PARITY_TOL,
+              f"reduced mixtral expert-parallel block ({shape[0]} x "
+              f"{shape[1]} tokens, capacity 1.25, float32): card vs CPU "
+              f"drop the same {n_dropped} of {d_cpu[0].numel()} expert rows; "
+              f"max diff {err:.3g}, aux {aux_card:.6f} vs {aux_cpu:.6f} (tol "
+              f"{PARITY_TOL})")
+        out[f"{shape[0]}x{shape[1]}"] = {"max_diff": err,
+                                         "rows_dropped": n_dropped}
+    check(sum(v["rows_dropped"] for v in out.values()) > 0,
+          "the capacity dropped rows in these checks")
+    return out
+
+
+def phase_distributed_serve(torch, dev):
+    """6a: mixtral-8x22b (published widths, 4 layers, bf16 weights from
+    seed 0, as phase 3d) served under the launcher's host mesh and
+    context."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+    from repro_torch.launch.serve import make_requests, serve_loop
+    from repro_torch.models import build_model, moe
+    from repro_torch.runtime.parallel import ParallelContext, parallel_context
+    from repro_torch.runtime.serve import ServeConfig, make_serve_fns
+
+    print("phase 6a: distribution, mixtral-8x22b on the host mesh under "
+          "the launcher's context", flush=True)
+    arch, batch, slots, n_requests, max_new = "mixtral-8x22b", 4, 4, 8, 8
+    cfg = dataclasses.replace(ARCHS[arch], n_layers=4, unit=())
+    mesh = make_host_mesh("cuda")
+    print(f"  mesh {mesh.shape} on {mesh.device_type}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    params = build_model(cfg, remat=False, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (batch, 1024), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    inputs = {"tokens": tokens}
+    scfg = ServeConfig(max_len=96)
+    prefill, _, _ = make_serve_fns(cfg, scfg, dev)
+    wrappers = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+                "ssd": ssd}
+    ep = moe.moe_block_expert_parallel
+
+    def counted():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    ctx = ParallelContext()
+    for w in wrappers.values():
+        w.launches = 0
+    ep.calls = flash_attention.tc_launches = 0
+    with use_mesh(mesh), parallel_context(ctx):
+        logits = prefill(params, inputs)
+    torch.cuda.synchronize()
+    in_prefill, ep_prefill = counted(), ep.calls
+    results, stats = serve_loop(params, cfg, scfg,
+                                make_requests(n_requests, cfg.vocab_size),
+                                slots, max_new, dev, mesh)
+    torch.cuda.synchronize()
+    counts, ep_total = counted(), ep.calls
+    peak_bytes = torch.cuda.max_memory_allocated()
+    steps = stats["steps"]
+    per_prefill = {"flash_attention": 4, "rmsnorm": 9, "ssd": 0}
+    per_step = {"flash_attention": 0, "rmsnorm": 9, "ssd": 0}
+    check(in_prefill == per_prefill and ep_prefill == cfg.n_layers
+          and flash_attention.tc_launches == 4,
+          f"{arch} prefill under the context launched {in_prefill} "
+          f"(expected {per_prefill}) and called moe_block_expert_parallel "
+          f"{ep_prefill} times (one a layer: {cfg.n_layers})")
+    in_loop = {k: counts[k] - in_prefill[k] for k in counts}
+    check(in_loop == {k: n * steps for k, n in per_step.items()}
+          and ep_total - ep_prefill == cfg.n_layers * steps,
+          f"{arch} loop under the context: {steps} steps launched {in_loop} "
+          f"and {ep_total - ep_prefill} expert-parallel calls "
+          f"({cfg.n_layers} a step)")
+    check(logits.shape == (batch, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all())
+          and stats["served"] == n_requests
+          and all(len(r) == max_new for r in results.values())
+          and all(0 <= t < cfg.vocab_size for r in results.values()
+                  for t in r),
+          f"{arch}: prefill logits finite; all {n_requests} requests served "
+          f"with {max_new} tokens in the vocabulary; {stats['tok_per_s']:.2f} "
+          f"tokens/s, peak memory {peak_bytes} B")
+
+    # the loop again, warm (its first steps above met new shapes)
+    _, warm = serve_loop(params, cfg, scfg,
+                         make_requests(n_requests, cfg.vocab_size), slots,
+                         max_new, dev, mesh)
+    print(f"  {arch} loop again, warm: {warm['tok_per_s']:.2f} tokens/s",
+          flush=True)
+
+    # the rows the capacity drops: per layer in prefill, per decode step
+    with recorded_drops(torch) as drops, use_mesh(mesh), parallel_context(ctx):
+        prefill(params, inputs)
+    prefill_drops = [int(d.sum()) for d in drops]
+    prefill_rows = drops[0].numel()
+    with recorded_drops(torch) as drops:
+        serve_loop(params, cfg, scfg, make_requests(n_requests,
+                                                    cfg.vocab_size),
+                   slots, max_new, dev, mesh)
+    per_call = [int(d.sum()) for d in drops]
+    step_drops = [sum(per_call[i:i + cfg.n_layers])
+                  for i in range(0, len(per_call), cfg.n_layers)]
+    print(f"  {arch} capacity 1.25: rows dropped per layer in prefill "
+          f"{prefill_drops} of {prefill_rows} bucketed rows a layer "
+          f"(8192 routed); per decode step (4 layers, {slots * 2} routed "
+          f"rows a layer) {step_drops}", flush=True)
+    check(len(prefill_drops) == cfg.n_layers
+          and len(step_drops) == steps,
+          f"{arch}: drops recorded for every layer of the prefill and "
+          f"every decode step")
+
+    # nothing drops at capacity factor 8 (an expert's bucket holds every
+    # routed row): the prefill against the dropless path, on the rows
+    # whose routes agree
+    roomy = ParallelContext(capacity_factor=float(cfg.n_experts))
+
+    def under(c):
+        def run():
+            with use_mesh(mesh), parallel_context(c):
+                return prefill(params, inputs)
+        return run
+
+    with recorded_drops(torch) as drops:
+        err, agree, rows, flipped, _, _ = compare_prefills(
+            torch, under(roomy), lambda: prefill(params, inputs), batch)
+    roomy_drops = sum(int(d.sum()) for d in drops)
+    check(roomy_drops == 0 and err <= PREFILL_TOL,
+          f"{arch} prefill at capacity factor {roomy.capacity_factor} "
+          f"(no row dropped: {roomy_drops}) vs the dropless path: max diff "
+          f"{err:.4g} over the {rows}/{batch} rows whose routes agree (tol "
+          f"{PREFILL_TOL}; {flipped} of {batch * 1024} tokens changed "
+          f"experts); argmax agrees on {agree}/{rows}")
+    prefill_ms, _ = cuda_ms(torch, under(ctx), 5)
+    dropless_ms, _ = cuda_ms(torch, lambda: prefill(params, inputs), 5)
+
+    # the bucketed expert products at the prefill's shape: the 8192
+    # routed rows of one layer (arriving as 10240 rows with the padding of
+    # the send budget C), 8 buckets of cap_e = 1280
+    gen = torch.Generator(device=dev).manual_seed(2)
+    j = next(j for j, b in enumerate(cfg.unit) if b.kind == "moe")
+    layer = {k: v[0] for k, v in params["units"][f"b{j}"]["moe"].items()}
+    n_rows, cap = 10240, 1280
+    ids = torch.randint(0, cfg.n_experts, (n_rows,), device=dev,
+                        generator=gen)
+    ids[8192:] = cfg.n_experts
+    bucket_in = torch.randn((n_rows, cfg.d_model), device=dev,
+                            generator=gen, dtype=torch.bfloat16)
+    ws = (layer["w_gate"], layer["w_up"], layer["w_down"])
+    ffn_ms, _ = cuda_ms(torch, lambda: moe._grouped_ffn(
+        bucket_in, ids, cfg.n_experts, cap, *ws), 3)
+    ff = cfg.moe_d_ff
+    ffn_flops = 3 * 2 * cfg.n_experts * cap * cfg.d_model * ff
+    grouped_flops = 3 * 2 * 8192 * cfg.d_model * ff
+    print(f"  {arch} prefill under the context {prefill_ms:.3f} ms "
+          f"(dropless path {dropless_ms:.3f} ms); the bucketed expert "
+          f"products (torch.bmm over 8 x {cap} rows) {ffn_ms:.4f} ms a "
+          f"layer, {ffn_flops / grouped_flops:.3f}x the grouped GEMM's "
+          f"operations (bound {ffn_flops / PEAK_BF16_FLOPS * 1e3:.4f} ms)",
+          flush=True)
+    del params, logits, bucket_in, layer, ws
+    torch.cuda.empty_cache()
+    metrics = {
+        "prefill_ms": prefill_ms, "dropless_prefill_ms": dropless_ms,
+        "prefill_calls_expert_parallel": ep_prefill,
+        "decode_tok_per_s": stats["tok_per_s"], "decode_steps": steps,
+        "decode_tok_per_s_warm": warm["tok_per_s"],
+        "decode_wall_s": stats["wall_s"], "peak_memory_bytes": peak_bytes,
+        "prefill_rows_dropped_per_layer": prefill_drops,
+        "prefill_bucketed_rows_per_layer": prefill_rows,
+        "decode_rows_dropped_per_step": step_drops,
+        "no_drop_prefill_max_diff_vs_dropless": err,
+        "no_drop_rows_compared": rows, "no_drop_argmax_agree": agree,
+        "no_drop_tokens_route_flipped": flipped,
+        "bucketed_ffn_ms": ffn_ms,
+        "bucketed_ffn_bound_ms": ffn_flops / PEAK_BF16_FLOPS * 1e3,
+        "bucketed_ffn_ops_vs_grouped": ffn_flops / grouped_flops}
+    return metrics, counts
+
+
+def phase_distributed_train(torch, dev):
+    """6b: full-width smollm-360m (bf16 weights from seed 0, AdamW,
+    remat, 8 x 1024 tokens a step) trained through `train_loop` on the
+    host mesh, as `launch/train.py --mesh host` does."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpointer import (AsyncCheckpointer,
+                                                     restore, save)
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+    from repro_torch.launch.train import device_batch, train_loop
+    from repro_torch.optim.optimizers import OptimizerConfig, cosine_lr
+    from repro_torch.runtime.parallel import ParallelContext, parallel_context
+    from repro_torch.runtime.sharding import place, state_shardings
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+    from repro_torch.tree import leaves, named_leaves
+
+    print("phase 6b: distribution, smollm-360m trained on the host mesh",
+          flush=True)
+    arch, B, S, n = "smollm-360m", 8, 1024, 3
+    cfg = ARCHS[arch]
+    dcfg = DataConfig(seq_len=S, global_batch=B, vocab_size=cfg.vocab_size)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    tcfg = TrainConfig(optimizer=opt, remat=True)
+    mesh = make_host_mesh("cuda")
+    mesh_step, init_fn = make_train_step(cfg, tcfg, dev, mesh=mesh)
+    plain_step, _ = make_train_step(cfg, tcfg, dev)
+
+    def batch_fn(step):
+        return device_batch(cfg, dcfg, step, dev)
+
+    state0 = init_fn(torch.Generator(device=dev).manual_seed(0))
+    sh = state_shardings(mesh, state0, "adamw")
+    ckdir = ROOT / "build" / "chip_smoke_mesh_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    blocks = len(cfg.unit) * cfg.n_units
+    attn = sum(b.kind == "attn" for b in cfg.unit) * cfg.n_units
+    per_step = {"flash_attention": 2 * attn, "rmsnorm": 2 * blocks + 1,
+                "rmsnorm.bwd": blocks + 1, "ssd": 0}
+    with use_mesh(mesh), parallel_context(ParallelContext()):
+        placed = place(state0, sh)
+        same = all(tuple(t.placements) == s.placements
+                   for t, (_, s) in zip(leaves(placed), named_leaves(sh)))
+        check(same, f"{arch}: the state placed by state_shardings on "
+                    f"{mesh.shape} ({len(leaves(placed))} DTensor leaves)")
+        for w in (flash_attention, rmsnorm, ssd):
+            w.launches = 0
+        rmsnorm.bwd_launches = 0
+        state, stats = train_loop(mesh_step, placed, batch_fn, n,
+                                  AsyncCheckpointer(str(ckdir)),
+                                  ckpt_every=n + 1, log_every=n)
+        torch.cuda.synchronize()
+        counts = {"flash_attention": flash_attention.launches,
+                  "rmsnorm": rmsnorm.launches,
+                  "rmsnorm.bwd": rmsnorm.bwd_launches, "ssd": ssd.launches}
+        check(counts == {k: v * n for k, v in per_step.items()}
+              and stats["recoveries"] == 0,
+              f"{arch}: {n} steps on the mesh launched {counts} ({per_step} "
+              f"a step), no recovery")
+        del placed
+        plain, losses = state0, []
+        for i in range(n):
+            plain, m = plain_step(plain, batch_fn(i))
+            losses.append(float(m["loss"]))
+        mesh_losses = [stats["loss"][i] for i in range(n)]
+        loss_err = max(abs(a - b) for a, b in zip(mesh_losses, losses))
+        lr_sum = sum(float(cosine_lr(opt, i)) for i in range(n))
+        worst, differ, total = 0.0, 0, 0
+        for (_, a), b, p in zip(named_leaves(state["params"]),
+                                leaves(plain["params"]),
+                                leaves(state0["params"])):
+            a = a.full_tensor()
+            excess = ((a.float() - b.float()).abs() - 2.2 * lr_sum
+                      - 2.0 ** -7 * p.float().abs()).max()
+            worst = max(worst, float(excess))
+            differ += int((a != b).sum())
+            total += a.numel()
+        bit_equal = differ == 0 and mesh_losses == losses
+        check(loss_err <= TRAIN_LOSS_TOL and worst <= 0.0,
+              f"{arch} {n} bf16 steps on the mesh vs the meshless step: "
+              f"losses {mesh_losses} vs {losses} (max diff {loss_err:.3g}, "
+              f"tol {TRAIN_LOSS_TOL}); params within two steps' lr "
+              f"(2.2 x {lr_sum:.3g}) plus one bf16 ulp; {differ} of {total} "
+              f"weights differ: {'bit-equal' if bit_equal else 'not bit-equal'}")
+        # step times in turns, from the states reached (plain, mesh,
+        # mesh, plain, ...), each ended by a synchronise
+        times = {"mesh": [], "meshless": []}
+        for i, which in enumerate(["meshless", "mesh", "mesh",
+                                   "meshless"] * 2):
+            fn = mesh_step if which == "mesh" else plain_step
+            b = batch_fn(n + i)
+            t0 = time.perf_counter()
+            if which == "mesh":
+                state, _ = fn(state, b)
+            else:
+                plain, _ = fn(plain, b)
+            torch.cuda.synchronize()
+            times[which].append(time.perf_counter() - t0)
+        step_s = statistics.median(times["mesh"])
+        plain_s = statistics.median(times["meshless"])
+        print(f"  {arch} the loop's steps on the mesh "
+              f"{[round(stats['step_s'][i] * 1e3, 2) for i in range(n)]} ms; "
+              f"then in turns, mesh {[round(t * 1e3, 2) for t in times['mesh']]}"
+              f" ms, meshless {[round(t * 1e3, 2) for t in times['meshless']]}"
+              f" ms", flush=True)
+
+        save(str(ckdir), state, int(state["step"]))
+        restored = restore(str(ckdir), state0, shardings=sh)
+        exact = all(
+            tuple(r.placements) == tuple(t.placements)
+            and r.dtype == t.dtype and torch.equal(r.full_tensor(),
+                                                   t.full_tensor())
+            for r, t in zip(leaves(restored), leaves(state)))
+        check(exact, f"{arch}: the sharded state's checkpoint (step "
+                     f"{int(state['step'])}) "
+                     f"restored with shardings= bit for bit, each leaf on "
+                     f"its sharding's placements")
+    del state, restored, plain, state0
+    shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"  {arch} step on the mesh {step_s * 1e3:.2f} ms (median of 4 "
+          f"in turns), {B * S / step_s:,.0f} tokens/s; meshless "
+          f"{plain_s * 1e3:.2f} ms", flush=True)
+    metrics = {"losses_mesh": mesh_losses, "losses_meshless": losses,
+               "loss_max_diff": loss_err, "weights_differing": differ,
+               "bit_equal": bit_equal, "step_ms": step_s * 1e3,
+               "meshless_step_ms": plain_s * 1e3,
+               "tokens_per_s": B * S / step_s,
+               "loop_step_ms": [stats["step_s"][i] * 1e3 for i in range(n)],
+               "turns_ms": {k: [t * 1e3 for t in v]
+                            for k, v in times.items()}}
+    return metrics, counts
+
+
 def main():
     import torch
 
@@ -1460,27 +1884,37 @@ def main():
     metrics, counts = phase_main_paths(torch, dev)
     metrics["grouped_mm"] = grouped_mm
     phase_reference_checks(torch, dev)
+    backend = start_group(torch, dev)
+    metrics["expert_parallel_card_vs_cpu"] = check_expert_parallel(torch, dev)
     metrics["smollm-360m-train"], counts["smollm-360m-train"] = \
         phase_train(torch, dev)
+    metrics["mixtral-8x22b-mesh"], counts["mixtral-8x22b-mesh"] = \
+        phase_distributed_serve(torch, dev)
+    metrics["smollm-360m-train-mesh"], counts["smollm-360m-train-mesh"] = \
+        phase_distributed_train(torch, dev)
 
     for name, entry in kernels.items():
         by_path = {arch: c[name] for arch, c in counts.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
-    kernels["rmsnorm"]["bwd_launches"] = \
-        counts["smollm-360m-train"]["rmsnorm.bwd"]
+    kernels["rmsnorm"]["bwd_launches"] = sum(
+        counts[path]["rmsnorm.bwd"]
+        for path in ("smollm-360m-train", "smollm-360m-train-mesh"))
     serve = [m for m in metrics.values() if "flash_attention_tc_launches" in m]
     kernels["flash_attention"]["tc_launches"] = sum(
-        m["flash_attention_tc_launches"] for m in serve) + \
-        counts["smollm-360m-train"]["flash_attention"]
+        m["flash_attention_tc_launches"] for m in serve) + sum(
+        counts[path]["flash_attention"] for path in (
+            "smollm-360m-train", "mixtral-8x22b-mesh",
+            "smollm-360m-train-mesh"))
     kernels["ssd"]["tc_launches"] = sum(m["ssd_tc_launches"] for m in serve)
-    metrics.update(card=card, build_s=build_s)
+    metrics.update(card=card, build_s=build_s, process_group=backend)
     print(json.dumps({"metrics": metrics}))
     print(card)
     print(json.dumps({"kernels": list(kernels.values())}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}))
+    result = {"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": torch.cuda.device_count()}}
+    torch.distributed.destroy_process_group()
+    print(json.dumps(result))
     return 0
 
 

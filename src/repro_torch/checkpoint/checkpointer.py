@@ -21,6 +21,13 @@ shard's sha256 is verified before any tensor is built), `AsyncCheckpointer`
 writes on a background thread after one device-to-host copy, and the
 data pipeline is step-indexed, so {state, step} is the whole restart
 state.
+
+Sharded state (DTensor leaves, a train state on a mesh) is saved as full
+tensors, in the same format: every rank of the group takes part in
+gathering each leaf, and rank 0 alone writes.  `restore(...,
+shardings=...)` places each leaf on the *current* mesh with
+`distribute_tensor`, every rank cutting its shard from the file it read,
+so a job comes back on another mesh (the elastic restart).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..tree import named_leaves, tree_map
 
@@ -46,10 +54,30 @@ def _flatten(tree: Any):
     return ["/".join(path) for path, _ in named], [x for _, x in named]
 
 
+def _writes() -> bool:
+    """Whether this process writes checkpoints: rank 0 of the group, or a
+    process without one."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _barrier() -> None:
+    """With several ranks, wait until every rank is here (after rank 0's
+    write, so that no rank reads a checkpoint before it exists)."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _full(leaf: Any) -> Any:
+    """A DTensor gathered whole (every rank must call this); any other
+    leaf as it is."""
+    from torch.distributed.tensor import DTensor
+    return leaf.full_tensor() if isinstance(leaf, DTensor) else leaf
+
+
 def _to_numpy(leaf: Any):
     """(array to store, dtype name for the manifest)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = _full(leaf).detach().cpu()
         if t.dtype == torch.bfloat16:   # npz-safe; dtype kept in manifest
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
@@ -67,10 +95,23 @@ def _sha256(fp: str) -> str:
 
 def save(path: str, tree: Any, step: int) -> str:
     """Synchronous atomic save of a tree of tensors (or numpy arrays).
-    Returns the final checkpoint directory."""
+    Returns the final checkpoint directory.  With several ranks every
+    rank calls it (DTensor leaves are gathered whole), rank 0 writes, and
+    all return once the checkpoint is in place."""
+    if _writes():
+        final = _write(path, tree, step)
+    else:
+        final = os.path.join(path, f"step_{step:08d}")
+        for leaf in _flatten(tree)[1]:
+            _full(leaf)
+    _barrier()
+    return final
+
+
+def _write(path: str, tree: Any, step: int) -> str:
     names, leaves = _flatten(tree)
-    os.makedirs(path, exist_ok=True)
     final = os.path.join(path, f"step_{step:08d}")
+    os.makedirs(path, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=path, prefix=".tmp_ckpt_")
     manifest: Dict[str, Any] = {"step": step, "leaves": [], "shards": []}
     shard: Dict[str, np.ndarray] = {}
@@ -110,14 +151,14 @@ def save(path: str, tree: Any, step: int) -> str:
 
 def _host_copy(leaf: Any) -> Any:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True)
+        return _full(leaf).detach().to("cpu", copy=True)
     return np.array(leaf, copy=True)
 
 
 class AsyncCheckpointer:
     """Background-thread writer: save_async returns after the
-    device-to-host copy; wait() joins the write in flight and raises the
-    error it met, if any."""
+    device-to-host copy (rank 0's thread writes); wait() joins the write
+    in flight and raises the error it met, if any."""
 
     def __init__(self, path: str, keep: int = 3):
         self.path = path
@@ -129,10 +170,12 @@ class AsyncCheckpointer:
     def save_async(self, tree: Any, step: int) -> None:
         self.wait()
         host_tree = tree_map(_host_copy, tree)
+        if not _writes():
+            return
 
         def run():
             try:
-                save(self.path, host_tree, step)
+                _write(self.path, host_tree, step)
                 self._gc()
             except Exception as e:  # noqa: BLE001 — raised again by wait()
                 self._error = e
@@ -141,9 +184,12 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
+        """Join the write in flight; with several ranks, every rank
+        returns once rank 0's write is done."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -174,12 +220,16 @@ def _to_torch(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 
 def restore(path: str, like: Any, step: Optional[int] = None,
-            device=None, verify: bool = True) -> Any:
+            device=None, verify: bool = True, shardings: Any = None) -> Any:
     """Restore the checkpoint at `step` (the latest by default) into the
     structure of `like`, each leaf in the dtype the manifest records.
 
-    Each leaf goes to `device`; with device=None, to the device of the
-    matching tensor in `like` (the card for a leaf of another kind)."""
+    With `shardings` (a tree of `runtime.sharding.NamedSharding`s of
+    `like`'s structure, e.g. `state_shardings` of the current mesh) each
+    leaf becomes a DTensor placed by its sharding on its mesh's device
+    type.  Otherwise each leaf goes to `device`; with device=None, to the
+    device of the matching tensor in `like` (the card for a leaf of
+    another kind)."""
     steps = latest_steps(path)
     if not steps:
         raise FileNotFoundError(f"no checkpoints under {path}")
@@ -205,11 +255,18 @@ def restore(path: str, like: Any, step: Optional[int] = None,
         for npz in shards.values():
             npz.close()
 
-    def place(tree, prefix=()):
+    def place(tree, sh, prefix=()):
         if isinstance(tree, dict):
-            return {k: place(v, prefix + (str(k),)) for k, v in tree.items()}
+            return {k: place(v, None if sh is None else sh[k],
+                             prefix + (str(k),)) for k, v in tree.items()}
+        t = by_name["/".join(prefix)]
+        if sh is not None:
+            from torch.distributed.tensor import distribute_tensor
+            return distribute_tensor(t.to(sh.mesh.device_type),
+                                     sh.mesh.device_mesh, sh.placements,
+                                     src_data_rank=None)
         dev = device if device is not None else (
             tree.device if isinstance(tree, torch.Tensor) else "cuda")
-        return by_name["/".join(prefix)].to(dev)
+        return t.to(dev)
 
-    return place(like)
+    return place(like, shardings)

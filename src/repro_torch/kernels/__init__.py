@@ -7,3 +7,15 @@ tensor, the plain version for a CPU tensor, a launch counter) and
 """
 
 KERNELS = ("flash_attention", "rmsnorm", "ssd")
+
+
+def reject_dtensor(name: str, *tensors) -> None:
+    """Raise if any of `tensors` is a DTensor.  A wrapper hands its
+    kernel the local memory of a whole tensor (`data_ptr()`), which a
+    sharded DTensor does not hold; callers gather to local tensors first
+    (`runtime/train.py` does, on a mesh)."""
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{name}: got a DTensor; the kernel takes local "
+                        f"tensors (gather with .redistribute(...).to_local() "
+                        f"first)")

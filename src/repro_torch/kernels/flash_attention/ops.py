@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from .. import _build
+from .. import _build, reject_dtensor
 from .ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -157,6 +157,7 @@ def flash_attention(q, k, v, q_pos, k_pos, window: Optional[int] = None,
     A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel or raises.  Keys past T are never attended, causal or not.
     """
+    reject_dtensor("flash_attention", q, k, v)
     scale = q.shape[-1] ** -0.5 if scale is None else scale
     if q.device.type == "cpu":
         return _ref_call(q, k, v, q_pos, k_pos, window, softcap, scale,

@@ -20,7 +20,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, reject_dtensor
 from .ref import rmsnorm_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -137,6 +137,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     CUDA tensor launches the kernel (float32 or bfloat16, any row count)
     or raises, and its gradient launches the backward kernel.
     """
+    reject_dtensor("rmsnorm", x, scale)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, scale, eps)
     if x.device.type != "cuda":

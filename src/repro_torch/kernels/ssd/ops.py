@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, reject_dtensor
 from .ref import ssd_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -133,6 +133,7 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     SSM training on the card waits for the SSD backward (ROADMAP.md, Next,
     "SSD backward and SSM training on the card").
     """
+    reject_dtensor("ssd", x, dt, A, B, C)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, B, C, chunk), None
     if x.device.type != "cuda":

@@ -14,6 +14,17 @@ encoder-decoder (seamless) decodes against the cross cache that
 `init_cache` leaves (zeros of 1024 source positions), as the reference's
 loop does: no source is encoded.  `--arch` takes every registered arch
 (`configs.ARCHS`).
+
+Given a mesh, `serve_loop` runs under `use_mesh(mesh)` and the default
+`ParallelContext`, as the reference launcher's body does (`main` always
+gives it one: `--mesh host`, the default, is (1, world) of the process
+group, which `main` starts with one rank when there is none and ends on
+return).  An MoE
+model then takes the reference's expert-parallel path, whose capacity
+buckets drop rows: at decode with 4 slots on mixtral each expert's
+bucket holds one row.  Every rank serves every slot, so the mesh's data
+axes must hold one rank (the host mesh's do; sharding the slots over
+them is not in the port).
 """
 
 from __future__ import annotations
@@ -29,7 +40,10 @@ import torch
 from ..configs import ARCHS, reduced
 from ..configs.base import ModelConfig
 from ..models import build_model
+from ..runtime.parallel import ParallelContext, parallel_context
 from ..runtime.serve import ServeConfig, make_serve_fns
+from .mesh import (init_process_group, make_host_mesh, make_production_mesh,
+                   use_mesh)
 
 log = logging.getLogger("repro_torch.launch.serve")
 
@@ -43,11 +57,22 @@ def make_requests(n: int, vocab_size: int) -> List[List[int]]:
 
 def serve_loop(params, cfg: ModelConfig, scfg: ServeConfig,
                queue: List[List[int]], slots: int, max_new: int,
-               device="cuda") -> Tuple[Dict[int, List[int]], Dict]:
+               device="cuda", mesh=None) -> Tuple[Dict[int, List[int]], Dict]:
     """Serve the queued prompts; returns ({request id: new tokens}, stats).
 
     Stops when the queue and the slots are empty, or at position
-    scfg.max_len - 1.  `queue` is consumed."""
+    scfg.max_len - 1.  `queue` is consumed.  With a mesh, under the
+    launcher's context (module docstring)."""
+    if mesh is None:
+        return _serve(params, cfg, scfg, queue, slots, max_new, device)
+    if any(mesh.shape.get(a, 1) > 1 for a in ("pod", "data")):
+        raise ValueError(f"serve_loop runs every slot on every rank; the "
+                         f"mesh {mesh.shape} shards the data axes")
+    with use_mesh(mesh), parallel_context(ParallelContext()):
+        return _serve(params, cfg, scfg, queue, slots, max_new, device)
+
+
+def _serve(params, cfg, scfg, queue, slots, max_new, device):
     _, decode_step, init_cache = make_serve_fns(cfg, scfg, device)
     queue = [list(map(int, p)) for p in queue]
     n_requests = len(queue)
@@ -95,6 +120,8 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--max-len", type=int, default=96)
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "pod", "multipod"])
     # The reference declares --reduced as store_true with default True,
     # so it cannot be turned off; here --no-reduced serves full width.
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
@@ -107,11 +134,19 @@ def main(argv=None):
     if args.reduced:
         cfg = reduced(cfg, vocab_size=min(cfg.vocab_size, 4096))
     scfg = ServeConfig(max_len=args.max_len)
-    model = build_model(cfg, remat=False, device=args.device)
-    params = model.init(torch.Generator(device=args.device).manual_seed(0))
-    queue = make_requests(args.requests, cfg.vocab_size)
-    results, st = serve_loop(params, cfg, scfg, queue, args.slots,
-                             args.max_new, args.device)
+    started = init_process_group(args.device)
+    try:
+        mesh = (make_host_mesh(args.device) if args.mesh == "host"
+                else make_production_mesh(multi_pod=args.mesh == "multipod",
+                                          device=args.device))
+        model = build_model(cfg, remat=False, device=args.device)
+        params = model.init(torch.Generator(device=args.device).manual_seed(0))
+        queue = make_requests(args.requests, cfg.vocab_size)
+        results, st = serve_loop(params, cfg, scfg, queue, args.slots,
+                                 args.max_new, args.device, mesh)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
     log.info(f"served {st['served']}/{st['requests']} requests, "
              f"{st['steps']} decode steps x {st['slots']} slots in "
              f"{st['wall_s']:.1f}s ({st['tok_per_s']:.1f} tok/s)")

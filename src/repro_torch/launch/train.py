@@ -2,15 +2,21 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --steps 200 --batch 16 --seq 128 [--full] [--resume] \
-        [--compress] [--microbatches 4] [--device cuda]
+        [--mesh host|pod|multipod] [--compress] [--microbatches 4] \
+        [--device cuda]
 
-The reference launcher (`repro/launch/train.py`) without its mesh (one
-card; distribution is a later slice of the port): `make_train_step` on
-`--device`, the step-indexed data pipeline, async checkpoints every
-`--ckpt-every` steps, `--resume` from the latest checkpoint, straggler
-tracking, and crash recovery.  `--reduced` is the default (the reference
-keeps it so); `--full` trains the published widths, with remat on.
-AdamW unless the model has more than 100e9 parameters (then Adafactor).
+The reference launcher (`repro/launch/train.py`): the mesh (`--mesh
+host`, the default, is (1, world) of the process group, which `main`
+starts with one rank when there is none and ends on return; `pod` and
+`multipod` need a group of 256 or 512 ranks) and the ParallelContext
+around everything; the train state placed by `state_shardings` and
+`make_train_step` on the mesh (`runtime/train.py` says what a sharded
+step computes); the step-indexed data pipeline, async checkpoints every
+`--ckpt-every` steps, `--resume` from the latest checkpoint (restored
+with the mesh's shardings), straggler tracking, and crash recovery.
+`--reduced` is the default (the reference keeps it so); `--full` trains
+the published widths, with remat on.  AdamW unless the model has more
+than 100e9 parameters (then Adafactor).
 
 `train_loop` is the loop itself.  A step that raises a RuntimeError (a
 CUDA fault, an out-of-memory error) restores the latest checkpoint and
@@ -40,7 +46,12 @@ from ..data.pipeline import DataConfig, batch_for_model
 from ..optim.optimizers import OptimizerConfig
 from ..runtime.compression import CompressionConfig
 from ..runtime.fault_tolerance import StragglerMitigator
+from ..runtime.parallel import ParallelContext, parallel_context
+from ..runtime.sharding import place, state_shardings
 from ..runtime.train import TrainConfig, make_train_step
+from ..tree import tree_map
+from .mesh import (init_process_group, make_host_mesh, make_production_mesh,
+                   use_mesh)
 
 log = logging.getLogger("repro_torch.launch.train")
 _MEGA = 1e6
@@ -57,7 +68,7 @@ def train_loop(step_fn: Callable, state: Dict, batch_fn: Callable[[int], Dict],
                log_every: int = 10,
                restart_fn: Optional[Callable[[], Dict]] = None,
                failure_injector: Optional[Callable[[int], bool]] = None,
-               max_restarts: int = 25):
+               max_restarts: int = 25, shardings=None):
     """Run steps int(state["step"]) .. n_steps - 1; returns (state, stats).
 
     After step s (s > 0, s % ckpt_every == 0) the state is checkpointed
@@ -65,9 +76,10 @@ def train_loop(step_fn: Callable, state: Dict, batch_fn: Callable[[int], Dict],
     restores the latest checkpoint in `ckpt.path` or, before there is
     one, takes `restart_fn()` (the run's initial state made again; with
     none, the failure is raised).  `failure_injector(s)` returning True
-    makes step s fail (tests use it).  stats: "steps_run" (replays
-    included), "recoveries", "wall_s", and by step index the last run's
-    "step_s", "ce" and "loss"."""
+    makes step s fail (tests use it).  On a mesh, `shardings` (the
+    state's `state_shardings`) places the restored checkpoint.  stats:
+    "steps_run" (replays included), "recoveries", "wall_s", and by step
+    index the last run's "step_s", "ce" and "loss"."""
     straggler = StragglerMitigator()
     s = int(state["step"])
     recoveries, steps_run = 0, 0
@@ -95,7 +107,7 @@ def train_loop(step_fn: Callable, state: Dict, batch_fn: Callable[[int], Dict],
             if latest_steps(ckpt.path):
                 log.error(f"step {s} failed ({e}); restoring the latest "
                           f"checkpoint")
-                state = restore(ckpt.path, state)
+                state = restore(ckpt.path, state, shardings=shardings)
             elif restart_fn is not None:
                 log.error(f"step {s} failed ({e}); no checkpoint yet, "
                           f"restarting from the initial state")
@@ -129,6 +141,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "pod", "multipod"])
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--optimizer", default=None,
@@ -157,30 +171,49 @@ def main(argv=None):
         microbatches=args.microbatches,
         compression=CompressionConfig() if args.compress else None,
         remat=not args.reduced)
-    step_fn, init_fn = make_train_step(cfg, tcfg, args.device)
+    started = init_process_group(args.device)
+    try:
+        return _run(args, cfg, tcfg, opt_name)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, cfg, tcfg, opt_name):
+    """main's body, once the process group is up; the state is returned
+    as whole tensors (gathered before the group ends)."""
+    mesh = (make_host_mesh(args.device) if args.mesh == "host"
+            else make_production_mesh(multi_pod=args.mesh == "multipod",
+                                      device=args.device))
+    step_fn, init_fn = make_train_step(cfg, tcfg, args.device, mesh=mesh)
     log.info(f"arch={cfg.name} reduced={args.reduced} "
              f"params~{cfg.param_count() / _MEGA:.1f}M opt={opt_name} "
-             f"device={args.device}")
+             f"device={args.device} mesh={mesh.shape}")
 
-    def initial_state():
-        return init_fn(torch.Generator(device=args.device).manual_seed(0))
+    with use_mesh(mesh), parallel_context(ParallelContext()):
+        def initial_state():
+            return init_fn(torch.Generator(device=args.device).manual_seed(0))
 
-    state = initial_state()
-    ck = AsyncCheckpointer(args.ckpt_dir, keep=3)
-    start = 0
-    if args.resume and latest_steps(args.ckpt_dir):
-        state = restore(args.ckpt_dir, state)
-        start = int(state["step"])
-        log.info(f"resumed at step {start}")
+        state = initial_state()
+        st_sh = state_shardings(mesh, state, opt_name)
+        state = place(state, st_sh)
+        ck = AsyncCheckpointer(args.ckpt_dir, keep=3)
+        start = 0
+        if args.resume and latest_steps(args.ckpt_dir):
+            state = restore(args.ckpt_dir, state, shardings=st_sh)
+            start = int(state["step"])
+            log.info(f"resumed at step {start}")
 
-    dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
-                      vocab_size=cfg.vocab_size)
-    state, stats = train_loop(
-        step_fn, state, lambda s: device_batch(cfg, dcfg, s, args.device),
-        args.steps, ck, args.ckpt_every, args.log_every,
-        restart_fn=initial_state)
-    ck.save_async(state, args.steps)
-    ck.wait()
+        dcfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
+                          vocab_size=cfg.vocab_size)
+        state, stats = train_loop(
+            step_fn, state, lambda s: device_batch(cfg, dcfg, s, args.device),
+            args.steps, ck, args.ckpt_every, args.log_every,
+            restart_fn=lambda: place(initial_state(), st_sh),
+            shardings=st_sh)
+        ck.save_async(state, args.steps)
+        ck.wait()
+        state = tree_map(lambda t: t.full_tensor(), state)
     log.info(f"finished {args.steps - start} steps in {stats['wall_s']:.1f}s "
              f"({stats['steps_run']} run, {stats['recoveries']} recoveries); "
              f"checkpoints: {latest_steps(args.ckpt_dir)}")

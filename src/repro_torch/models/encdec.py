@@ -83,6 +83,8 @@ def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def unit(x, p):
+        from ..runtime.parallel import shard_batch
+        x = shard_batch(x)
         h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
         # bidirectional self-attention (the encoder is non-causal)
         x = x + attention(p["attn"], h, cfg, positions, impl=impl,
@@ -99,12 +101,14 @@ def forward(params: Params, src_embeds: torch.Tensor,
             impl: str = "auto", remat: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward. Returns (logits fp32 (B, S, V), aux=0)."""
-    enc = encode(params, src_embeds, cfg, impl, remat)
+    from ..runtime.parallel import shard_batch
+    enc = shard_batch(encode(params, src_embeds, cfg, impl, remat))
     x = embed(params["embed"], dec_tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     enc_pos = torch.arange(enc.shape[1], dtype=torch.int32, device=x.device)
 
     def unit(x, p):
+        x = shard_batch(x)
         h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
         x = x + attention(p["self_attn"], h, cfg, positions, impl=impl)
         h = rmsnorm(p["norm_x"], x, cfg.norm_eps, impl)

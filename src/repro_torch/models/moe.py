@@ -12,10 +12,21 @@ every device (`grouped_mm`).  `grouped_mm_plain`, a loop over experts,
 is its plain version for tests and the card's checks; no model path
 takes it.
 
-Only the reference's single-device path (`moe_block_gspmd`) is ported.
-Its ParallelContext paths (`moe_block_expert_parallel`,
-`moe_block_tp_ff` and `_grouped_ffn`: shard_map with all_to_all and
-psum) belong to the distribution slice (ROADMAP Queue 1 item 12).
+`moe_block` is the reference's dispatcher.  Under a ParallelContext and
+a mesh with the expert axis it takes one of the reference's explicit
+parallel paths, which bucket rows by capacity and drop the rows that
+overflow a bucket: `moe_block_expert_parallel` (E / n experts a rank,
+rows sent to their expert's rank and back by all-to-all) or
+`moe_block_tp_ff` (every rank computes its slice of the expert hidden
+dim for every row; the partial outputs are summed).  Otherwise it takes
+the dropless `moe_block_gspmd`.  The reference runs the parallel paths
+in `shard_map`; here every rank runs them with the collectives of
+`runtime/parallel.py`.  On a mesh, x is this rank's rows of the global
+batch: its shard over ("pod", *data_axes), the whole batch when those
+axes have one rank.  The expert weights are the whole stacks (each rank
+takes its own slice) or DTensors gathered whole before the block.  Their
+bucketed products (`_grouped_ffn`) are batched matmuls over (E, cap, d),
+as the reference's einsums are, outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..launch.mesh import get_abstract_mesh
 from .layers import _dense_init
 
 Params = Dict[str, torch.Tensor]
@@ -86,9 +98,51 @@ def grouped_mm_plain(x: torch.Tensor, w: torch.Tensor,
     return out
 
 
+def _row_axes(mesh, ctx):
+    """The mesh axes this rank's rows of the batch are sharded over."""
+    data = ctx.data_axes if ctx is not None else ("data",)
+    return tuple(a for a in ("pod", *data) if a in mesh.shape)
+
+
 def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (y, aux_loss); the reference's `moe_block_gspmd`."""
+    """x: (B, S, d), this rank's rows -> (y, aux_loss).
+
+    The reference's dispatcher, its conditions read on the global token
+    count T: the expert-parallel path when a ParallelContext is set, the
+    mesh has its expert axis (n_e ranks), n_e divides the experts and
+    n_d * n_e divides T (n_d: the ranks of ctx.data_axes); else the TP-ff
+    path when there are at most n_e experts, n_e divides the expert
+    hidden dim and n_d divides T; else the dropless path, which on a
+    mesh whose data axes hold several ranks gathers their rows, so that
+    the routing loss is the whole batch's as in the reference."""
+    from ..runtime.parallel import (all_gather, axis_index, axis_size,
+                                    get_context)
+    ctx = get_context()
+    mesh = get_abstract_mesh()
+    rows = _row_axes(mesh, ctx)
+    if ctx is not None and ctx.expert_axis in mesh.shape:
+        n_e = mesh.shape[ctx.expert_axis]
+        n_d = axis_size(mesh, [a for a in ctx.data_axes if a in mesh.shape])
+        T = x.shape[0] * x.shape[1] * axis_size(mesh, rows)
+        if cfg.n_experts % n_e == 0 and T % (n_d * n_e) == 0:
+            return moe_block_expert_parallel(params, x, cfg, ctx)
+        if cfg.n_experts <= n_e and \
+                (cfg.moe_d_ff or cfg.d_ff) % n_e == 0 and \
+                T % max(1, n_d) == 0:
+            return moe_block_tp_ff(params, x, cfg, ctx)
+    if axis_size(mesh, rows) > 1:
+        B = x.shape[0]
+        y, aux = moe_block_gspmd(params, all_gather(x, mesh, rows), cfg)
+        i = axis_index(mesh, rows)
+        return y[i * B:(i + 1) * B], aux
+    return moe_block_gspmd(params, x, cfg)
+
+
+def moe_block_gspmd(params: Params, x: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (y, aux_loss): global sort + grouped GEMM, no
+    drops."""
     B, S, d = x.shape
     K, E = cfg.experts_per_token, cfg.n_experts
     x2d = x.reshape(B * S, d)
@@ -110,3 +164,147 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig
     out = out[inv].reshape(B * S, K, d)                    # unsort, fold K
     y = torch.einsum("tkd,tk->td", out, w)
     return y.reshape(B, S, d), aux
+
+
+# --------------------------------------------------------------------------
+# explicit parallel paths: every rank runs these with collectives over
+# the mesh's axes (the reference's shard_map bodies)
+# --------------------------------------------------------------------------
+
+def _local_route(router, x2, cfg: ModelConfig):
+    """The reference's `_local_route`: the same arithmetic as `route`."""
+    return route({"router": router}, x2, cfg)
+
+
+def _expert_ffn(xs, group_sizes, wg, wu, wd):
+    """Rows sorted by expert -> the experts' SwiGLU outputs (grouped)."""
+    gate = grouped_mm(xs, wg, group_sizes)
+    up = grouped_mm(xs, wu, group_sizes)
+    h = F.silu(gate.float()).to(xs.dtype) * up
+    return grouped_mm(h, wd, group_sizes)
+
+
+def _bucket_positions(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Each row's position among the earlier rows of its bucket, in row
+    order (`cumsum(onehot) - 1`); an id >= n is in no bucket (it counts
+    for none, and reads bucket n - 1's count)."""
+    onehot = ids[:, None] == torch.arange(n, device=ids.device)[None, :]
+    pos = torch.cumsum(onehot, dim=0) - 1
+    return torch.gather(pos, 1, torch.clamp(ids, max=n - 1)[:, None])[:, 0]
+
+
+def _grouped_ffn(rows, expert_ids, n_experts: int, cap: int, wg, wu, wd):
+    """Capacity-based grouped GEMM (the reference's 'dropping' form).
+
+    rows: (N, d); expert_ids: (N,) in [0, n_experts] (n_experts marks
+    padding).  Buckets rows per expert, `cap` rows each, in row order;
+    runs batched matmuls (e, cap, d) x (e, d, f); scatters the results
+    back to row order.  Rows past their expert's capacity, and padding,
+    get zeros.  The bucket buffer has one overflow slot per expert that
+    takes every row past capacity and is cut away."""
+    d = rows.shape[1]
+    e_c = torch.clamp(expert_ids, max=n_experts - 1)
+    pos_of = torch.where(expert_ids < n_experts,
+                         _bucket_positions(expert_ids, n_experts),
+                         torch.full_like(expert_ids, cap))
+    valid = pos_of < cap
+    slot = torch.where(valid, pos_of, cap)
+    buck = rows.new_zeros((n_experts, cap + 1, d)).index_put(
+        (e_c, slot), rows)[:, :cap]
+    gate = torch.bmm(buck, wg)
+    up = torch.bmm(buck, wu)
+    h = F.silu(gate.float()).to(rows.dtype) * up
+    out = torch.bmm(h, wd).reshape(n_experts * cap, d)
+    got = out[e_c * cap + torch.clamp(pos_of, max=cap - 1)]
+    return torch.where(valid[:, None], got, 0.0)
+
+
+def _rows_of(t: torch.Tensor, i: int, n: int, dim: int = 0) -> torch.Tensor:
+    """Part i of n equal parts of t along `dim`."""
+    k = t.shape[dim] // n
+    return t.narrow(dim, i * k, k)
+
+
+def moe_block_expert_parallel(params, x, cfg: ModelConfig, ctx):
+    """Expert parallelism: E/n experts per rank of the expert axis; token
+    rows travel to their expert's rank over all-to-all and return.
+
+    x: (B, S, d), this rank's rows, which the ranks of the expert axis
+    split in n_e equal parts (the reference's P((*data_axes, axis))
+    sharding of the tokens, data-major); each part's outputs are gathered
+    back over the expert axis.  Rows past a destination's budget C, or
+    past an expert's capacity, contribute zeros."""
+    from ..runtime.parallel import all_gather, all_to_all, pmean
+    moe_block_expert_parallel.calls += 1
+    mesh = get_abstract_mesh()
+    ax = ctx.expert_axis
+    n_e = mesh.shape[ax]
+    data_axes = _row_axes(mesh, ctx)
+    B, S, d = x.shape
+    K, E = cfg.experts_per_token, cfg.n_experts
+    E_local = E // n_e
+    T_loc = B * S // n_e
+    N = T_loc * K                                   # local expanded rows
+    C = max(1, int(-(-N // n_e) * ctx.capacity_factor))  # per-dest budget
+    me = mesh.index(ax)
+    wg, wu, wd = (_rows_of(params[k], me, n_e)
+                  for k in ("w_gate", "w_up", "w_down"))
+    x2 = _rows_of(x.reshape(B * S, d), me, n_e)
+
+    w, idx, aux = _local_route(params["router"], x2, cfg)
+    flat_e = idx.reshape(-1)                         # (N,)
+    dest = flat_e // E_local
+    pos_of = _bucket_positions(dest, n_e)
+    valid = pos_of < C
+    slot = torch.where(valid, pos_of, C)             # overflow -> dropped
+    rows = x2.repeat_interleave(K, dim=0)
+    send = x2.new_zeros((n_e, C + 1, d)).index_put((dest, slot), rows)
+    meta = torch.full((n_e, C + 1), E_local, dtype=flat_e.dtype,
+                      device=x.device).index_put((dest, slot),
+                                                 flat_e % E_local)
+    recv = all_to_all(send[:, :C], mesh, ax)
+    rmeta = all_to_all(meta[:, :C], mesh, ax)
+    cap_e = max(1, int(-(-T_loc * K // E_local) * ctx.capacity_factor))
+    out = _grouped_ffn(recv.reshape(n_e * C, d), rmeta.reshape(n_e * C),
+                       E_local, cap_e, wg, wu, wd).reshape(n_e, C, d)
+    back = all_to_all(out, mesh, ax).reshape(n_e * C, d)
+    gathered = back[dest * C + torch.clamp(pos_of, max=C - 1)]
+    gathered = torch.where(valid[:, None], gathered, 0.0)
+    y = torch.einsum("tkd,tk->td", gathered.reshape(T_loc, K, d), w)
+    aux = pmean(aux, mesh, (*data_axes, ax))
+    return all_gather(y, mesh, (ax,)).reshape(B, S, d), aux
+
+
+def moe_block_tp_ff(params, x, cfg: ModelConfig, ctx):
+    """Tensor parallelism over the expert hidden dim (few-expert MoE like
+    mixtral where E <= n_shards): rows stay put, every rank of the expert
+    axis computes its ff-slice for every one of this rank's rows, and the
+    partial results are summed over the axis."""
+    from ..runtime.parallel import pmean, psum
+    moe_block_tp_ff.calls += 1
+    mesh = get_abstract_mesh()
+    ax = ctx.expert_axis
+    n_e = mesh.shape[ax]
+    data_axes = _row_axes(mesh, ctx)
+    B, S, d = x.shape
+    K, E = cfg.experts_per_token, cfg.n_experts
+    T_loc = B * S
+    me = mesh.index(ax)
+    wg = _rows_of(params["w_gate"], me, n_e, dim=2)
+    wu = _rows_of(params["w_up"], me, n_e, dim=2)
+    wd = _rows_of(params["w_down"], me, n_e, dim=1)
+    x2 = x.reshape(T_loc, d)
+
+    w, idx, aux = _local_route(params["router"], x2, cfg)
+    rows = x2.repeat_interleave(K, dim=0)
+    cap = max(1, int(-(-T_loc * K // E) * ctx.capacity_factor))
+    part = _grouped_ffn(rows, idx.reshape(-1), E, cap, wg, wu, wd)
+    out = psum(part, mesh, (ax,))                    # partial over ff slice
+    y = torch.einsum("tkd,tk->td", out.reshape(T_loc, K, d), w)
+    aux = pmean(aux, mesh, (*data_axes, ax))
+    return y.reshape(B, S, d), aux
+
+
+#: calls since the last reset (chip_smoke.py reads them)
+moe_block_expert_parallel.calls = 0
+moe_block_tp_ff.calls = 0

@@ -122,6 +122,8 @@ def _unbind(params: Params, n: int):
 
 def _apply_block(p: Params, spec, x, cfg: ModelConfig, positions, impl,
                  aux):
+    from ..runtime.parallel import shard_batch
+    x = shard_batch(x)
     h = rmsnorm(p["norm"], x, cfg.norm_eps, impl)
     if spec.kind == "attn":
         y = attention(p["attn"], h, cfg, positions, window=spec.window,

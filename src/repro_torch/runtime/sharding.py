@@ -1,0 +1,292 @@
+"""Divisibility-aware partition rules: param path -> PartitionSpec, and
+the DTensor placements that realise a spec on a mesh.
+
+A port of the JAX package's `runtime/sharding.py`; the rules are the
+reference's, spec for spec (megatron-style TP x FSDP x DP on mesh axes
+("pod",) "data", "model"):
+
+- weight matrices: tensor-parallel on the dimension that maps to heads /
+  d_ff / experts ('model'), FSDP on the complementary dimension ('data');
+- a dimension is only assigned to a mesh axis when the axis size divides
+  it, else the rule falls down a preference list and finally to
+  replication;
+- activations: batch on ("pod", "data"); batch=1 long-context shapes
+  shard the sequence axis instead;
+- KV caches: batch on ("pod", "data"), kv-heads on 'model' when
+  divisible, else sequence on 'model'.
+
+The rules read only `mesh.shape` (axis name -> size), so they run on any
+object that has one, a stub standing for 256 ranks included.  A spec is
+`P`, a tuple whose entries are None, an axis name, or a tuple of names
+(one tensor dim over several mesh axes, the first major).
+`*_shardings` return `NamedSharding`s, whose placements on a real mesh
+come from `spec_to_placements`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Tuple
+
+
+class P(tuple):
+    """A PartitionSpec: `P("data", None)`, `P(("pod", "data"), "model")`.
+
+    A one-name tuple entry is stored as the name, as JAX stores it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, tuple(
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __repr__(self) -> str:
+        return f"P{tuple(self)!r}"
+
+
+def _axis_size(mesh, axis) -> int:
+    if axis is None:
+        return 1
+    if isinstance(axis, tuple):
+        return int(math.prod(mesh.shape[a] for a in axis))
+    return int(mesh.shape[axis])
+
+
+def _fits(mesh, dim: int, axis) -> bool:
+    return dim % _axis_size(mesh, axis) == 0
+
+
+def _choose(mesh, shape: Tuple[int, ...], prefs) -> P:
+    """prefs: per-dim list of candidate axes in preference order."""
+    taken = set()
+    spec: list = []
+    for dim, cands in zip(shape, prefs):
+        chosen = None
+        for ax in cands:
+            if ax is None:
+                break
+            flat = ax if isinstance(ax, tuple) else (ax,)
+            if any(a in taken for a in flat):
+                continue
+            if _fits(mesh, dim, ax):
+                chosen = ax
+                taken.update(flat)
+                break
+        spec.append(chosen)
+    return P(*spec)
+
+
+DATA_AXES = ("pod", "data")
+
+
+def _data(mesh):
+    """The (possibly pod-extended) FSDP/data axis present in this mesh."""
+    return tuple(a for a in DATA_AXES if a in mesh.shape) or (None,)
+
+
+def param_spec(mesh, path: str, shape: Tuple[int, ...]) -> P:
+    """Sharding rule for one parameter tensor, by name and rank."""
+    fsdp = _data(mesh)
+    if fsdp == (None,):
+        fsdp = None
+    last = path.split("/")[-1]
+
+    def choose(*prefs):
+        # strip leading stacked-unit axes (they stay unsharded)
+        extra = len(shape) - len(prefs)
+        return _choose(mesh, shape,
+                       [[None]] * extra + [list(p) for p in prefs])
+
+    if last in ("table",):            # (V, d): vocab-parallel embedding
+        return choose(["model", None], [None])
+    if last == "unembed":             # (d, V)
+        return choose([None], ["model", None])
+    if last in ("wq", "wk", "wv"):    # (d, H*hd): TP on the fused head dim
+        return choose([fsdp, None], ["model", None])
+    if last == "wo":                  # (H*hd, d)
+        return choose(["model", None], [fsdp, None])
+    if last in ("w_up", "w_gate"):    # (d, ff) or (E, d, ff)
+        if len(shape) >= 3:           # expert-parallel; else TP on ff
+            return choose(["model", None], [fsdp, None], ["model", None])
+        return choose([fsdp, None], ["model", None])
+    if last == "w_down":              # (ff, d) or (E, ff, d)
+        if len(shape) >= 3:
+            return choose(["model", None], ["model", None], [fsdp, None])
+        return choose(["model", None], [fsdp, None])
+    if last == "router":              # (d, E)
+        return choose([fsdp, None], [None])
+    if last in ("in_proj", "out_proj"):   # mamba: TP on d_inner side
+        if last == "in_proj":
+            return choose([fsdp, None], ["model", None])
+        return choose(["model", None], [fsdp, None])
+    if last in ("conv_w", "conv_b"):
+        return choose(*[[None]] * len(shape))
+    # norms, biases, scalars: replicated
+    return P(*([None] * len(shape)))
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh (`jax.sharding.NamedSharding`)."""
+    mesh: Any
+    spec: P
+
+    @property
+    def placements(self):
+        return spec_to_placements(self.mesh, self.spec)
+
+
+def spec_to_placements(mesh, spec: P):
+    """The DTensor placements, one per mesh axis, that shard a tensor as
+    `spec` does: `Shard(i)` on each axis named in entry i, `Replicate()`
+    on the rest.  An entry naming several axes shards dim i over them
+    with the first major (JAX's order), which DTensor's left-to-right
+    order of mesh dims gives when the entry lists them in the mesh's
+    order; another order raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.shape)
+    placements = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        where = [names.index(a) for a in axes]
+        if where != sorted(where):
+            raise ValueError(f"{spec}: entry {entry} is not in the mesh's "
+                             f"axis order {tuple(names)}")
+        for i in where:
+            if placements[i] != Replicate():
+                raise ValueError(f"{spec}: mesh axis {names[i]!r} used twice")
+            placements[i] = Shard(dim)
+    return tuple(placements)
+
+
+def _map_named(fn, tree, prefix: Tuple[str, ...] = ()):
+    """fn("/"-joined key path, leaf) over a nested dict, structure kept."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, prefix + (str(k),))
+                for k, v in tree.items()}
+    return fn("/".join(prefix), tree)
+
+
+def params_shardings(mesh, params_tree: Any):
+    """Tree of NamedShardings matching a params tree (leaves need only
+    `.shape`)."""
+    return _map_named(
+        lambda name, x: NamedSharding(mesh, param_spec(mesh, name,
+                                                       tuple(x.shape))),
+        params_tree)
+
+
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 128 and shape[-2] >= 128
+
+
+def opt_shardings(mesh, params_tree: Any, opt_name: str):
+    """Optimizer-state shardings mirroring the optimizers' init structure.
+
+    AdamW mu/nu inherit the parameter spec; Adafactor's factored vr/vc
+    take the parameter spec minus the reduced dimension."""
+    def per_param(name, x):
+        shape = tuple(x.shape)
+        spec = param_spec(mesh, name, shape)
+        ns = NamedSharding(mesh, spec)
+        if opt_name == "adamw":
+            return ns
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        if _factored(shape):
+            return {"vr": NamedSharding(mesh, P(*parts[:-1])),
+                    "vc": NamedSharding(mesh, P(*(parts[:-2] + parts[-1:])))}
+        return {"v": ns}
+
+    tree = _map_named(per_param, params_tree)
+    if opt_name == "adamw":
+        return {"mu": tree, "nu": tree}
+    return {"v": tree}
+
+
+def state_shardings(mesh, abstract_state: Any, opt_name: str):
+    """Shardings for the full train state {params, opt, step}."""
+    return {
+        "params": params_shardings(mesh, abstract_state["params"]),
+        "opt": opt_shardings(mesh, abstract_state["params"], opt_name),
+        "step": NamedSharding(mesh, P()),
+    }
+
+
+def batch_spec(mesh, shape: Tuple[int, ...], kind: str = "tokens") -> P:
+    """Activation/batch sharding: batch over ("pod", "data"); batch=1
+    long-context shapes shard the sequence axis (context parallel)."""
+    fsdp = _data(mesh)
+    batch = shape[0]
+    if batch % _axis_size(mesh, fsdp) == 0:
+        rest = [None] * (len(shape) - 1)
+        return P(fsdp, *rest)
+    if len(shape) >= 2 and shape[1] % _axis_size(mesh, fsdp) == 0:
+        return P(None, fsdp, *([None] * (len(shape) - 2)))
+    return P(*([None] * len(shape)))
+
+
+def cache_spec(mesh, shape: Tuple[int, ...]) -> P:
+    """KV / SSM cache sharding (leading stacked-unit axes unsharded).
+
+    KV caches arrive as (units..., B, L, kv_heads, hd) and SSM states as
+    (units..., B, H, P, N)."""
+    fsdp = _data(mesh)
+    n_extra = max(0, len(shape) - 4)
+    body = shape[n_extra:]
+    spec: list = [None] * n_extra
+    # batch axis
+    if body and body[0] % _axis_size(mesh, fsdp) == 0:
+        spec.append(fsdp)
+        used_data = True
+    else:
+        spec.append(None)
+        used_data = False
+    rest = list(body[1:])
+    # shard heads (axis -2) on model if divisible, else the seq axis
+    model_done = False
+    for i, dim in enumerate(rest):
+        axis = None
+        if not model_done and i == 1 and dim % _axis_size(mesh, "model") == 0:
+            axis = "model"
+            model_done = True
+        spec.append(axis)
+    if not model_done:
+        # fall back: sequence (first body-rest axis) on model when divisible
+        if rest and rest[0] % _axis_size(mesh, "model") == 0:
+            spec[n_extra + 1] = "model"
+        elif not used_data and rest and \
+                rest[0] % _axis_size(mesh, fsdp) == 0:
+            spec[n_extra + 1] = fsdp
+    return P(*spec)
+
+
+def cache_shardings(mesh, cache_tree: Any):
+    return _map_named(
+        lambda _, x: NamedSharding(mesh, cache_spec(mesh, tuple(x.shape))),
+        cache_tree)
+
+
+def logical_batch_shardings(mesh, batch_tree: Any):
+    return _map_named(
+        lambda _, x: NamedSharding(mesh, batch_spec(mesh, tuple(x.shape))),
+        batch_tree)
+
+
+def place(tree: Any, shardings: Any):
+    """Each leaf of `tree` as a DTensor placed by the matching sharding
+    (a tree of NamedShardings of the same structure): a DTensor is
+    redistributed where its placements differ, a plain tensor, which
+    every rank holds whole, is cut to this rank's shard (the
+    reference's `device_put` / `out_shardings`)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(tree, dict):
+        return {k: place(v, shardings[k]) for k, v in tree.items()}
+    placements = shardings.placements
+    if isinstance(tree, DTensor):
+        if tuple(tree.placements) == placements:
+            return tree
+        return tree.redistribute(tree.device_mesh, placements)
+    return distribute_tensor(tree, shardings.mesh.device_mesh, placements,
+                             src_data_rank=None)

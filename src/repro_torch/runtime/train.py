@@ -9,6 +9,31 @@ takes the place of the microbatch `lax.scan`, and remat is the model's
 and attention go through the hand-written kernels (`attention_impl`
 "auto"); the RMSNorm gradient is the backward kernel, the attention
 gradient the VJP of the plain attention, as in the reference.
+
+On a mesh (`make_train_step(..., mesh=...)`) the step computes what the
+reference's sharded `jit` computes, with the state's leaves DTensors
+placed by `runtime/sharding.py: state_shardings`:
+
+- each rank gathers the whole parameters (`redistribute` to
+  `Replicate`, differentiable) and runs its `batch_spec` shard of the
+  batch (its rows over the data axes; a batch those axes do not divide
+  raises, since the reference would shard the sequence, GSPMD's context
+  parallelism, which this slice does not port);
+- each rank's loss is scaled by 1 / (number of ranks), so that the
+  gradients' reduction back to the parameters' shards (the adjoint of
+  the gather, a reduce-scatter) gives the mean over the global batch;
+- the optimizer updates the shards (DTensor operations: the global
+  gradient norm and Adafactor's means reduce across the shards), and
+  the new state is placed by the same shardings (`out_shardings`);
+- with compression, each gradient is gathered whole and quantised as
+  the reference quantises the global array.
+
+Not in this slice: GSPMD's tensor-parallel compute over 'model' for the
+dense layers.  Dense weights sharded on 'model' are gathered before use
+(so the step's collectives differ from GSPMD's for that axis); only the
+MoE experts compute sharded, through the reference's explicit paths
+(`models/moe.py`), which take the gathered stacks and use their own
+rank's experts.
 """
 
 from __future__ import annotations
@@ -23,6 +48,8 @@ from ..models import build_model
 from ..optim.optimizers import OptimizerConfig, build_optimizer
 from ..tree import leaves, tree_map
 from .compression import CompressionConfig, compress_decompress
+from .parallel import axis_index, axis_size, psum
+from .sharding import batch_spec, place, state_shardings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,8 +136,8 @@ def compute_grads(loss_fn, params, batch, microbatches: int = 1):
     k = microbatches
     micro = {name: x.reshape((k, x.shape[0] // k) + x.shape[1:])
              for name, x in batch.items()}
-    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                         device=p.device), params)
+    acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                   params)
     loss_a = ce_a = aux_a = torch.zeros((), dtype=torch.float32,
                                         device=leaves(params)[0].device)
     for i in range(k):
@@ -123,7 +150,48 @@ def compute_grads(loss_fn, params, batch, microbatches: int = 1):
     return loss_a, {"ce": ce_a, "aux": aux_a}, acc
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device="cuda"):
+def rank_rows(mesh, x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a global batch tensor under `batch_spec`."""
+    entry = batch_spec(mesh, tuple(x.shape))[0]
+    if entry is None:
+        data = [a for a in ("pod", "data") if a in mesh.shape]
+        if axis_size(mesh, data) > 1:
+            raise ValueError(
+                f"a batch of {x.shape[0]} rows does not divide over the "
+                f"data axes {mesh.shape}; the reference would shard its "
+                f"sequence (context parallelism), which the port does not")
+        return x
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    n = axis_size(mesh, axes)
+    i = axis_index(mesh, axes)
+    return x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)]
+
+
+def mesh_loss_fn(loss_fn, mesh):
+    """loss_fn(params, batch) on a mesh: params DTensors (gathered whole,
+    differentiably), batch global (this rank's rows taken); the loss and
+    metrics scaled by 1 / ranks, so that they, and the gradients, add up
+    over the ranks to the global batch's."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    world = axis_size(mesh, mesh.shape)
+
+    def gather(p):
+        if not isinstance(p, DTensor):
+            return p
+        n = p.device_mesh.ndim
+        return p.redistribute(p.device_mesh, [Replicate()] * n).to_local(
+            grad_placements=[Partial()] * n)
+
+    def mesh_loss(params, batch):
+        total, m = loss_fn(tree_map(gather, params),
+                           {k: rank_rows(mesh, v) for k, v in batch.items()})
+        return total / world, {k: v / world for k, v in m.items()}
+
+    return mesh_loss
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device="cuda",
+                    mesh=None):
     """Returns (train_step, init_state).
 
     train_step(state, batch) -> (state, metrics); state = {"params",
@@ -132,20 +200,29 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device="cuda"):
     step).  batch: {"tokens" or "embeds", "labels"} tensors on `device`;
     `compute_grads` says what microbatches > 1 does.  Compression, if
     configured, quantises the gradients before the optimizer's update.
-    init_state(gen) draws the params from a torch.Generator."""
+    init_state(gen) draws the params from a torch.Generator.
+
+    With a mesh, the state's leaves are DTensors placed by
+    `state_shardings` (`sharding.place`; init_state returns plain
+    tensors, every rank the same), the batch is the global batch, the
+    metrics are the global batch's on every rank, and the step is the
+    module docstring's."""
     loss_fn = make_loss_fn(cfg, tcfg, device)
     opt = build_optimizer(tcfg.optimizer)
-
-    def train_step(state, batch):
-        params, opt_state, step = state["params"], state["opt"], state["step"]
-        loss, metrics, grads = compute_grads(loss_fn, params, batch,
-                                             tcfg.microbatches)
-        if tcfg.compression is not None:
-            grads = compress_decompress(grads, tcfg.compression)
-        new_params, new_opt = opt.update(grads, opt_state, params, step)
-        metrics = dict(metrics, loss=loss)
-        return {"params": new_params, "opt": new_opt, "step": step + 1}, \
-            metrics
+    if mesh is None:
+        def train_step(state, batch):
+            params, opt_state, step = (state["params"], state["opt"],
+                                       state["step"])
+            loss, metrics, grads = compute_grads(loss_fn, params, batch,
+                                                 tcfg.microbatches)
+            if tcfg.compression is not None:
+                grads = compress_decompress(grads, tcfg.compression)
+            new_params, new_opt = opt.update(grads, opt_state, params, step)
+            metrics = dict(metrics, loss=loss)
+            return {"params": new_params, "opt": new_opt,
+                    "step": step + 1}, metrics
+    else:
+        train_step = _mesh_train_step(loss_fn, opt, tcfg, mesh)
 
     def init_state(gen: torch.Generator):
         model = build_model(cfg, impl=tcfg.attention_impl, remat=tcfg.remat,
@@ -156,3 +233,29 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, device="cuda"):
                                     device=leaves(params)[0].device)}
 
     return train_step, init_state
+
+
+def _mesh_train_step(loss_fn, opt, tcfg: TrainConfig, mesh):
+    from torch.distributed.tensor.experimental import implicit_replication
+    mesh_loss = mesh_loss_fn(loss_fn, mesh)
+    every = tuple(mesh.shape)
+
+    def train_step(state, batch):
+        shardings = state_shardings(mesh, state, tcfg.optimizer.name)
+        params, opt_state, step = state["params"], state["opt"], state["step"]
+        loss, metrics, grads = compute_grads(mesh_loss, params, batch,
+                                             tcfg.microbatches)
+        loss = psum(loss, mesh, every)
+        metrics = {k: psum(v, mesh, every) for k, v in metrics.items()}
+        if tcfg.compression is not None:
+            grads = place(compress_decompress(
+                tree_map(lambda g: g.full_tensor(), grads),
+                tcfg.compression), shardings["params"])
+        with implicit_replication():
+            new_params, new_opt = opt.update(grads, opt_state, params,
+                                             step.to_local())
+        new = place({"params": new_params, "opt": new_opt, "step": step + 1},
+                    shardings)
+        return new, dict(metrics, loss=loss)
+
+    return train_step

@@ -1,0 +1,208 @@
+"""One rank of a multi-rank run of the port (started by
+`_torch_dist.start_ranks`): joins a group over a FileStore in WORKDIR
+(gloo on the CPU; NCCL, card `RANK`, when REPRO_DIST_DEVICE=cuda), runs
+CASE and saves what the test compares to WORKDIR/out_<rank>.pt.
+
+    python _torch_dist_worker.py CASE RANK WORLD WORKDIR
+
+Cases:
+- moe (8 ranks, or 4 on cards): on a (2, WORLD / 2) ("data", "model")
+  mesh, the expert-parallel and TP-ff blocks at capacity factors 8.0 and
+  1.25, and the dispatcher's dropless path with the mesh alone, on
+  WORKDIR/moe_in.npz (`moe_inputs`); each with its gradients; then, with
+  8 ranks, `spec_to_placements` on a (2, 2, 2) ("pod", "data", "model")
+  mesh: each rank's shard of an arange tensor.
+- train (4 ranks): on a (2, 2) mesh, the checkpoint in WORKDIR/ckpt
+  restored with the mesh's state shardings, then two AdamW steps from
+  it, whose state is saved from the mesh and restored again; and two
+  Adafactor steps with 2 microbatches from a fresh state.
+"""
+
+import dataclasses
+import os
+import pathlib
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.launch.mesh import make_auto_mesh, use_mesh
+from repro_torch.runtime.parallel import ParallelContext, parallel_context
+
+#: the specs of the placement check, on a (16, 8) tensor
+PLACE_SPECS = ((("pod", "data"), "model"), (None, ("pod", "data")),
+               ("model", ("pod", "data")), (("pod", "data", "model"), None),
+               ("data", None), (None, "pod"))
+
+
+def moe_inputs(seed=0):
+    """The block's weights, x and a cotangent c for sum(y * c), float32."""
+    rng = np.random.default_rng(seed)
+    d, E, ff = 64, 8, 32
+    out = {"router": rng.standard_normal((d, E)) / np.sqrt(d),
+           "w_gate": rng.standard_normal((E, d, ff)) / np.sqrt(d),
+           "w_up": rng.standard_normal((E, d, ff)) / np.sqrt(d),
+           "w_down": rng.standard_normal((E, ff, d)) / np.sqrt(ff),
+           "x": rng.standard_normal((2, 16, d)),
+           "c": rng.standard_normal((2, 16, d))}
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
+def moe_cfg():
+    """The reference's `tests/test_moe_parallel.py` block."""
+    return dataclasses.replace(reduced(ARCHS["kimi-k2-1t-a32b"]),
+                               n_experts=8, experts_per_token=2,
+                               moe_d_ff=32, d_model=64, unit=())
+
+
+def case_moe(workdir, device):
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models import moe
+    from repro_torch.runtime.sharding import P, spec_to_placements
+
+    cfg = moe_cfg()
+    data = np.load(workdir / "moe_in.npz")
+    world = dist.get_world_size()
+    mesh = make_auto_mesh((2, world // 2), ("data", "model"), device)
+    n_model = world // 2
+    i = mesh.index("data")
+
+    def tensors():
+        params = {k: torch.from_numpy(data[k]).to(device).requires_grad_()
+                  for k in ("router", "w_gate", "w_up", "w_down")}
+        x = torch.from_numpy(data["x"][i:i + 1]).to(device).requires_grad_()
+        return params, x
+
+    cot = torch.from_numpy(data["c"][i:i + 1]).to(device)
+
+    def record(y, aux, params, x):
+        # this data shard's y is on each of its model ranks
+        grads = torch.autograd.grad((y * cot).sum() / n_model,
+                                    [*params.values(), x])
+        return {"y": y.detach().cpu(), "aux": aux.detach().cpu(),
+                "grads": {k: g.cpu() for k, g in
+                          zip([*params, "x"], grads)}}
+
+    out = {"data_index": i, "model_index": mesh.index("model")}
+    runs = {"ep": moe.moe_block_expert_parallel, "tp": moe.moe_block_tp_ff}
+    for cf in (8.0, 1.25):
+        ctx = ParallelContext(capacity_factor=cf)
+        for name, fn in runs.items():
+            params, x = tensors()
+            with use_mesh(mesh), parallel_context(ctx):
+                y, aux = fn(params, x, cfg, ctx)
+            out[f"{name}_{cf}"] = record(y, aux, params, x)
+    params, x = tensors()
+    with use_mesh(mesh):
+        y, aux = moe.moe_block(params, x, cfg)
+    out["gspmd"] = record(y, aux, params, x)
+
+    if world == 8:
+        cube = make_auto_mesh((2, 2, 2), ("pod", "data", "model"), device)
+        full = torch.arange(16 * 8, dtype=torch.float32).reshape(16, 8)
+        out["coords"] = tuple(cube.index(a) for a in cube.shape)
+        out["shards"] = [distribute_tensor(
+            full, cube.device_mesh, spec_to_placements(cube, P(*spec)),
+            src_data_rank=None).to_local() for spec in PLACE_SPECS]
+    return out
+
+
+def train_setup(device="cpu", mesh=None, opt="adamw", microbatches=1):
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+    cfg = reduced(ARCHS["smollm-360m"])
+    tcfg = TrainConfig(optimizer=OptimizerConfig(
+        name=opt, lr=1e-3, warmup_steps=1, total_steps=50),
+        microbatches=microbatches, remat=False)
+    return cfg, make_train_step(cfg, tcfg, device, mesh=mesh)
+
+
+def train_batches(cfg, n=2):
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    dcfg = DataConfig(seq_len=16, global_batch=4, vocab_size=cfg.vocab_size)
+    return [{k: torch.from_numpy(v)
+             for k, v in batch_for_model(cfg, dcfg, s).items()}
+            for s in range(n)]
+
+
+def fp32_state(init_fn, seed=0):
+    """A fresh state from `seed` with float32 params."""
+    from repro_torch.tree import tree_map
+    state = init_fn(torch.Generator().manual_seed(seed))
+    return dict(state, params=tree_map(lambda t: t.float(), state["params"]))
+
+
+def full(tree):
+    from repro_torch.tree import named_leaves
+    return {"/".join(p): t.full_tensor() for p, t in named_leaves(tree)}
+
+
+def case_train(workdir, device):
+    from repro_torch.checkpoint.checkpointer import restore, save
+    from repro_torch.runtime.sharding import place, state_shardings
+    from repro_torch.tree import leaves, named_leaves
+
+    mesh = make_auto_mesh((2, 2), ("data", "model"), device)
+    out = {}
+    with use_mesh(mesh), parallel_context(ParallelContext()):
+        cfg, (step_fn, init_fn) = train_setup(mesh=mesh)
+        like = fp32_state(init_fn, seed=1)
+        sh = state_shardings(mesh, like, "adamw")
+        state = restore(str(workdir / "ckpt"), like, shardings=sh)
+        out["restored"] = full(state)
+        out["placements"] = {
+            "/".join(p): (str(tuple(t.placements)),
+                          str(tuple(s.placements)))
+            for (p, t), (_, s) in zip(named_leaves(state),
+                                      named_leaves(sh))}
+        losses = []
+        for batch in train_batches(cfg):
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+        out["adamw"] = {"losses": losses, "state": full(state)}
+        # saved from the mesh (rank 0 writes) and read back by every rank
+        save(str(workdir / "ckpt_mesh"), state, 2)
+        back = restore(str(workdir / "ckpt_mesh"), like, shardings=sh)
+        out["resaved_exact"] = all(
+            torch.equal(a.full_tensor(), b.full_tensor())
+            and tuple(a.placements) == tuple(b.placements)
+            for a, b in zip(leaves(back), leaves(state)))
+
+        cfg, (step_fn, init_fn) = train_setup(mesh=mesh, opt="adafactor",
+                                              microbatches=2)
+        state = fp32_state(init_fn)
+        state = place(state, state_shardings(mesh, state, "adafactor"))
+        losses = []
+        for batch in train_batches(cfg):
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))
+        out["adafactor"] = {"losses": losses, "state": full(state)}
+    return out
+
+
+def main():
+    case, rank, world, workdir = sys.argv[1:]
+    rank, world, workdir = int(rank), int(world), pathlib.Path(workdir)
+    device = os.environ.get("REPRO_DIST_DEVICE", "cpu")
+    torch.set_num_threads(1)
+    kwargs = {}
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        kwargs["device_id"] = torch.device("cuda", rank)
+    dist.init_process_group(
+        "nccl" if device == "cuda" else "gloo",
+        store=dist.FileStore(str(workdir / "store"), world),
+        rank=rank, world_size=world, **kwargs)
+    try:
+        out = {"moe": case_moe, "train": case_train}[case](workdir, device)
+        torch.save(out, workdir / f"out_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

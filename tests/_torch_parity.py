@@ -118,18 +118,27 @@ def recorded_routes():
     """Record the experts every MoE `route` call chooses, in both
     packages: yields (JAX list, port list), one (tokens, K) numpy array a
     call, sorted along K (the block's output does not depend on the
-    order).  The JAX side records through `jax.debug.callback`, so it
-    sees the routes of the compiled scan itself; read the JAX list after
-    `jax.effects_barrier()`."""
+    order).  The expert-parallel paths' `_local_route` is recorded too
+    (the port's calls `route`).  The JAX side records through
+    `jax.debug.callback`, so it sees the routes of the compiled scan
+    itself; read the JAX list after `jax.effects_barrier()`."""
     import repro.models.moe as jmoe
     import repro_torch.models.moe as tmoe
     jlog, tlog = [], []
-    jroute, troute = jmoe.route, tmoe.route
+    jroute, jlocal, troute = jmoe.route, jmoe._local_route, tmoe.route
+
+    def record(idx):
+        jax.debug.callback(lambda i: jlog.append(np.sort(np.asarray(i), -1)),
+                           idx, ordered=True)
 
     def jax_route(params, x2d, cfg):
         w, idx, aux = jroute(params, x2d, cfg)
-        jax.debug.callback(lambda i: jlog.append(np.sort(np.asarray(i), -1)),
-                           idx, ordered=True)
+        record(idx)
+        return w, idx, aux
+
+    def jax_local_route(router, x2, cfg):
+        w, idx, aux = jlocal(router, x2, cfg)
+        record(idx)
         return w, idx, aux
 
     def port_route(params, x2d, cfg):
@@ -137,11 +146,12 @@ def recorded_routes():
         tlog.append(np.sort(idx.numpy(), -1))
         return w, idx, aux
 
-    jmoe.route, tmoe.route = jax_route, port_route
+    jmoe.route, jmoe._local_route = jax_route, jax_local_route
+    tmoe.route = port_route
     try:
         yield jlog, tlog
     finally:
-        jmoe.route, tmoe.route = jroute, troute
+        jmoe.route, jmoe._local_route, tmoe.route = jroute, jlocal, troute
 
 
 def route_flips(a, b, shape):

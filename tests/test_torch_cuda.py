@@ -547,3 +547,38 @@ def test_grouped_mm_on_the_card_matches_the_per_expert_loop(cuda, dtype, E,
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), atol=TOL[dtype],
                                rtol=RTOL[dtype])
+
+
+def test_parallel_moe_paths_across_four_cards_match_gloo(tmp_path):
+    """The expert-parallel and TP-ff blocks (and the dropless path with
+    the mesh) on four cards, one NCCL rank each on a (2, 2) mesh, against
+    the same four ranks on gloo on the CPU: y, aux and the summed
+    gradients within 1e-5 of the largest (float32, TF32 off; the cards'
+    matmuls and reductions add in another order).  Skips on fewer than
+    four cards (run it with four)."""
+    from _torch_dist import finish, moe_results, start_ranks
+    from _torch_dist_worker import moe_inputs
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards (one NCCL rank each)")
+    runs = {}
+    for device in ("cpu", "cuda"):
+        work = tmp_path / device
+        work.mkdir()
+        np.savez(work / "moe_in.npz", **moe_inputs())
+        runs[device] = finish(start_ranks("moe", 4, work, device), 300)
+    names = ["ep_8.0", "tp_8.0", "ep_1.25", "tp_1.25", "gspmd"]
+    for name in names:
+        (y_c, aux_c, g_c), (y_g, aux_g, g_g) = (
+            moe_results(runs[d], name) for d in ("cpu", "cuda"))
+        np.testing.assert_allclose(y_g, y_c, rtol=0,
+                                   atol=1e-5 * np.abs(y_c).max(),
+                                   err_msg=name)
+        assert abs(aux_g - aux_c) <= 1e-5 * abs(aux_c), name
+        for k, want in g_c.items():
+            np.testing.assert_allclose(
+                g_g[k], want, rtol=0, atol=1e-5 * np.abs(want).max(),
+                err_msg=f"{name} {k}")
+    # at capacity 1.25 rows drop on the cards as on the CPU
+    y_drop = moe_results(runs["cuda"], "ep_1.25")[0]
+    y_all = moe_results(runs["cuda"], "ep_8.0")[0]
+    assert np.abs(y_drop - y_all).max() > 1e-2

@@ -14,6 +14,14 @@ there the tolerance is 0.3 and the margin 0.6.  On mixtral a row whose
 experts differ between the two packages at a step (a route flipped by
 rounding, `test_torch_model.py`) is left out of that step's logit
 comparison, and its request's tokens are compared up to that step.
+
+The continuous-batching loops run as the launchers run them: the
+reference's under `use_mesh(make_host_mesh())` and the default
+ParallelContext (`repro/launch/serve.py:40-44`), the port's `serve_loop`
+under its own, on the host mesh (1, 1) of a 1-rank gloo group.  So
+mixtral takes the expert-parallel path on both sides, and its capacity
+buckets drop rows (at decode with 4 slots each expert's bucket holds
+one row).
 """
 
 import jax
@@ -21,11 +29,19 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from repro.launch.mesh import make_host_mesh as jax_host_mesh
+from repro.launch.mesh import use_mesh as jax_use_mesh
+from repro.runtime.parallel import ParallelContext as JaxContext
+from repro.runtime.parallel import parallel_context as jax_context
 from repro.runtime.serve import ServeConfig as JaxServeConfig
 from repro.runtime.serve import generate as jax_generate
 from repro.runtime.serve import make_serve_fns as jax_make_serve_fns
+from repro_torch.launch.mesh import make_host_mesh, use_mesh
 from repro_torch.launch.serve import make_requests, serve_loop
+from repro_torch.runtime.parallel import ParallelContext, parallel_context
 from repro_torch.runtime.serve import ServeConfig, generate, make_serve_fns
+
+from _torch_dist import local_group
 
 from _torch_parity import (both_params, configs, numpy_params,
                            recorded_routes, route_flips)
@@ -130,8 +146,14 @@ def test_generate_matches_jax_on_mamba2():
 
 def _jax_serve_loop(jparams, jcfg, queue, slots, max_new, max_len):
     """The scheduler of `repro/launch/serve.py` (lines 50-91) on given
-    params, recording each step's feed, logits and MoE routes, and for
-    each chosen token its request, margin, step and slot."""
+    params, under the launcher's mesh and context (lines 40-44),
+    recording each step's feed, logits and MoE routes, and for each
+    chosen token its request, margin, step and slot."""
+    with jax_use_mesh(jax_host_mesh()), jax_context(JaxContext()):
+        return _jax_loop_body(jparams, jcfg, queue, slots, max_new, max_len)
+
+
+def _jax_loop_body(jparams, jcfg, queue, slots, max_new, max_len):
     _, decode_step, init_cache = jax_make_serve_fns(
         jcfg, JaxServeConfig(max_len=max_len))
     dec = jax.jit(decode_step)
@@ -182,13 +204,15 @@ def _check_loop(arch, tol=TOL):
         st["jparams"], st["jcfg"], [list(p) for p in queue], slots, max_new,
         max_len)
     _, tdec, tinit = make_serve_fns(st["tcfg"], ServeConfig(max_len), "cpu")
-    flips = _check_teacher_forced(
-        tdec, st["tparams"], tinit(slots, max_len), feeds, jlogits, tol,
-        jroutes if st["jcfg"].n_experts else None)
-
-    got, stats = serve_loop(st["tparams"], st["tcfg"],
-                            ServeConfig(max_len=max_len), queue, slots,
-                            max_new, "cpu")
+    with local_group():
+        mesh = make_host_mesh("cpu")
+        with use_mesh(mesh), parallel_context(ParallelContext()):
+            flips = _check_teacher_forced(
+                tdec, st["tparams"], tinit(slots, max_len), feeds, jlogits,
+                tol, jroutes if st["jcfg"].n_experts else None)
+        got, stats = serve_loop(st["tparams"], st["tcfg"],
+                                ServeConfig(max_len=max_len), queue, slots,
+                                max_new, "cpu", mesh)
     assert sorted(got) == sorted(want) == list(range(8))
     assert stats["served"] == 8 and stats["steps"] == len(feeds)
     for rid in want:
@@ -210,6 +234,37 @@ def test_continuous_batching_loop_matches_jax_on_mamba2():
 def test_continuous_batching_loop_matches_jax_on_mixtral():
     """The MoE decode: each step routes the slots' tokens (top 2 of 8)."""
     _check_loop("mixtral-8x22b")
+
+
+def test_mixtral_decode_step_under_the_launchers_context_matches_jax():
+    """One decode step of 4 slots (the launcher's first: each slot's
+    first prompt token) on reduced mixtral, bf16 weights from seed 0,
+    under the launchers' mesh and context in both packages.  Each
+    expert's bucket holds one row here (cap_e = int(1 x 1.25)), so the
+    reference's tokens are not the dropless path's; the port's must be
+    the reference's."""
+    jcfg, tcfg = configs("mixtral-8x22b")
+    jparams, tparams = both_params(numpy_params(jcfg, seed=0), "bfloat16")
+    feed = np.array([[p[0]] for p in make_requests(4, jcfg.vocab_size)],
+                    np.int32)
+    scfg = JaxServeConfig(max_len=8)
+    _, jdec, jinit = jax_make_serve_fns(jcfg, scfg)
+    dropless = np.asarray(jax.jit(jdec)(jparams, jinit(4, 8),
+                                        jnp.asarray(feed), 0)[1])
+    with jax_use_mesh(jax_host_mesh()), jax_context(JaxContext()):
+        with recorded_routes() as (jroutes, _):
+            _, want, _ = jax.jit(jdec)(jparams, jinit(4, 8),
+                                       jnp.asarray(feed), jnp.int32(0))
+            jax.effects_barrier()
+    want = np.asarray(want)
+    _, tdec, tinit = make_serve_fns(tcfg, ServeConfig(max_len=8), "cpu")
+    with local_group():
+        with use_mesh(make_host_mesh("cpu")), \
+                parallel_context(ParallelContext()):
+            _check_teacher_forced(tdec, tparams, tinit(4, 8), [feed],
+                                  [want], TOL, [jroutes])
+    # the drops move this step's logits far past the tolerance
+    assert np.abs(dropless - want).max() > 10 * TOL
 
 
 def test_continuous_batching_loop_matches_jax_on_seamless():
