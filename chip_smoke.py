@@ -70,7 +70,17 @@ Phases, each of which fails the run (exit code 1, no result line):
        the mesh, the state placed by `state_shardings`, against the
        meshless step (and whether they are bit-equal); 4 more steps of
        each timed in turns; a checkpoint of the sharded state restored
-       with `shardings=` bit for bit.
+       with `shardings=` bit for bit;
+7. the roofline of the paths this script times: the port's count
+   (`launch/roofline.py: count`, under fake tensors on the CPU, plain
+   routes) of phase 3's smollm-360m prefill, phase 5's train step and
+   phase 3d's mixtral prefill, each printed with its FLOPs, its unfused
+   and floor bytes, the terms, which binds, the measured median and the
+   roofline share; the count of the train step held to FlopCounterMode
+   around one real plain-route step on the card (equal FLOPs) and to the
+   real state's and batch's bytes (equal), and MemTracker's peak printed
+   beside phase 5's `max_memory_allocated`.  Phase 5 prints its MFU from
+   the count beside the hand formula.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
@@ -1411,12 +1421,18 @@ def phase_train(torch, dev):
     attn_flops = 3 * 4 * B * H * D * (S * (S + 1) // 2) * attn
     model_flops = 6 * n_params * tokens + attn_flops
     mfu = model_flops / step_s / PEAK_BF16_FLOPS
+    # the same step counted (plain routes, fake tensors): remat's replay
+    # and the attention's masked half included, as the card runs them
+    counted = count_train_step(torch, cfg, tcfg("naive"), B, S)
+    mfu_count = counted[0].flops / step_s / PEAK_BF16_FLOPS
     bwd_share_of_step = prof["plain_attention_bwd_ms_per_step"] / (
         step_s * 1e3)
     print(f"  {arch} train step {step_s * 1e3:.2f} ms (median of steps 2-"
           f"{TRAIN_STEPS - 1}; first {first_step_s:.2f} s), {tokens / step_s:,.0f} "
           f"tokens/s, peak memory {peak_bytes} B, MFU {mfu:.4f} "
-          f"({model_flops:.4g} model FLOPs a step over 989 TFLOP/s); "
+          f"({model_flops:.4g} model FLOPs a step over 989 TFLOP/s), "
+          f"{mfu_count:.4f} from the count ({counted[0].flops:.4g} FLOPs "
+          f"a step); "
           f"profile: device busy {prof['device_busy_ms_per_step']:.2f} of "
           f"{prof['device_window_ms_per_step']:.2f} ms a step (idle share "
           f"{prof['device_idle_share']:.3f}), plain attention backward "
@@ -1429,6 +1445,7 @@ def phase_train(torch, dev):
         "step_ms": step_s * 1e3, "first_step_s": first_step_s,
         "tokens_per_s": tokens / step_s, "peak_memory_bytes": peak_bytes,
         "mfu": mfu, "model_flops_per_step": model_flops, "params": n_params,
+        "mfu_count": mfu_count, "count_flops_per_step": counted[0].flops,
         "ce_first": ce[0], "ce_last": ce[-1], "ce": ce,
         "recoveries": stats["recoveries"],
         "loss_kernels_vs_plain_bf16": loss_err,
@@ -1443,7 +1460,7 @@ def phase_train(torch, dev):
     counts = {"flash_attention": counts["flash_attention"],
               "rmsnorm": counts["rmsnorm"], "ssd": counts["ssd"],
               "rmsnorm.bwd": counts["rmsnorm.bwd"]}
-    return metrics, counts
+    return metrics, counts, counted
 
 
 @contextlib.contextmanager
@@ -1850,6 +1867,141 @@ def phase_distributed_train(torch, dev):
     return metrics, counts
 
 
+def count_train_step(torch, cfg, tcfg, B, S):
+    """The port's count of one train step (`launch/roofline.py: count`) of
+    `cfg` on B x S tokens from the data pipeline, on the CPU under fake
+    tensors: (Roofline, Extras)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.launch.roofline import count
+    from repro_torch.runtime.train import make_train_step
+
+    step, init = make_train_step(cfg, tcfg, device="cpu")
+    real = batch_for_model(cfg, DataConfig(seq_len=S, global_batch=B,
+                                           vocab_size=cfg.vocab_size), 0)
+    dtypes = {k: torch.from_numpy(v).dtype for k, v in real.items()}
+    with FakeTensorMode():
+        state = init(torch.Generator().manual_seed(0))
+        batch = {k: torch.zeros(v.shape, dtype=dtypes[k])
+                 for k, v in real.items()}
+    return count(step, state, batch)
+
+
+def count_prefill(torch, cfg, batch):
+    """The port's count of phase 3's prefill call of `cfg` on `batch`
+    rows of 1024 random tokens (int64), on the CPU under fake tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.roofline import count
+    from repro_torch.models import build_model
+    from repro_torch.runtime.serve import ServeConfig, make_serve_fns
+
+    prefill, _, _ = make_serve_fns(cfg, ServeConfig(max_len=96), "cpu")
+    with FakeTensorMode():
+        params = build_model(cfg, remat=False, device="cpu").init(
+            torch.Generator().manual_seed(0))
+        tokens = torch.zeros((batch, 1024), dtype=torch.int64)
+    return count(prefill, params, {"tokens": tokens})
+
+
+def roofline_row(name, rl, ex, measured_ms):
+    """Print one path's roofline against its measured median; the share
+    is the least time the card could take (FLOPs at the bf16 peak, or the
+    floor's bytes at HBM's rate, whichever is larger) over the measured
+    time."""
+    from repro_torch.launch.roofline import HBM_BW
+    t_unfused = rl.hbm_bytes / HBM_BW
+    bound = max(rl.t_compute, ex.t_floor)
+    binds = "compute" if rl.t_compute >= ex.t_floor else "memory (floor)"
+    share = bound * 1e3 / measured_ms
+    print(f"  {name}: {rl.flops:.6g} FLOPs, bytes {rl.hbm_bytes:.6g} "
+          f"unfused / {ex.floor_bytes} floor; t_compute "
+          f"{rl.t_compute * 1e3:.4f} ms, t_memory {t_unfused * 1e3:.4f} ms "
+          f"unfused / {ex.t_floor * 1e3:.4f} ms floor; {binds} binds "
+          f"(unfused: {rl.dominant}); measured {measured_ms:.2f} ms; "
+          f"roofline share {share:.4f}", flush=True)
+    return {"flops": rl.flops, "unfused_bytes": rl.hbm_bytes,
+            "floor_bytes": ex.floor_bytes, "t_compute_ms": rl.t_compute * 1e3,
+            "t_memory_unfused_ms": t_unfused * 1e3,
+            "t_memory_floor_ms": ex.t_floor * 1e3, "binds": binds,
+            "measured_ms": measured_ms, "roofline_share": share,
+            "flops_by_op": ex.flops_by_op}
+
+
+def phase_roofline(torch, dev, metrics, train_count, card):
+    """7: the roofline of the paths this script times, and the count held
+    to the real program on the card."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.roofline import flop_counter
+    from repro_torch.launch.train import device_batch
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    print(f"phase 7: the roofline of the paths this script times ({card}; "
+          f"H100 SXM datasheet peaks: 989 TFLOP/s bf16, 3.35 TB/s)",
+          flush=True)
+    cfg = ARCHS["smollm-360m"]
+    B, S = 8, 1024
+    rl, ex = train_count
+    train = metrics["smollm-360m-train"]
+
+    # check 1: the count's FLOPs equal FlopCounterMode around one real
+    # plain-route step on the card (the kernels are opaque to a dispatch
+    # mode, so the plain routes; the count runs them too)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    tcfg = TrainConfig(optimizer=opt, attention_impl="naive", remat=True)
+    step, init = make_train_step(cfg, tcfg, dev)
+    state = init(torch.Generator(device=dev).manual_seed(0))
+    batch = device_batch(cfg, DataConfig(seq_len=S, global_batch=B,
+                                         vocab_size=cfg.vocab_size), 0, dev)
+    real_bytes = sum(t.numel() * t.element_size()
+                     for t in leaves(state) + list(batch.values()))
+    with flop_counter() as fc:
+        new, _ = step(state, batch)
+        torch.cuda.synchronize()
+    real_flops = fc.get_total_flops()
+    del new, state, batch
+    torch.cuda.empty_cache()
+    check(real_flops == int(rl.flops),
+          f"smollm-360m train step ({B} x {S}, AdamW, remat, plain routes): "
+          f"FlopCounterMode on the card counts {real_flops} FLOPs, the "
+          f"fake-tensor count {int(rl.flops)}")
+    # check 2: the memory estimate
+    check(real_bytes == ex.argument_bytes,
+          f"smollm-360m train step: the count's argument bytes "
+          f"{ex.argument_bytes} equal the real state's and batch's on the "
+          f"card ({real_bytes})")
+    peak_ratio = ex.peak_bytes / train["peak_memory_bytes"]
+    print(f"  smollm-360m train step: MemTracker's peak {ex.peak_bytes} B "
+          f"(fake tensors, plain routes) against phase 5's "
+          f"max_memory_allocated {train['peak_memory_bytes']} B (kernels, "
+          f"the loop's peak): ratio {peak_ratio:.4f}", flush=True)
+
+    rows = {}
+    rows["smollm-360m prefill 4 x 1024"] = roofline_row(
+        "smollm-360m prefill 4 x 1024", *count_prefill(torch, cfg, 4),
+        metrics["smollm-360m"]["prefill_ms"])
+    rows["smollm-360m train step 8 x 1024"] = roofline_row(
+        "smollm-360m train step 8 x 1024 (AdamW, remat)", rl, ex,
+        train["step_ms"])
+    mixtral = dataclasses.replace(ARCHS["mixtral-8x22b"], n_layers=4,
+                                  unit=())
+    rows["mixtral-8x22b (4 layers) prefill 4 x 1024"] = roofline_row(
+        "mixtral-8x22b (4 of 56 layers) prefill 4 x 1024",
+        *count_prefill(torch, mixtral, 4),
+        metrics["mixtral-8x22b"]["prefill_ms"])
+    return {"paths": rows, "train_flops_card": real_flops,
+            "train_flops_count": rl.flops,
+            "train_argument_bytes": ex.argument_bytes,
+            "train_peak_bytes_count": ex.peak_bytes,
+            "train_peak_ratio_to_max_memory_allocated": peak_ratio}
+
+
 def main():
     import torch
 
@@ -1886,12 +2038,14 @@ def main():
     phase_reference_checks(torch, dev)
     backend = start_group(torch, dev)
     metrics["expert_parallel_card_vs_cpu"] = check_expert_parallel(torch, dev)
-    metrics["smollm-360m-train"], counts["smollm-360m-train"] = \
-        phase_train(torch, dev)
+    metrics["smollm-360m-train"], counts["smollm-360m-train"], \
+        train_count = phase_train(torch, dev)
     metrics["mixtral-8x22b-mesh"], counts["mixtral-8x22b-mesh"] = \
         phase_distributed_serve(torch, dev)
     metrics["smollm-360m-train-mesh"], counts["smollm-360m-train-mesh"] = \
         phase_distributed_train(torch, dev)
+    metrics["roofline"] = phase_roofline(torch, dev, metrics, train_count,
+                                         card)
 
     for name, entry in kernels.items():
         by_path = {arch: c[name] for arch, c in counts.items()}

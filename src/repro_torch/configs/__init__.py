@@ -4,7 +4,7 @@ embedding-fed VLM backbone and the encoder-decoder)."""
 
 import dataclasses
 
-from .base import BlockSpec, ModelConfig
+from .base import SHAPES, BlockSpec, ModelConfig, ShapeConfig
 from .chatglm3_6b import CONFIG as chatglm3_6b
 from .gemma2_2b import CONFIG as gemma2_2b
 from .kimi_k2_1t import CONFIG as kimi_k2_1t
@@ -62,4 +62,15 @@ def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **small)
 
 
-__all__ = ["ARCHS", "BlockSpec", "ModelConfig", "get_arch", "reduced"]
+def cells(arch: str):
+    """The (arch x shape) cells of this arch: `long_500k` only for the
+    sub-quadratic archs."""
+    cfg = get_arch(arch)
+    return [shape for shape in SHAPES.values()
+            if shape.name != "long_500k" or cfg.subquadratic]
+
+
+ALL_CELLS = [(a, s.name) for a in ARCHS for s in cells(a)]
+
+__all__ = ["ALL_CELLS", "ARCHS", "SHAPES", "BlockSpec", "ModelConfig",
+           "ShapeConfig", "cells", "get_arch", "reduced"]

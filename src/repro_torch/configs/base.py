@@ -152,3 +152,35 @@ class ModelConfig:
             total += self.n_encoder_layers * (per_attn + per_mlp + 2 * norms)
             total += self.n_layers * (per_attn + norms)  # cross attention
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Active parameters per token (MoE: top-k of the expert pool)."""
+        if not self.n_experts:
+            return self.param_count()
+        act_mult = 3 if self.activation in ("silu", "geglu") else 2
+        per_moe_total = self.n_experts * act_mult * self.d_model * \
+            (self.moe_d_ff or self.d_ff)
+        per_moe_active = self.experts_per_token * act_mult * self.d_model * \
+            (self.moe_d_ff or self.d_ff)
+        n_moe_layers = self.n_units * sum(1 for b in self.unit
+                                          if b.kind == "moe")
+        return self.param_count() - n_moe_layers * (per_moe_total -
+                                                    per_moe_active)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell of the LM-scale study."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str           # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import logging
+import math
 import time
 from typing import Dict, List, Tuple
 
@@ -55,6 +56,25 @@ def make_requests(n: int, vocab_size: int) -> List[List[int]]:
             for _ in range(n)]
 
 
+def check_slots_unsharded(mesh, slots: int) -> None:
+    """Raise unless the mesh's data axes hold one rank: the port serves
+    every slot on every rank.  The reference shards the slots over the
+    data axes, or, with fewer slots than data ranks, the cache's sequence
+    (context parallelism); the port has neither."""
+    data = math.prod(mesh.shape.get(a, 1) for a in ("pod", "data"))
+    if data == 1:
+        return
+    if slots % data:
+        raise ValueError(
+            f"{slots} slot(s) do not divide over the {data} data ranks of "
+            f"{mesh.shape}: the reference shards the cache's sequence "
+            f"(context parallelism), which the port does not")
+    raise ValueError(
+        f"serving with slots sharded over data axes of more than one rank "
+        f"is not in the port: the mesh {mesh.shape} spreads {slots} slots "
+        f"over {data} data ranks")
+
+
 def serve_loop(params, cfg: ModelConfig, scfg: ServeConfig,
                queue: List[List[int]], slots: int, max_new: int,
                device="cuda", mesh=None) -> Tuple[Dict[int, List[int]], Dict]:
@@ -65,9 +85,7 @@ def serve_loop(params, cfg: ModelConfig, scfg: ServeConfig,
     launcher's context (module docstring)."""
     if mesh is None:
         return _serve(params, cfg, scfg, queue, slots, max_new, device)
-    if any(mesh.shape.get(a, 1) > 1 for a in ("pod", "data")):
-        raise ValueError(f"serve_loop runs every slot on every rank; the "
-                         f"mesh {mesh.shape} shards the data axes")
+    check_slots_unsharded(mesh, slots)
     with use_mesh(mesh), parallel_context(ParallelContext()):
         return _serve(params, cfg, scfg, queue, slots, max_new, device)
 

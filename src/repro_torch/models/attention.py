@@ -48,18 +48,22 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig,
     return p
 
 
-def _project_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig
-                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _project_qkv(params: Params, x: torch.Tensor, cfg: ModelConfig,
+                 which: str = "qkv") -> Tuple[torch.Tensor, ...]:
+    """The projections `which` names ("qkv", "q", "kv"), each (B, S,
+    heads, head_dim).  A projection the caller would discard is not
+    computed: the cross-attention's query side needs no keys and values,
+    its encoder side no query (the reference computes them, and XLA drops
+    them as dead code)."""
     B, S, _ = x.shape
-    h = cfg.head_dim
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
-    if cfg.qkv_bias:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    return (q.reshape(B, S, cfg.n_heads, h),
-            k.reshape(B, S, cfg.n_kv_heads, h),
-            v.reshape(B, S, cfg.n_kv_heads, h))
+    heads = {"q": cfg.n_heads, "k": cfg.n_kv_heads, "v": cfg.n_kv_heads}
+    out = []
+    for name in which:
+        y = x @ params[f"w{name}"]
+        if cfg.qkv_bias:
+            y = y + params[f"b{name}"]
+        out.append(y.reshape(B, S, heads[name], cfg.head_dim))
+    return tuple(out)
 
 
 def _mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -162,16 +166,17 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
     positions: (S,) int32.  kv_override: (k, v, k_pos) for cross-attention.
     """
     B, S, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg)
     cos, sin = rope_frequencies(cfg.head_dim, cfg.rope_fraction,
                                 cfg.rope_theta, positions)
-    q = apply_rope(q, cos, sin, cfg.rope_fraction)
     if kv_override is None:
+        q, k, v = _project_qkv(params, x, cfg)
         k = apply_rope(k, cos, sin, cfg.rope_fraction)
         k_pos = positions
     else:
+        (q,) = _project_qkv(params, x, cfg, "q")
         k, v, k_pos = kv_override
         window = None
+    q = apply_rope(q, cos, sin, cfg.rope_fraction)
     scale = cfg.head_dim ** -0.5
     out = sdpa(q, k, v, positions, k_pos, window, cfg.attn_softcap, scale,
                impl, causal=causal)
@@ -212,10 +217,10 @@ def decode_attention(params: Params, x: torch.Tensor, cache: Dict,
     """
     B = x.shape[0]
     pos = int(pos)
-    q, k_new, v_new = _project_qkv(params, x, cfg)
     ck, cv = cache["k"], cache["v"]
     L = ck.shape[1]
     if not cross:
+        q, k_new, v_new = _project_qkv(params, x, cfg)
         posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         cos, sin = rope_frequencies(cfg.head_dim, cfg.rope_fraction,
                                     cfg.rope_theta, posv)
@@ -228,6 +233,7 @@ def decode_attention(params: Params, x: torch.Tensor, cache: Dict,
     else:
         # cross-attention: the cache holds the fixed encoder projections
         # and every encoder position is visible (no causal mask, no RoPE)
+        (q,) = _project_qkv(params, x, cfg, "q")
         k_pos = torch.arange(L, dtype=torch.int32, device=x.device)
     scale = cfg.head_dim ** -0.5
     q_pos = torch.full((1,), pos, dtype=torch.int32, device=x.device)

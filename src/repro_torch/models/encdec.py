@@ -76,6 +76,49 @@ def _run_units(unit_fn, x, stacked, n, remat):
     return x
 
 
+def _enc_unit(p: Params, x, cfg: ModelConfig, positions, impl):
+    """One encoder layer: bidirectional self-attention, then the MLP."""
+    from ..runtime.parallel import shard_batch
+    x = shard_batch(x)
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
+    x = x + attention(p["attn"], h, cfg, positions, impl=impl, causal=False)
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
+    return x + mlp(p["mlp"], h, cfg.activation)
+
+
+def _dec_unit(p: Params, x, enc, cfg: ModelConfig, positions, enc_pos,
+              impl):
+    """One decoder layer of the teacher-forced forward: causal
+    self-attention, cross-attention over the encoder states, the MLP."""
+    from ..runtime.parallel import shard_batch
+    x = shard_batch(x)
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
+    x = x + attention(p["self_attn"], h, cfg, positions, impl=impl)
+    h = rmsnorm(p["norm_x"], x, cfg.norm_eps, impl)
+    ck, cv = _rope_kv_cross(p["cross_attn"], enc, cfg)
+    # the query is rotated at the decoder positions (see the module
+    # docstring: mirrored from the reference)
+    x = x + attention(p["cross_attn"], h, cfg, positions, impl=impl,
+                      kv_override=(ck, cv, enc_pos), causal=False)
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
+    return x + mlp(p["mlp"], h, cfg.activation)
+
+
+def _dec_step(p: Params, self_cache, cross_cache, x, cfg: ModelConfig,
+              pos: int, impl):
+    """One decoder layer of a decode step (the self cache written in
+    place, the cross cache only read)."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
+    y, _ = decode_attention(p["self_attn"], h, self_cache, cfg, pos)
+    x = x + y
+    h = rmsnorm(p["norm_x"], x, cfg.norm_eps, impl)
+    y, _ = decode_attention(p["cross_attn"], h, cross_cache, cfg, pos,
+                            cross=True)
+    x = x + y
+    h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
+    return x + mlp(p["mlp"], h, cfg.activation)
+
+
 def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig,
            impl: str = "auto", remat: bool = True) -> torch.Tensor:
     """src_embeds: (B, S_src, d) -> encoder states (B, S_src, d)."""
@@ -83,14 +126,7 @@ def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def unit(x, p):
-        from ..runtime.parallel import shard_batch
-        x = shard_batch(x)
-        h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
-        # bidirectional self-attention (the encoder is non-causal)
-        x = x + attention(p["attn"], h, cfg, positions, impl=impl,
-                          causal=False)
-        h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
-        return x + mlp(p["mlp"], h, cfg.activation)
+        return _enc_unit(p, x, cfg, positions, impl)
 
     x = _run_units(unit, x, params["enc_units"], cfg.n_encoder_layers, remat)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps, impl)
@@ -108,17 +144,7 @@ def forward(params: Params, src_embeds: torch.Tensor,
     enc_pos = torch.arange(enc.shape[1], dtype=torch.int32, device=x.device)
 
     def unit(x, p):
-        x = shard_batch(x)
-        h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
-        x = x + attention(p["self_attn"], h, cfg, positions, impl=impl)
-        h = rmsnorm(p["norm_x"], x, cfg.norm_eps, impl)
-        ck, cv = _rope_kv_cross(p["cross_attn"], enc, cfg)
-        # the query is rotated at the decoder positions (see the module
-        # docstring: mirrored from the reference)
-        x = x + attention(p["cross_attn"], h, cfg, positions, impl=impl,
-                          kv_override=(ck, cv, enc_pos), causal=False)
-        h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
-        return x + mlp(p["mlp"], h, cfg.activation)
+        return _dec_unit(p, x, enc, cfg, positions, enc_pos, impl)
 
     x = _run_units(unit, x, params["dec_units"], cfg.n_layers, remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
@@ -128,8 +154,7 @@ def forward(params: Params, src_embeds: torch.Tensor,
 
 def _rope_kv_cross(attn_params: Params, enc: torch.Tensor, cfg: ModelConfig):
     """Cross-attention keys/values from encoder states (no RoPE)."""
-    _, k, v = _project_qkv(attn_params, enc, cfg)
-    return k, v
+    return _project_qkv(attn_params, enc, cfg, "kv")
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int,
@@ -163,16 +188,7 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
     `transformer.decode_step`, and the cross caches only read."""
     x = embed(params["embed"], token, cfg)
     for u in range(cfg.n_layers):
-        p = _unit(params["dec_units"], u)
-        h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
-        y, _ = decode_attention(p["self_attn"], h, _unit(cache["self"], u),
-                                cfg, pos)
-        x = x + y
-        h = rmsnorm(p["norm_x"], x, cfg.norm_eps, impl)
-        y, _ = decode_attention(p["cross_attn"], h, _unit(cache["cross"], u),
-                                cfg, pos, cross=True)
-        x = x + y
-        h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
-        x = x + mlp(p["mlp"], h, cfg.activation)
+        x = _dec_step(_unit(params["dec_units"], u), _unit(cache["self"], u),
+                      _unit(cache["cross"], u), x, cfg, pos, impl)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
     return unembed(params["embed"], x, cfg), cache

@@ -71,9 +71,17 @@ def route(params: Params, x2d: torch.Tensor, cfg: ModelConfig
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(0)
-    ce = torch.bincount(idx.reshape(-1), minlength=E).float() / idx.numel()
+    ce = expert_counts(idx.reshape(-1), E).float() / idx.numel()
     aux = E * torch.sum(me * ce)
     return w.to(x2d.dtype), idx, aux
+
+
+def expert_counts(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """`torch.bincount(ids, minlength=n)` of ids in [0, n): the same int64
+    counts, at a size fixed by n.  bincount's size depends on the data,
+    so fake tensors (`launch/roofline.py`) cannot trace it."""
+    return torch.zeros(n, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
 
 
 def grouped_mm(x: torch.Tensor, w: torch.Tensor,
@@ -154,7 +162,7 @@ def moe_block_gspmd(params: Params, x: torch.Tensor, cfg: ModelConfig
     inv = torch.empty_like(order)
     inv[order] = torch.arange(order.numel(), device=order.device)
     xs = x2d.repeat_interleave(K, dim=0)[order]            # (T*K, d)
-    group_sizes = torch.bincount(flat_e, minlength=E)
+    group_sizes = expert_counts(flat_e, E)
 
     gate = grouped_mm(xs, params["w_gate"], group_sizes)
     up = grouped_mm(xs, params["w_up"], group_sizes)

@@ -138,6 +138,14 @@ def _apply_block(p: Params, spec, x, cfg: ModelConfig, positions, impl,
     return x + y, aux
 
 
+def _shared_block(shared: Params, x, cfg: ModelConfig, positions, impl):
+    """The hybrid's shared attention + MLP block."""
+    h = rmsnorm(shared["norm1"], x, cfg.norm_eps, impl)
+    x = x + attention(shared["attn"], h, cfg, positions, impl=impl)
+    h = rmsnorm(shared["norm2"], x, cfg.norm_eps, impl)
+    return x + mlp(shared["mlp"], h, cfg.activation)
+
+
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
             impl: str = "auto", remat: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -156,10 +164,7 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
             for inner in _unbind(unit_params, cfg.shared_attn_every):
                 x, _ = _apply_block(inner, cfg.unit[0], x, cfg, positions,
                                     impl, 0.0)
-            h = rmsnorm(shared["norm1"], x, cfg.norm_eps, impl)
-            x = x + attention(shared["attn"], h, cfg, positions, impl=impl)
-            h = rmsnorm(shared["norm2"], x, cfg.norm_eps, impl)
-            return x + mlp(shared["mlp"], h, cfg.activation), 0.0
+            return _shared_block(shared, x, cfg, positions, impl), 0.0
         n_outer = cfg.n_layers // cfg.shared_attn_every
     else:
         def unit_fn(x, unit_params):
@@ -231,6 +236,27 @@ def _decode_block(p, spec, cache_b, x, cfg: ModelConfig, pos: int, impl):
     return x + y
 
 
+def _decode_shared(shared: Params, cache_u, x, cfg: ModelConfig, pos: int,
+                   impl):
+    """The hybrid's shared block at a decode step, on one application's
+    KV cache."""
+    h = rmsnorm(shared["norm1"], x, cfg.norm_eps, impl)
+    y, _ = decode_attention(shared["attn"], h, cache_u, cfg, pos)
+    x = x + y
+    h = rmsnorm(shared["norm2"], x, cfg.norm_eps, impl)
+    return x + mlp(shared["mlp"], h, cfg.activation)
+
+
+def _decode_unit(unit_params: Params, unit_cache, x, cfg: ModelConfig,
+                 pos: int, impl):
+    """One pattern unit at a decode step (its blocks' caches, where they
+    have one, written in place)."""
+    for j, spec in enumerate(cfg.unit):
+        x = _decode_block(unit_params[f"b{j}"], spec,
+                          unit_cache.get(f"b{j}"), x, cfg, pos, impl)
+    return x
+
+
 def decode_step(params: Params, cache: Params, token: torch.Tensor,
                 pos: int, cfg: ModelConfig, impl: str = "auto"
                 ) -> Tuple[torch.Tensor, Params]:
@@ -250,19 +276,11 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
             for k in range(cfg.shared_attn_every):
                 x = _decode_block(_unit(up, k), cfg.unit[0], _unit(cu, k), x,
                                   cfg, pos, impl)
-            h = rmsnorm(shared["norm1"], x, cfg.norm_eps, impl)
-            y, _ = decode_attention(shared["attn"], h,
-                                    _unit(cache["shared"], u), cfg, pos)
-            x = x + y
-            h = rmsnorm(shared["norm2"], x, cfg.norm_eps, impl)
-            x = x + mlp(shared["mlp"], h, cfg.activation)
+            x = _decode_shared(shared, _unit(cache["shared"], u), x, cfg,
+                               pos, impl)
     else:
         for u in range(cfg.n_units):
-            up = _unit(params["units"], u)
-            for j, spec in enumerate(cfg.unit):
-                cb = cache["units"].get(f"b{j}")
-                x = _decode_block(up[f"b{j}"], spec,
-                                  None if cb is None else _unit(cb, u), x,
-                                  cfg, pos, impl)
+            x = _decode_unit(_unit(params["units"], u),
+                             _unit(cache["units"], u), x, cfg, pos, impl)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
     return unembed(params["embed"], x, cfg), cache

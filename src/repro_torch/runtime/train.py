@@ -167,13 +167,11 @@ def rank_rows(mesh, x: torch.Tensor) -> torch.Tensor:
     return x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)]
 
 
-def mesh_loss_fn(loss_fn, mesh):
-    """loss_fn(params, batch) on a mesh: params DTensors (gathered whole,
-    differentiably), batch global (this rank's rows taken); the loss and
-    metrics scaled by 1 / ranks, so that they, and the gradients, add up
-    over the ranks to the global batch's."""
+def mesh_apply(fn, mesh):
+    """fn(params, batch) on a mesh: params DTensors gathered whole
+    (differentiably; plain tensors pass as they are), batch global, this
+    rank's rows taken (`rank_rows`)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
-    world = axis_size(mesh, mesh.shape)
 
     def gather(p):
         if not isinstance(p, DTensor):
@@ -182,9 +180,22 @@ def mesh_loss_fn(loss_fn, mesh):
         return p.redistribute(p.device_mesh, [Replicate()] * n).to_local(
             grad_placements=[Partial()] * n)
 
+    def apply(params, batch):
+        return fn(tree_map(gather, params),
+                  {k: rank_rows(mesh, v) for k, v in batch.items()})
+
+    return apply
+
+
+def mesh_loss_fn(loss_fn, mesh):
+    """loss_fn(params, batch) on a mesh (`mesh_apply`), the loss and
+    metrics scaled by 1 / ranks, so that they, and the gradients, add up
+    over the ranks to the global batch's."""
+    world = axis_size(mesh, mesh.shape)
+    apply = mesh_apply(loss_fn, mesh)
+
     def mesh_loss(params, batch):
-        total, m = loss_fn(tree_map(gather, params),
-                           {k: rank_rows(mesh, v) for k, v in batch.items()})
+        total, m = apply(params, batch)
         return total / world, {k: v / world for k, v in m.items()}
 
     return mesh_loss

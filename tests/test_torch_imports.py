@@ -15,6 +15,12 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
+#: the LM-scale study's modules, each imported alone below
+STUDY_MODULES = ("repro_torch.configs", "repro_torch.launch.roofline",
+                 "repro_torch.launch.unit_programs",
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.core.hybrid_schedule",
+                 "repro_torch.launch.lm_scale")
 
 
 def _imported_modules(path):
@@ -43,6 +49,21 @@ def test_port_imports_with_jax_blocked():
             "for info in pkgutil.walk_packages(repro_torch.__path__, "
             "'repro_torch.'):\n"
             "    importlib.import_module(info.name)\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("module", STUDY_MODULES)
+def test_study_module_imports_alone_with_jax_and_repro_blocked(module):
+    code = ("import sys, importlib\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            f"importlib.import_module({module!r})\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO,
