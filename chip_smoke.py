@@ -80,7 +80,25 @@ Phases, each of which fails the run (exit code 1, no result line):
    around one real plain-route step on the card (equal FLOPs) and to the
    real state's and batch's bytes (equal), and MemTracker's peak printed
    beside phase 5's `max_memory_allocated`.  Phase 5 prints its MFU from
-   the count beside the hand formula.
+   the count beside the hand formula;
+8. the mesh's sharded paths, on the 1-rank group's host mesh (1, 1),
+   where every 'model' shard is the whole weight, so the tensor-parallel
+   products do not run here (the four-card `gpu` test in
+   `tests/test_torch_cuda.py` runs them): full-width smollm-360m (bf16,
+   AdamW, remat, 8 x 1024 tokens) trained one step through the mesh's
+   train step (`mesh_apply`'s data-axis gathers, the cross entropy's
+   shard-local form) and 8 requests on 4 slots served
+   through the sharded serving functions (`make_serve_fns(..., mesh=)`:
+   the cache placed by `cache_shardings`, the slots' rows, the next
+   token compared across 'model'), each with the launch counters set to
+   0 just before and read just after, each held bit-equal to the
+   meshless path and timed beside it; FlopCounterMode around one real
+   plain-route step on the mesh equal to phase 7's fake-tensor count;
+   the sequence-split decode attention (`decode_partial` on 4 slices of
+   a full-width 4 x 1024 cache, `combine_partials`) held to the
+   whole-cache decode attention in float32 and bf16 and timed beside
+   it, and `decode_attention`'s split branch on the mesh (its partials
+   gathered over 'model' by NCCL) held to its whole-cache branch.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
@@ -2002,6 +2020,193 @@ def phase_roofline(torch, dev, metrics, train_count, card):
             "train_peak_ratio_to_max_memory_allocated": peak_ratio}
 
 
+def phase_tensor_parallel(torch, dev, train_count):
+    """8: the mesh's train step and sharded serving on the 1-rank
+    host mesh, against the meshless paths; the sequence-split decode
+    combine at full width."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+    from repro_torch.launch.roofline import flop_counter
+    from repro_torch.launch.serve import make_requests, serve_loop
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import attention as A
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.runtime.parallel import ParallelContext, parallel_context
+    from repro_torch.runtime.serve import ServeConfig
+    from repro_torch.runtime.sharding import place, state_shardings
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+    from repro_torch.tree import leaves
+
+    print("phase 8: the mesh's sharded paths, smollm-360m on the host mesh",
+          flush=True)
+    t_phase = time.perf_counter()
+    arch, B, S = "smollm-360m", 8, 1024
+    cfg = ARCHS[arch]
+    mesh = make_host_mesh("cuda")
+    wrappers = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+                "ssd": ssd}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+        rmsnorm.bwd_launches = 0
+
+    def read():
+        out = {k: w.launches for k, w in wrappers.items()}
+        out["rmsnorm.bwd"] = rmsnorm.bwd_launches
+        return out
+
+    # 8a: one train step on the mesh vs meshless
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    tcfg = TrainConfig(optimizer=opt, remat=True)
+    mesh_step, init_fn = make_train_step(cfg, tcfg, dev, mesh=mesh)
+    plain_step, _ = make_train_step(cfg, tcfg, dev)
+    batch = device_batch(cfg, DataConfig(seq_len=S, global_batch=B,
+                                         vocab_size=cfg.vocab_size), 0, dev)
+    state0 = init_fn(torch.Generator(device=dev).manual_seed(0))
+    blocks = len(cfg.unit) * cfg.n_units
+    attn = sum(b.kind == "attn" for b in cfg.unit) * cfg.n_units
+    per_step = {"flash_attention": 2 * attn, "rmsnorm": 2 * blocks + 1,
+                "ssd": 0, "rmsnorm.bwd": blocks + 1}
+    with use_mesh(mesh), parallel_context(ParallelContext()):
+        placed = place(state0, state_shardings(mesh, state0, "adamw"))
+        mesh_step(placed, batch)                   # warm
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        new, m = mesh_step(placed, batch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        train_counts = read()
+    t0 = time.perf_counter()
+    want, wm = plain_step(state0, batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(train_counts == per_step,
+          f"{arch} step on the mesh launched {train_counts} (expected "
+          f"{per_step})")
+    differ = sum(int((a.full_tensor() != b).sum()) for a, b in
+                 zip(leaves(new["params"]), leaves(want["params"])))
+    check(differ == 0 and float(m["loss"]) == float(wm["loss"]),
+          f"{arch} one step through the mesh's train step on "
+          f"{mesh.shape}: loss {float(m['loss'])} vs meshless "
+          f"{float(wm['loss'])}, {differ} weights differ (bit-equal); "
+          f"{step_ms:.2f} ms vs meshless {plain_ms:.2f} ms")
+    del new, want, placed
+    # FlopCounterMode around a real plain-route step on the mesh
+    rl, _ = train_count
+    naive = TrainConfig(optimizer=opt, attention_impl="naive", remat=True)
+    naive_step, _ = make_train_step(cfg, naive, dev, mesh=mesh)
+    with use_mesh(mesh), parallel_context(ParallelContext()):
+        placed = place(state0, state_shardings(mesh, state0, "adamw"))
+        with flop_counter() as fc:
+            naive_step(placed, batch)
+            torch.cuda.synchronize()
+    real_flops = fc.get_total_flops()
+    check(real_flops == int(rl.flops),
+          f"{arch} plain-route step on the mesh: FlopCounterMode on the "
+          f"card {real_flops} FLOPs, the fake-tensor count {int(rl.flops)}")
+    del placed, state0, batch
+    torch.cuda.empty_cache()
+
+    # 8b: the serve loop through the sharded serving functions
+    params = build_model(cfg, remat=False, device=dev).init(
+        torch.Generator(device=dev).manual_seed(0))
+    scfg = ServeConfig(max_len=96)
+    runs = {}
+    for name, on in (("meshless", None), ("mesh", mesh), ("mesh ", mesh),
+                     ("meshless ", None)):
+        reset()
+        res, st = serve_loop(params, cfg, scfg, make_requests(8,
+                                                              cfg.vocab_size),
+                             4, 8, dev, on)
+        torch.cuda.synchronize()
+        runs.setdefault(name.strip(), []).append((res, st, read()))
+    (res_m, st_m, serve_counts), (res_p, st_p, plain_counts) = \
+        runs["mesh"][0], runs["meshless"][0]
+    steps = st_m["steps"]
+    check(serve_counts == plain_counts and serve_counts["rmsnorm"] ==
+          (blocks + 1) * steps and serve_counts["flash_attention"] == 0,
+          f"{arch} serve loop on the mesh: {steps} decode steps launched "
+          f"{serve_counts} (meshless {plain_counts})")
+    check(res_m == res_p and st_m["served"] == 8,
+          f"{arch} serve loop through the sharded serving functions: the "
+          f"meshless loop's tokens for all {st_m['served']} requests; "
+          f"tokens/s {[round(r[1]['tok_per_s'], 2) for r in runs['mesh']]} "
+          f"vs meshless "
+          f"{[round(r[1]['tok_per_s'], 2) for r in runs['meshless']]} "
+          f"(in turns)")
+    del params
+
+    # 8c: the sequence-split decode combine at full width
+    gen = torch.Generator(device=dev).manual_seed(4)
+    H, K, D, L, slots, pos = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                              1024, 4, 1500)
+    k_pos = A.ring_positions(pos, L, dev)
+    q_pos = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    split_err, split = {}, {}
+    for dtype, tol in (("float32", (1e-5, 0.0)),
+                       ("bfloat16", (2.0 ** -8, 2.0 ** -7))):
+        dt = getattr(torch, dtype)
+        q = torch.randn((slots, 1, H, D), generator=gen, device=dev,
+                        dtype=torch.float32).to(dt)
+        k, v = (torch.randn((slots, L, K, D), generator=gen, device=dev,
+                            dtype=torch.float32).to(torch.bfloat16)
+                for _ in range(2))
+
+        def whole():
+            return A.sdpa_naive(q, k, v, q_pos, k_pos, None, None, D ** -0.5)
+
+        def parts():
+            return A.combine_partials(*(torch.stack(t) for t in zip(*(
+                A.decode_partial(q, k[:, i:i + L // 4], v[:, i:i + L // 4],
+                                 q_pos, k_pos[i:i + L // 4], None, None,
+                                 D ** -0.5) for i in range(0, L, L // 4)))),
+                q.dtype if dt == torch.float32 else torch.bfloat16)
+
+        got, ref = parts(), whole()
+        split_err[dtype] = max_err(got, ref)
+        check(got.shape == ref.shape and close(torch, got, ref, *tol),
+              f"sequence-split decode combine, {slots} slots x {L} "
+              f"positions in 4 slices, H={H} K={K} D={D}, {dtype} queries: "
+              f"max diff {split_err[dtype]:.3g} from the whole-cache "
+              f"decode attention (atol {tol[0]:.3g}, rtol {tol[1]:.3g})")
+        split[dtype] = {"split_ms": cuda_ms(torch, parts, 20)[0],
+                        "whole_ms": cuda_ms(torch, whole, 20)[0]}
+    # decode_attention's split branch on the mesh (one slice, gathered
+    # over 'model' by NCCL) against its whole-cache branch
+    layer = {kk: vv.float() for kk, vv in A.attention_init(
+        torch.Generator(device=dev).manual_seed(5), cfg, dev).items()}
+    x = torch.randn((slots, 1, cfg.d_model), generator=gen, device=dev)
+    cache = {"k": k.clone(), "v": v.clone()}
+    ref, _ = A.decode_attention(layer, x, cache, cfg, pos)
+    cache = {"k": k.clone(), "v": v.clone(),
+             "seq": A.SeqShard(L, 0, ("model",))}
+    with use_mesh(mesh):
+        got, _ = A.decode_attention(layer, x, cache, cfg, pos)
+    check(close(torch, got, ref, 1e-5, 0.0),
+          f"decode_attention's sequence-split branch on {mesh.shape} vs its "
+          f"whole-cache branch: max diff {max_err(got, ref):.3g} (float32)")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  {arch} phase 8: {phase_s:.1f} s; split combine "
+          f"{split} ms (CUDA events, 20 calls)", flush=True)
+    metrics = {"step_ms": step_ms, "meshless_step_ms": plain_ms,
+               "train_flops_card": real_flops,
+               "serve_tok_per_s": [r[1]["tok_per_s"] for r in runs["mesh"]],
+               "meshless_serve_tok_per_s": [r[1]["tok_per_s"]
+                                            for r in runs["meshless"]],
+               "decode_steps": steps, "split_combine_max_diff": split_err,
+               "split_combine_ms": split, "phase_s": phase_s}
+    return metrics, {f"{arch}-tp-train": train_counts,
+                     f"{arch}-tp-serve": {k: serve_counts[k]
+                                          for k in wrappers}}
+
+
 def main():
     import torch
 
@@ -2046,6 +2251,9 @@ def main():
         phase_distributed_train(torch, dev)
     metrics["roofline"] = phase_roofline(torch, dev, metrics, train_count,
                                          card)
+    metrics["smollm-360m-tp"], tp_counts = phase_tensor_parallel(
+        torch, dev, train_count)
+    counts.update(tp_counts)
 
     for name, entry in kernels.items():
         by_path = {arch: c[name] for arch, c in counts.items()}
@@ -2053,13 +2261,14 @@ def main():
         entry["launches_by_path"] = by_path
     kernels["rmsnorm"]["bwd_launches"] = sum(
         counts[path]["rmsnorm.bwd"]
-        for path in ("smollm-360m-train", "smollm-360m-train-mesh"))
+        for path in ("smollm-360m-train", "smollm-360m-train-mesh",
+                     "smollm-360m-tp-train"))
     serve = [m for m in metrics.values() if "flash_attention_tc_launches" in m]
     kernels["flash_attention"]["tc_launches"] = sum(
         m["flash_attention_tc_launches"] for m in serve) + sum(
         counts[path]["flash_attention"] for path in (
             "smollm-360m-train", "mixtral-8x22b-mesh",
-            "smollm-360m-train-mesh"))
+            "smollm-360m-train-mesh", "smollm-360m-tp-train"))
     kernels["ssd"]["tc_launches"] = sum(m["ssd_tc_launches"] for m in serve)
     metrics.update(card=card, build_s=build_s, process_group=backend)
     print(json.dumps({"metrics": metrics}))

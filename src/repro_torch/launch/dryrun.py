@@ -12,22 +12,21 @@ allocated at any width.  For each cell this:
      (2, 16, 16), as DTensors,
   3. runs the port's step once through `launch/roofline.py: count`:
      the sharded train step (`make_train_step(..., mesh=)`), the
-     prefill (`make_serve_fns(...).prefill` on the same gathered
-     weights and this rank's rows, `runtime/train.py: mesh_apply`), or
-     one serving decode step,
+     sharded prefill or one sharded serving decode step
+     (`make_serve_fns(..., mesh=)`: the weights gathered over the data
+     axes, each rank computing tensor-parallel on its 'model' shards,
+     the decode cache placed by `cache_shardings` and this rank's rows
+     of the slots),
   4. records the FLOPs, bytes, collectives by op and memory of rank 0,
      and each single-unit program's terms (`launch/unit_programs.py`;
      nothing is extrapolated, see there),
 and writes one JSON per cell under build/repro_torch/dryrun/.
 
 As in the reference, the cell runs inside `use_mesh` and
-`parallel_context(ParallelContext())`.  A cell
-that raises is recorded with `status: error`, the error and the end of
-its traceback: the port's gaps stop cells this way (GSPMD's
-tensor-parallel compute is not ported, so dense weights are gathered
-whole on every rank; serving does not shard slots over data axes; a
-batch that does not divide over the data axes would need context
-parallelism).
+`parallel_context(ParallelContext())`.  A cell that raises is recorded
+with `status: error`, the error and the end of its traceback (a train
+batch that does not divide over the data axes would stop there: the
+port has no context parallelism for training, and no cell needs it).
 
 `memory` holds rank 0's `argument_size_in_bytes` (its shards of the
 state and its rows of the inputs), `output_size_in_bytes` (its shards
@@ -58,20 +57,20 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..models import build_model
 from ..optim.optimizers import OptimizerConfig
 from ..runtime.parallel import ParallelContext, parallel_context
-from ..runtime.serve import ServeConfig, make_serve_fns
-from ..runtime.sharding import params_shardings, place, state_shardings
-from ..runtime.train import (TrainConfig, make_train_step, mesh_apply,
-                             rank_rows)
+from ..runtime.serve import (ServeConfig, cache_views, make_serve_fns,
+                             slot_rows)
+from ..runtime.sharding import (params_shardings, place, state_shardings,
+                                tp_local)
+from ..runtime.train import TrainConfig, make_train_step, rank_rows
 from . import roofline as RL
 from .mesh import make_auto_mesh, use_mesh
-from .serve import check_slots_unsharded
 from .unit_programs import decode_unit_programs, train_unit_programs
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "build", "repro_torch", "dryrun")
 
 #: mesh kind -> (shape, axes); "host" is a small mesh whose data axis
-#: holds one rank, on which serving cells run too
+#: holds one rank
 MESHES = {"pod": ((16, 16), ("data", "model")),
           "multipod": ((2, 16, 16), ("pod", "data", "model")),
           "host": ((1, 4), ("data", "model"))}
@@ -87,28 +86,25 @@ def optimizer_for(cfg: ModelConfig) -> OptimizerConfig:
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig):
-    """Zero tensors for every model input of this cell (fake under a
-    FakeTensorMode): the global batch; for decode one new token a slot,
-    the cache of seq_len positions and the position."""
+    """Zero tensors for every model input of a train or prefill cell (fake
+    under a FakeTensorMode): the global batch.  A decode cell's inputs
+    (one new token a slot, the cache, the position) are made on the mesh
+    by `count_decode_cell`."""
     B, S = shape.global_batch, shape.seq_len
     i32 = torch.int32
-    if shape.mode in ("train", "prefill"):
-        batch = {}
-        if cfg.is_encdec:
-            batch["src_embeds"] = torch.zeros((B, S, cfg.d_model),
-                                              dtype=torch.bfloat16)
-            batch["tokens"] = torch.zeros((B, S), dtype=i32)
-        elif cfg.frontend == "embed":
-            batch["embeds"] = torch.zeros((B, S, cfg.d_model),
+    batch = {}
+    if cfg.is_encdec:
+        batch["src_embeds"] = torch.zeros((B, S, cfg.d_model),
                                           dtype=torch.bfloat16)
-        else:
-            batch["tokens"] = torch.zeros((B, S), dtype=i32)
-        if shape.mode == "train":
-            batch["labels"] = torch.zeros((B, S), dtype=i32)
-        return batch
-    model = build_model(cfg, device="cpu")
-    return {"token": torch.zeros((B, 1), dtype=i32),
-            "cache": model.init_cache(B, S, src_len=1024), "pos": S - 1}
+        batch["tokens"] = torch.zeros((B, S), dtype=i32)
+    elif cfg.frontend == "embed":
+        batch["embeds"] = torch.zeros((B, S, cfg.d_model),
+                                      dtype=torch.bfloat16)
+    else:
+        batch["tokens"] = torch.zeros((B, S), dtype=i32)
+    if shape.mode == "train":
+        batch["labels"] = torch.zeros((B, S), dtype=i32)
+    return batch
 
 
 def _gen():
@@ -135,8 +131,9 @@ def count_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         batch = input_specs(cfg, shape)
         rows = _rows_bytes(mesh, batch)
         n_rows = rank_rows(mesh, batch["labels"]).shape[0]
-        units = train_unit_programs(cfg, state, n_rows, shape.seq_len,
-                                    attention_impl, remat=tcfg.remat)
+        units = train_unit_programs(
+            cfg, {"params": tp_local(mesh, state["params"])}, n_rows,
+            shape.seq_len, attention_impl, remat=tcfg.remat)
     rl, ex = RL.count(step_fn, placed, batch)
     memory = {"argument_size_in_bytes": RL.local_bytes(placed) + rows,
               "output_size_in_bytes": ex.output_bytes,
@@ -146,12 +143,13 @@ def count_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
 def count_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                        attention_impl: str = "auto"):
-    """Serving prefill of the global batch, last-position logits, on the
-    weights placed by `params_shardings` and gathered as the sharded step
-    gathers them, this rank's rows: (roofline, extras, memory, units)."""
+    """The sharded serving prefill of the global batch (last-position
+    logits) on the weights placed by `params_shardings`, this rank's
+    rows: (roofline, extras, memory, units)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     prefill, _, _ = make_serve_fns(
-        cfg, ServeConfig(attention_impl=attention_impl), device="cpu")
+        cfg, ServeConfig(attention_impl=attention_impl), device="cpu",
+        mesh=mesh)
     model = build_model(cfg, impl=attention_impl, device="cpu")
     with FakeTensorMode():
         params = model.init(_gen())
@@ -159,10 +157,10 @@ def count_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         batch = input_specs(cfg, shape)
         rows = _rows_bytes(mesh, batch)
         n_rows = rank_rows(mesh, next(iter(batch.values()))).shape[0]
-        units = train_unit_programs(cfg, {"params": params}, n_rows,
-                                    shape.seq_len, attention_impl,
+        units = train_unit_programs(cfg, {"params": tp_local(mesh, params)},
+                                    n_rows, shape.seq_len, attention_impl,
                                     grad=False)
-    rl, ex = RL.count(mesh_apply(prefill, mesh), placed, batch)
+    rl, ex = RL.count(prefill, placed, batch)
     memory = {"argument_size_in_bytes": RL.local_bytes(placed) + rows,
               "output_size_in_bytes": ex.output_bytes,
               "peak_bytes": ex.peak_bytes}
@@ -171,24 +169,29 @@ def count_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
 
 def count_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                       attention_impl: str = "auto"):
-    """One serving decode step of global_batch slots against a seq_len
-    cache, as the port's serving loop runs it on a mesh: every rank holds
-    the whole weights and cache and serves every slot (so the mesh's
-    data axes must hold one rank): (roofline, extras, memory, units)."""
+    """One sharded serving decode step of global_batch slots against a
+    seq_len cache (`make_serve_fns(..., mesh=)`: the weights placed by
+    `params_shardings`, the cache by `cache_shardings`, this rank's rows
+    of the slots): (roofline, extras, memory, units)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    check_slots_unsharded(mesh, shape.global_batch)
-    _, decode_step, _ = make_serve_fns(
+    _, decode_step, init_cache = make_serve_fns(
         cfg, ServeConfig(max_len=shape.seq_len,
-                         attention_impl=attention_impl), device="cpu")
+                         attention_impl=attention_impl), device="cpu",
+        mesh=mesh)
     model = build_model(cfg, impl=attention_impl, remat=False, device="cpu")
     with FakeTensorMode():
         params = model.init(_gen())
-        specs = input_specs(cfg, shape)
-        units = decode_unit_programs(cfg, params, specs["cache"],
-                                     shape.global_batch, attention_impl)
-    rl, ex = RL.count(decode_step, params, specs["cache"], specs["token"],
-                      specs["pos"])
-    memory = {"argument_size_in_bytes": ex.argument_bytes,
+        placed = place(params, params_shardings(mesh, params))
+        cache = init_cache(shape.global_batch, shape.seq_len, 1024)
+        token = slot_rows(mesh, torch.zeros((shape.global_batch, 1),
+                                            dtype=torch.int32))
+        with use_mesh(mesh):
+            views, _ = cache_views(mesh, cache)
+        units = decode_unit_programs(cfg, tp_local(mesh, params), views,
+                                     token.shape[0], attention_impl)
+    args = (placed, cache, token, shape.seq_len - 1)
+    rl, ex = RL.count(decode_step, *args)
+    memory = {"argument_size_in_bytes": RL.local_bytes(args),
               "output_size_in_bytes": ex.output_bytes,
               "peak_bytes": ex.peak_bytes}
     return rl, ex, memory, units

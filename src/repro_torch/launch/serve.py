@@ -22,16 +22,17 @@ group, which `main` starts with one rank when there is none and ends on
 return).  An MoE
 model then takes the reference's expert-parallel path, whose capacity
 buckets drop rows: at decode with 4 slots on mixtral each expert's
-bucket holds one row.  Every rank serves every slot, so the mesh's data
-axes must hold one rank (the host mesh's do; sharding the slots over
-them is not in the port).
+bucket holds one row.  The loop places the params by the sharding rules
+and gives each rank its slots under `batch_spec`: its share of them over
+the data axes, or every slot when they do not divide (the cache's
+sequence is then split, `runtime/serve.py`).  It gathers the next tokens
+back, so that the scheduler, the same on every rank, is the reference's.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
-import math
 import time
 from typing import Dict, List, Tuple
 
@@ -42,7 +43,9 @@ from ..configs import ARCHS, reduced
 from ..configs.base import ModelConfig
 from ..models import build_model
 from ..runtime.parallel import ParallelContext, parallel_context
-from ..runtime.serve import ServeConfig, make_serve_fns
+from ..runtime.serve import (ServeConfig, gather_slots, make_serve_fns,
+                             slot_rows)
+from ..runtime.sharding import params_shardings, place
 from .mesh import (init_process_group, make_host_mesh, make_production_mesh,
                    use_mesh)
 
@@ -56,25 +59,6 @@ def make_requests(n: int, vocab_size: int) -> List[List[int]]:
             for _ in range(n)]
 
 
-def check_slots_unsharded(mesh, slots: int) -> None:
-    """Raise unless the mesh's data axes hold one rank: the port serves
-    every slot on every rank.  The reference shards the slots over the
-    data axes, or, with fewer slots than data ranks, the cache's sequence
-    (context parallelism); the port has neither."""
-    data = math.prod(mesh.shape.get(a, 1) for a in ("pod", "data"))
-    if data == 1:
-        return
-    if slots % data:
-        raise ValueError(
-            f"{slots} slot(s) do not divide over the {data} data ranks of "
-            f"{mesh.shape}: the reference shards the cache's sequence "
-            f"(context parallelism), which the port does not")
-    raise ValueError(
-        f"serving with slots sharded over data axes of more than one rank "
-        f"is not in the port: the mesh {mesh.shape} spreads {slots} slots "
-        f"over {data} data ranks")
-
-
 def serve_loop(params, cfg: ModelConfig, scfg: ServeConfig,
                queue: List[List[int]], slots: int, max_new: int,
                device="cuda", mesh=None) -> Tuple[Dict[int, List[int]], Dict]:
@@ -85,13 +69,15 @@ def serve_loop(params, cfg: ModelConfig, scfg: ServeConfig,
     launcher's context (module docstring)."""
     if mesh is None:
         return _serve(params, cfg, scfg, queue, slots, max_new, device)
-    check_slots_unsharded(mesh, slots)
     with use_mesh(mesh), parallel_context(ParallelContext()):
-        return _serve(params, cfg, scfg, queue, slots, max_new, device)
+        return _serve(params, cfg, scfg, queue, slots, max_new, device,
+                      mesh)
 
 
-def _serve(params, cfg, scfg, queue, slots, max_new, device):
-    _, decode_step, init_cache = make_serve_fns(cfg, scfg, device)
+def _serve(params, cfg, scfg, queue, slots, max_new, device, mesh=None):
+    _, decode_step, init_cache = make_serve_fns(cfg, scfg, device, mesh)
+    if mesh is not None:
+        params = place(params, params_shardings(mesh, params))
     queue = [list(map(int, p)) for p in queue]
     n_requests = len(queue)
     cache = init_cache(slots, scfg.max_len)
@@ -110,8 +96,13 @@ def _serve(params, cfg, scfg, queue, slots, max_new, device):
                 continue
             _, prompt, out = a
             feed[s, 0] = prompt.pop(0) if prompt else out[-1]
-        nxt, _, cache = decode_step(params, cache,
-                                    torch.from_numpy(feed).to(device), pos)
+        tok = torch.from_numpy(feed).to(device)
+        if mesh is None:
+            nxt, _, cache = decode_step(params, cache, tok, pos)
+        else:
+            nxt, _, cache = decode_step(params, cache, slot_rows(mesh, tok),
+                                        pos)
+            nxt = gather_slots(mesh, nxt, slots)
         nxt = nxt.cpu().numpy()
         steps += 1
         for s, a in enumerate(active):

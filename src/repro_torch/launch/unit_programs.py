@@ -15,8 +15,11 @@ the unit runs in the program:
   times
 
 A unit program takes the unit's parameters (views of the stacked state's
-first unit) and this rank's activations; under a mesh and a
-ParallelContext its MoE blocks issue their collectives as in the step.
+first unit, cut to what this rank computes with: `sharding.tp_local`)
+and this rank's activations; under a mesh and a ParallelContext it
+issues the step's collectives: the tensor-parallel sums and gathers over
+'model', and the MoE blocks' own.  A decode unit takes its first unit's
+cache as the step computes on it (`runtime/serve.py: cache_views`).
 """
 
 from __future__ import annotations
@@ -35,8 +38,11 @@ UnitProgram = Tuple[str, Callable, Tuple, int]  # (name, fn, args, k)
 
 
 def _slice(tree, axes: int = 1):
-    """The first unit of a stacked tree: `axes` leading axes indexed at 0."""
+    """The first unit of a stacked tree: `axes` leading axes indexed at 0
+    (a cache's `SeqShard` entry kept as it is)."""
     def first(t):
+        if not isinstance(t, torch.Tensor):
+            return t
         for _ in range(axes):
             t = t[0]
         return t

@@ -83,7 +83,7 @@ def _enc_unit(p: Params, x, cfg: ModelConfig, positions, impl):
     h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
     x = x + attention(p["attn"], h, cfg, positions, impl=impl, causal=False)
     h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
-    return x + mlp(p["mlp"], h, cfg.activation)
+    return x + mlp(p["mlp"], h, cfg.activation, cfg.d_ff)
 
 
 def _dec_unit(p: Params, x, enc, cfg: ModelConfig, positions, enc_pos,
@@ -101,7 +101,7 @@ def _dec_unit(p: Params, x, enc, cfg: ModelConfig, positions, enc_pos,
     x = x + attention(p["cross_attn"], h, cfg, positions, impl=impl,
                       kv_override=(ck, cv, enc_pos), causal=False)
     h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
-    return x + mlp(p["mlp"], h, cfg.activation)
+    return x + mlp(p["mlp"], h, cfg.activation, cfg.d_ff)
 
 
 def _dec_step(p: Params, self_cache, cross_cache, x, cfg: ModelConfig,
@@ -116,7 +116,7 @@ def _dec_step(p: Params, self_cache, cross_cache, x, cfg: ModelConfig,
                             cross=True)
     x = x + y
     h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
-    return x + mlp(p["mlp"], h, cfg.activation)
+    return x + mlp(p["mlp"], h, cfg.activation, cfg.d_ff)
 
 
 def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig,

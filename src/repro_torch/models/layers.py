@@ -5,6 +5,14 @@ package's keys and its (in, out) weight layout.  Compute dtype is the
 params' (bf16 in serving) with fp32 reductions, and every cast sits where
 the reference (`repro.models.layers`) puts it, so the two agree to
 rounding.  Initialisers draw from an explicit `torch.Generator`.
+
+On a mesh a weight may be this rank's 'model' shard
+(`runtime/sharding.py: compute_spec`), which its width shows against
+the config's: the MLP then runs Megatron's column-parallel up and gate
+products and a row-parallel down product summed over 'model'; the
+embedding is vocab-parallel (ids outside the rank's rows of the table
+look up zeros, then a sum over 'model') and the unembedding gives the
+rank's columns of the logits.
 """
 
 from __future__ import annotations
@@ -101,7 +109,10 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, activation: str,
     return p
 
 
-def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
+def mlp(params: Params, x: torch.Tensor, activation: str,
+        d_ff: Optional[int] = None) -> torch.Tensor:
+    """`d_ff`, the layer's whole hidden width, says whether the weights
+    are 'model' shards (tensor-parallel); None: they are whole."""
     up = x @ params["w_up"]
     if activation in ("silu", "geglu"):
         gate = x @ params["w_gate"]
@@ -109,7 +120,12 @@ def mlp(params: Params, x: torch.Tensor, activation: str) -> torch.Tensor:
         h = act(gate.float()).to(x.dtype) * up
     else:
         h = _gelu(up.float()).to(x.dtype)
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    from ..runtime.parallel import model_slice, psum_model
+    if d_ff is not None and model_slice("mlp/w_down", params["w_down"].shape,
+                                        d_ff) is not None:
+        y = psum_model(y)
+    return y
 
 
 # --------------------------------------------------------------------------
@@ -128,7 +144,16 @@ def embedding_init(gen: torch.Generator, cfg: ModelConfig,
 
 def embed(params: Params, tokens: torch.Tensor,
           cfg: ModelConfig) -> torch.Tensor:
-    x = params["table"][tokens]
+    from ..runtime.parallel import model_slice, psum_model
+    table = params["table"]
+    rows = model_slice("embed/table", table.shape, cfg.vocab_size)
+    if rows is None:
+        x = table[tokens]
+    else:
+        local = tokens.long() - rows.start
+        mine = (local >= 0) & (local < table.shape[0])
+        x = table[torch.where(mine, local, 0)]
+        x = psum_model(torch.where(mine[..., None], x, 0.0).to(x.dtype))
     if cfg.tie_embeddings:
         # sqrt(d) is rounded to the activation dtype before the multiply
         # (31.0 for d=960 in bf16), as in the reference
@@ -139,7 +164,8 @@ def embed(params: Params, tokens: torch.Tensor,
 
 def unembed(params: Params, x: torch.Tensor, cfg: ModelConfig,
             ) -> torch.Tensor:
-    """Logits in fp32: the matmul runs in the params' dtype, then casts."""
+    """Logits in fp32: the matmul runs in the params' dtype, then casts.
+    A vocab-parallel weight gives this rank's columns of the logits."""
     if cfg.tie_embeddings:
         logits = x @ params["table"].T
     else:

@@ -24,7 +24,9 @@ in `shard_map`; here every rank runs them with the collectives of
 `runtime/parallel.py`.  On a mesh, x is this rank's rows of the global
 batch: its shard over ("pod", *data_axes), the whole batch when those
 axes have one rank.  The expert weights are the whole stacks (each rank
-takes its own slice) or DTensors gathered whole before the block.  Their
+takes its own slice) or DTensors gathered whole before the block; the
+attention beside the block computes tensor-parallel over 'model'
+(`models/attention.py`), and the router is replicated.  Their
 bucketed products (`_grouped_ffn`) are batched matmuls over (E, cap, d),
 as the reference's einsums are, outside any Pallas kernel.
 """

@@ -12,6 +12,13 @@ plain version on a CPU tensor), where the reference's "pallas" goes;
 and bf16 rounding points.  The gated norm goes through
 `layers.rmsnorm(..., impl)`, so on the card it is the RMSNorm kernel.
 Every other cast sits where the reference puts it.
+
+On a mesh the mixer computes whole width on every rank of 'model': its
+`in_proj` and `out_proj` are gathered whole (`sharding.compute_spec`
+keeps no 'model' shard of them; GSPMD splits the fused [z, x, B, C, dt]
+output across 'model', which the port does not), and a serving step
+hands it its slots' conv window and state gathered whole, writing the
+rank's shard back after (`runtime/serve.py`).
 """
 
 from __future__ import annotations

@@ -12,6 +12,10 @@ stacked (u_outer, every, ...) with no `b{j}` key, and the shared block is
 `params["shared"]` = {norm1, attn, norm2, mlp}, as in the reference; the
 reference's nested scans become nested loops.  Encoder-decoder models are
 `models/encdec.py`.
+
+On a mesh the blocks compute tensor-parallel on this rank's 'model'
+shards of the weights (`models/attention.py`, `models/layers.py`); the
+norms and the residual stream stay whole on every rank of 'model'.
 """
 
 from __future__ import annotations
@@ -97,10 +101,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _unit(params: Params, u: int):
-    """Parameters of unit u: views into the stacked tensors."""
+    """Parameters (or caches) of unit u: views into the stacked tensors;
+    a cache's non-tensor entry (`attention.SeqShard`) passes as it is."""
     if isinstance(params, dict):
         return {k: _unit(v, u) for k, v in params.items()}
-    return params[u]
+    return params[u] if isinstance(params, torch.Tensor) else params
 
 
 def _unbind(params: Params, n: int):
@@ -134,7 +139,7 @@ def _apply_block(p: Params, spec, x, cfg: ModelConfig, positions, impl,
     elif spec.kind == "mamba":
         y = mamba_block(p["mamba"], h, cfg, impl=impl)
     else:
-        y = mlp(p["mlp"], h, cfg.activation)
+        y = mlp(p["mlp"], h, cfg.activation, spec.d_ff or cfg.d_ff)
     return x + y, aux
 
 
@@ -143,7 +148,7 @@ def _shared_block(shared: Params, x, cfg: ModelConfig, positions, impl):
     h = rmsnorm(shared["norm1"], x, cfg.norm_eps, impl)
     x = x + attention(shared["attn"], h, cfg, positions, impl=impl)
     h = rmsnorm(shared["norm2"], x, cfg.norm_eps, impl)
-    return x + mlp(shared["mlp"], h, cfg.activation)
+    return x + mlp(shared["mlp"], h, cfg.activation, cfg.d_ff)
 
 
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
@@ -232,7 +237,7 @@ def _decode_block(p, spec, cache_b, x, cfg: ModelConfig, pos: int, impl):
     elif spec.kind == "moe":
         y, _ = moe_block(p["moe"], h, cfg)
     else:
-        y = mlp(p["mlp"], h, cfg.activation)
+        y = mlp(p["mlp"], h, cfg.activation, spec.d_ff or cfg.d_ff)
     return x + y
 
 
@@ -244,7 +249,7 @@ def _decode_shared(shared: Params, cache_u, x, cfg: ModelConfig, pos: int,
     y, _ = decode_attention(shared["attn"], h, cache_u, cfg, pos)
     x = x + y
     h = rmsnorm(shared["norm2"], x, cfg.norm_eps, impl)
-    return x + mlp(shared["mlp"], h, cfg.activation)
+    return x + mlp(shared["mlp"], h, cfg.activation, cfg.d_ff)
 
 
 def _decode_unit(unit_params: Params, unit_cache, x, cfg: ModelConfig,

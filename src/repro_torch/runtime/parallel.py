@@ -1,5 +1,5 @@
-"""Ambient parallel context, and the collectives of the explicit parallel
-blocks.
+"""Ambient parallel context, the collectives of the explicit parallel
+blocks, and those of tensor-parallel compute over 'model'.
 
 A port of the JAX package's `runtime/parallel.py`.  The launchers set the
 context; model code reads it.  With a context and a mesh that has the
@@ -17,6 +17,21 @@ has when the ranks' losses add up to the whole loss: what a rank's value
 fed on the other ranks flows back to it summed.  Over several axes they
 run one axis at a time; gathers take the minor axis first, so gathered
 rows come out in JAX's major-to-minor order.
+
+Tensor parallelism over 'model' (the dense layers' share of GSPMD's
+compute, Megatron-style) uses the same convention.  A rank holds the
+'model' shard of a weight that the rules shard there (`sharding.py:
+compute_spec`); `model_slice` asks the rules which slice of the
+weight's tensor-parallel dimension that is.  A column-parallel product runs on the rank's columns
+and needs no collective in either direction: under the sum-of-ranks
+convention the gradient of a replicated input is left partial on each
+rank, and the sums are taken where they are needed.  A row-parallel
+product is followed by `psum_model`, whose adjoint is the same sum: that
+backward all-reduce stands where Megatron puts its at the block's input,
+one of the same size each way per block.  Activations a rank needs whole
+(heads that do not divide over 'model', a vocabulary's maximum, a
+sequence-split attention's partials) are gathered by `gather_model` or
+`all_gather`.
 """
 
 from __future__ import annotations
@@ -30,7 +45,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from ..launch.mesh import Mesh
+from ..launch.mesh import Mesh, get_abstract_mesh
+from .sharding import compute_spec, shard_slices, tp_dim
 
 _state = threading.local()
 
@@ -153,10 +169,12 @@ class _AllToAll(torch.autograd.Function):
         return _AllToAll.apply(g, ctx.group), None
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]
-               ) -> torch.Tensor:
-    """The ranks' x along `axes` concatenated on dim 0, major axis
-    first (the rows of a tensor sharded P(axes) on its first dim)."""
+def all_gather(x: torch.Tensor, mesh: Mesh, axes: Sequence[str],
+               dim: int = 0) -> torch.Tensor:
+    """The ranks' x along `axes` concatenated on `dim`, major axis
+    first (the rows of a tensor sharded P(axes) on that dim)."""
+    if dim % x.ndim:
+        return all_gather(x.movedim(dim, 0), mesh, axes).movedim(0, dim)
     for a in reversed(tuple(axes)):
         x = _AllGather.apply(x, mesh.group(a))
     return x
@@ -167,6 +185,15 @@ def psum(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]) -> torch.Tensor:
     for a in axes:
         x = _AllReduce.apply(x, mesh.group(a))
     return x
+
+
+def pmax(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]) -> torch.Tensor:
+    """Elementwise maximum of x over the ranks along `axes`, without a
+    gradient (`jax.lax.pmax` of a stop-gradient value)."""
+    out = x.detach().contiguous().clone()
+    for a in axes:
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group(a))
+    return out
 
 
 def pmean(x: torch.Tensor, mesh: Mesh, axes: Sequence[str]) -> torch.Tensor:
@@ -182,3 +209,42 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
         raise ValueError(f"all_to_all over {axis!r} ({mesh.shape[axis]} "
                          f"ranks) got {x.shape[0]} blocks")
     return _AllToAll.apply(x, mesh.group(axis))
+
+
+# --------------------------------------------------------------------------
+# tensor parallelism over 'model' (GSPMD's dense compute, Megatron-style)
+# --------------------------------------------------------------------------
+
+def model_slice(path: str, shape: Sequence[int],
+                full: int) -> Optional[slice]:
+    """This rank's slice of the tensor-parallel dimension
+    (`sharding.tp_dim`) of the weight at `path` ("attn/wq", "mlp/w_down",
+    "embed/table", "unembed": the last also for the logits it gives),
+    held at `shape`, whose whole width there is `full`: the slice that
+    `compute_spec` gives it on the ambient mesh.  None when the rank
+    holds all of it (off a mesh, one rank on 'model', or whole weights
+    passed on a mesh)."""
+    d = tp_dim(path)
+    mesh = get_abstract_mesh()
+    if shape[d] == full or mesh.shape.get("model", 1) == 1:
+        return None
+    whole = list(shape)
+    whole[d] = full
+    spec = compute_spec(mesh, path, tuple(whole))
+    if spec[d] is None:
+        raise ValueError(f"{path}: {shape[d]} of {full} entries, but the "
+                         f"rules keep it whole on {dict(mesh.shape)}")
+    return shard_slices(mesh, spec, tuple(whole))[d]
+
+
+def psum_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of a row-parallel product's partial outputs over the
+    ambient mesh's 'model' axis (the adjoint is the same sum)."""
+    return psum(x, get_abstract_mesh(), ("model",))
+
+
+def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's shard of an activation along `dim` gathered whole over
+    the ambient mesh's 'model' axis (the adjoint keeps the rank's part of
+    the summed gradient)."""
+    return all_gather(x, get_abstract_mesh(), ("model",), dim)

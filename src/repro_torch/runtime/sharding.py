@@ -21,13 +21,22 @@ object that has one, a stub standing for 256 ranks included.  A spec is
 (one tensor dim over several mesh axes, the first major).
 `*_shardings` return `NamedSharding`s, whose placements on a real mesh
 come from `spec_to_placements`.
+
+What a rank computes with is the data axes' gather of its shard:
+`compute_spec` keeps the 'model' entry of the weights that the model
+code multiplies tensor-parallel (Megatron's column- and row-parallel
+products, the vocab-parallel embedding and unembedding) and drops every
+other entry; `shard_slices` gives this rank's slice of each dimension of
+a spec'd tensor (the vocabulary's, the sequence's and the rows' offsets
+included), so that the model code asks the rules and never recomputes
+them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 
 class P(tuple):
@@ -123,6 +132,75 @@ def param_spec(mesh, path: str, shape: Tuple[int, ...]) -> P:
         return choose(*[[None]] * len(shape))
     # norms, biases, scalars: replicated
     return P(*([None] * len(shape)))
+
+
+#: weights computed tensor-parallel when the rules put 'model' on this
+#: dimension (counted from the end): column-parallel projections and the
+#: vocab-parallel unembedding, row-parallel output projection, the
+#: vocab-parallel table; the dense MLP's under an "mlp" key (an MoE
+#: block's stacks keep their own expert paths)
+TP_DIMS = {"wq": -1, "wk": -1, "wv": -1, "unembed": -1, "wo": -2,
+           "table": -2}
+MLP_TP_DIMS = {"w_up": -1, "w_gate": -1, "w_down": -2}
+
+
+def tp_dim(path: str) -> Optional[int]:
+    """The dimension (counted from the end) on which the weight at `path`
+    is computed tensor-parallel when the rules put 'model' there, or
+    None (`TP_DIMS`, `MLP_TP_DIMS`)."""
+    names = path.split("/")
+    dims = MLP_TP_DIMS if names[-2:-1] == ["mlp"] else TP_DIMS
+    return dims.get(names[-1])
+
+
+def compute_spec(mesh, path: str, shape: Tuple[int, ...]) -> P:
+    """The spec of a parameter as a rank computes with it: 'model' on the
+    dimension `param_spec` gives it for a tensor-parallel weight, nothing
+    elsewhere (the data axes are gathered, and a weight sharded over
+    'model' on any other dimension, such as a stacked unit axis, is
+    gathered whole)."""
+    d = tp_dim(path)
+    spec = param_spec(mesh, path, shape)
+    keep = (d is not None and _axis_size(mesh, "model") > 1
+            and spec[len(shape) + d] == "model")
+    return P(*["model" if keep and i == len(shape) + d else None
+               for i in range(len(shape))])
+
+
+def _axes_of(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def shard_slices(mesh, spec: P, shape: Tuple[int, ...]) -> Tuple[slice, ...]:
+    """This rank's slice of each dimension of a `shape` tensor placed by
+    `spec` (an entry over several axes splits its dimension major axis
+    first, as the placements do).  `mesh` needs `.shape` and `.index`."""
+    out = []
+    for dim, n in enumerate(shape):
+        axes = _axes_of(spec[dim] if dim < len(spec) else None)
+        k, i = 1, 0
+        for a in axes:
+            k, i = k * mesh.shape[a], i * mesh.shape[a] + mesh.index(a)
+        out.append(slice(i * (n // k), (i + 1) * (n // k)))
+    return tuple(out)
+
+
+def slot_rows(mesh, x):
+    """This rank's rows of a (rows, ...) tensor under `batch_spec`: its
+    shard over the data axes, or every row when they do not divide."""
+    spec = batch_spec(mesh, tuple(x.shape))
+    return x if spec[0] is None else \
+        x[shard_slices(mesh, spec, tuple(x.shape))[0]]
+
+
+def tp_local(mesh, params: Any):
+    """Whole parameters (every rank the same) cut to what this rank
+    computes with: each weight's slice under `compute_spec`."""
+    return _map_named(lambda name, t: t[shard_slices(
+        mesh, compute_spec(mesh, name, tuple(t.shape)), tuple(t.shape))],
+        params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,7 +357,9 @@ def place(tree: Any, shardings: Any):
     (a tree of NamedShardings of the same structure): a DTensor is
     redistributed where its placements differ, a plain tensor, which
     every rank holds whole, is cut to this rank's shard (the
-    reference's `device_put` / `out_shardings`)."""
+    reference's `device_put` / `out_shardings`).  Where that shard is
+    the whole tensor (every axis the spec names holds one rank, as on a
+    one-rank mesh), the DTensor wraps the tensor itself: no copy."""
     from torch.distributed.tensor import DTensor, distribute_tensor
     if isinstance(tree, dict):
         return {k: place(v, shardings[k]) for k, v in tree.items()}
@@ -288,5 +368,10 @@ def place(tree: Any, shardings: Any):
         if tuple(tree.placements) == placements:
             return tree
         return tree.redistribute(tree.device_mesh, placements)
-    return distribute_tensor(tree, shardings.mesh.device_mesh, placements,
+    mesh = shardings.mesh
+    if all(_axis_size(mesh, e) == 1 for e in shardings.spec):
+        return DTensor.from_local(tree, mesh.device_mesh, placements,
+                                  run_check=False, shape=tree.shape,
+                                  stride=tree.stride())
+    return distribute_tensor(tree, mesh.device_mesh, placements,
                              src_data_rank=None)

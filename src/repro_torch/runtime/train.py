@@ -14,26 +14,30 @@ On a mesh (`make_train_step(..., mesh=...)`) the step computes what the
 reference's sharded `jit` computes, with the state's leaves DTensors
 placed by `runtime/sharding.py: state_shardings`:
 
-- each rank gathers the whole parameters (`redistribute` to
-  `Replicate`, differentiable) and runs its `batch_spec` shard of the
-  batch (its rows over the data axes; a batch those axes do not divide
-  raises, since the reference would shard the sequence, GSPMD's context
-  parallelism, which this slice does not port);
+- each rank gathers every parameter over the data axes (FSDP's gather,
+  `redistribute`, differentiable, whose adjoint is the reduce-scatter)
+  and keeps its 'model' shard of the weights that the model code
+  multiplies tensor-parallel (`sharding.compute_spec`: column- and
+  row-parallel projections, the vocab-parallel embedding, unembedding
+  and cross entropy); every other weight is gathered whole.  It runs its
+  `batch_spec` shard of the batch (its rows over the data axes; a batch
+  those axes do not divide raises, since the reference would shard the
+  sequence, GSPMD's context parallelism for training, which the port
+  does not have);
 - each rank's loss is scaled by 1 / (number of ranks), so that the
-  gradients' reduction back to the parameters' shards (the adjoint of
-  the gather, a reduce-scatter) gives the mean over the global batch;
+  gradients' reduction back to the parameters' shards gives the mean
+  over the global batch (`runtime/parallel.py`: the collectives'
+  adjoints are those of a sum of the ranks' losses);
 - the optimizer updates the shards (DTensor operations: the global
   gradient norm and Adafactor's means reduce across the shards), and
   the new state is placed by the same shardings (`out_shardings`);
 - with compression, each gradient is gathered whole and quantised as
   the reference quantises the global array.
 
-Not in this slice: GSPMD's tensor-parallel compute over 'model' for the
-dense layers.  Dense weights sharded on 'model' are gathered before use
-(so the step's collectives differ from GSPMD's for that axis); only the
-MoE experts compute sharded, through the reference's explicit paths
+The MoE experts compute through the reference's explicit paths
 (`models/moe.py`), which take the gathered stacks and use their own
-rank's experts.
+rank's experts; the Mamba2 mixer computes whole width on gathered
+projections.
 """
 
 from __future__ import annotations
@@ -44,12 +48,15 @@ from typing import Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..launch.mesh import get_abstract_mesh, use_mesh
 from ..models import build_model
 from ..optim.optimizers import OptimizerConfig, build_optimizer
 from ..tree import leaves, tree_map
 from .compression import CompressionConfig, compress_decompress
-from .parallel import axis_index, axis_size, psum
-from .sharding import batch_spec, place, state_shardings
+from .parallel import (axis_size, gather_model, model_slice, pmax, psum,
+                       psum_model)
+from .sharding import (_map_named, batch_spec, compute_spec, place,
+                       slot_rows, spec_to_placements, state_shardings)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,22 +72,42 @@ class TrainConfig:
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  z_loss_weight: float = 0.0, impl: str = "onehot"
+                  z_loss_weight: float = 0.0, impl: str = "onehot",
+                  vocab_size: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean CE over tokens (+z-loss). logits fp32 (B,S,V), labels (B,S).
 
-    impl="gather" picks each label's logit by index; impl="onehot"
-    compares a vocabulary iota with the label and sums the masked logits,
-    the reference's shard-local form.  Both give the same value."""
-    lse = torch.logsumexp(logits, dim=-1)
+    The logits may be this rank's 'model' shard of `vocab_size` entries
+    (the vocab-parallel unembedding).  impl="onehot", the reference's
+    shard-local form, compares the shard's vocabulary iota with the label
+    and sums the masked logits; the logsumexp is taken on the shard as
+    its maximum and sum of exponentials, combined over 'model' (the
+    maximum, then a sum), and the label's logit is summed over 'model'.
+    With the vocabulary whole the combines are skipped.  impl="gather"
+    picks each label's logit by index, from logits gathered whole over
+    'model' first (what GSPMD makes of the reference's
+    `take_along_axis`).  Both give the same value."""
     labels = labels.long()
+    V = logits.shape[-1]
+    cols = model_slice("unembed", logits.shape, vocab_size or V)
+    if cols is not None and impl == "gather":
+        logits, cols = gather_model(logits, -1), None
+    mesh = get_abstract_mesh()
+    top = logits.amax(dim=-1)
+    if cols is not None:
+        top = pmax(top, mesh, ("model",))
+    top = top.detach()
+    total = torch.exp(logits - top[..., None]).sum(dim=-1)
     if impl == "gather":
         ll = torch.gather(logits, -1, labels[..., None])[..., 0]
     else:
-        V = logits.shape[-1]
-        hit = (torch.arange(V, device=logits.device)
-               == labels[..., None])
+        start = 0 if cols is None else cols.start
+        hit = (torch.arange(start, start + logits.shape[-1],
+                            device=logits.device) == labels[..., None])
         ll = torch.sum(torch.where(hit, logits, 0.0), dim=-1)
+    if cols is not None:
+        total, ll = psum_model(total), psum_model(ll)
+    lse = top + torch.log(total)
     ce = (lse - ll).mean()
     zl = (lse ** 2).mean()
     return ce + z_loss_weight * zl, ce
@@ -93,7 +120,8 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, device="cuda"):
     def loss_fn(params, batch):
         logits, aux = model.apply(params, batch)
         loss, ce = cross_entropy(logits, batch["labels"],
-                                 tcfg.z_loss_weight, tcfg.loss_impl)
+                                 tcfg.z_loss_weight, tcfg.loss_impl,
+                                 cfg.vocab_size)
         total = loss + tcfg.aux_loss_weight * aux
         return total, {"ce": ce, "aux": aux}
 
@@ -152,37 +180,44 @@ def compute_grads(loss_fn, params, batch, microbatches: int = 1):
 
 def rank_rows(mesh, x: torch.Tensor) -> torch.Tensor:
     """This rank's rows of a global batch tensor under `batch_spec`."""
-    entry = batch_spec(mesh, tuple(x.shape))[0]
-    if entry is None:
-        data = [a for a in ("pod", "data") if a in mesh.shape]
-        if axis_size(mesh, data) > 1:
-            raise ValueError(
-                f"a batch of {x.shape[0]} rows does not divide over the "
-                f"data axes {mesh.shape}; the reference would shard its "
-                f"sequence (context parallelism), which the port does not")
-        return x
-    axes = entry if isinstance(entry, tuple) else (entry,)
-    n = axis_size(mesh, axes)
-    i = axis_index(mesh, axes)
-    return x[i * (x.shape[0] // n):(i + 1) * (x.shape[0] // n)]
+    data = [a for a in ("pod", "data") if a in mesh.shape]
+    if batch_spec(mesh, tuple(x.shape))[0] is None and \
+            axis_size(mesh, data) > 1:
+        raise ValueError(
+            f"a batch of {x.shape[0]} rows does not divide over the data "
+            f"axes {mesh.shape}; the reference would shard its sequence "
+            f"(context parallelism), which the port does not")
+    return slot_rows(mesh, x)
+
+
+def gather_params(params, mesh):
+    """What this rank computes with, from parameter DTensors: each one
+    gathered over the data axes (and whole over 'model' unless
+    `compute_spec` keeps its 'model' shard), differentiably: the
+    gradient goes back to the shards summed over the ranks that gathered
+    them.  Plain tensors pass as they are."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    def gather(name, p):
+        if not isinstance(p, DTensor):
+            return p
+        want = spec_to_placements(mesh, compute_spec(mesh, name,
+                                                     tuple(p.shape)))
+        grads = [Partial() if w == Replicate() else w for w in want]
+        return p.redistribute(p.device_mesh, want).to_local(
+            grad_placements=grads)
+
+    return _map_named(gather, params)
 
 
 def mesh_apply(fn, mesh):
-    """fn(params, batch) on a mesh: params DTensors gathered whole
-    (differentiably; plain tensors pass as they are), batch global, this
-    rank's rows taken (`rank_rows`)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-
-    def gather(p):
-        if not isinstance(p, DTensor):
-            return p
-        n = p.device_mesh.ndim
-        return p.redistribute(p.device_mesh, [Replicate()] * n).to_local(
-            grad_placements=[Partial()] * n)
-
+    """fn(params, batch) on a mesh, under `use_mesh(mesh)`: params
+    DTensors gathered for this rank's compute (`gather_params`), batch
+    global, this rank's rows taken (`rank_rows`)."""
     def apply(params, batch):
-        return fn(tree_map(gather, params),
-                  {k: rank_rows(mesh, v) for k, v in batch.items()})
+        with use_mesh(mesh):
+            return fn(gather_params(params, mesh),
+                      {k: rank_rows(mesh, v) for k, v in batch.items()})
 
     return apply
 

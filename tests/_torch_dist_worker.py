@@ -16,6 +16,12 @@ Cases:
   restored with the mesh's state shardings, then two AdamW steps from
   it, whose state is saved from the mesh and restored again; and two
   Adafactor steps with 2 microbatches from a fresh state.
+- tp (WORLD ranks): WORKDIR/tp_in.pt names the ("data", "model") mesh
+  and the runs, each with its params or the seed to draw them from
+  (`seeded_params`): train steps (two AdamW steps
+  of each config from its params), decode steps (a fed token a slot a
+  step: the next tokens and the whole logits) and `serve_loop` runs;
+  each on the mesh, tensor-parallel over 'model'.
 """
 
 import dataclasses
@@ -183,6 +189,102 @@ def case_train(workdir, device):
     return out
 
 
+def seeded_params(cfg, seed, device):
+    """The model's params drawn from a generator on `device` seeded
+    `seed`, in float32."""
+    from repro_torch.models import build_model
+    from repro_torch.tree import tree_map
+    params = build_model(cfg, remat=False, device=device).init(
+        torch.Generator(device).manual_seed(seed))
+    return tree_map(lambda t: t.float(), params)
+
+
+def case_tp(workdir, device):
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.optim.optimizers import OptimizerConfig, build_optimizer
+    from repro_torch.runtime.parallel import all_gather
+    from repro_torch.runtime.serve import (ServeConfig, gather_slots,
+                                           make_serve_fns, slot_rows)
+    from repro_torch.runtime.sharding import (params_shardings, place,
+                                              state_shardings)
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+    from repro_torch.tree import tree_map
+
+    spec = torch.load(workdir / "tp_in.pt", weights_only=False)
+    mesh = make_auto_mesh(spec["mesh"], ("data", "model"), device)
+
+    def dev(tree):
+        return tree_map(lambda t: t.to(device), tree)
+
+    def weights(run):
+        """The run's params, or float32 ones drawn on this device from
+        the seed it names."""
+        if not isinstance(run["params"], int):
+            return dev(run["params"])
+        return seeded_params(run["cfg"], run["params"], device)
+
+    out = {"train": {}, "decode": {}, "serve": {}}
+    for name, run in spec.get("train", {}).items():
+        ctx = ParallelContext(capacity_factor=run.get("capacity", 1.25))
+        with use_mesh(mesh), parallel_context(ctx):
+            opt = OptimizerConfig(**run["opt"])
+            step_fn, _ = make_train_step(run["cfg"], TrainConfig(
+                optimizer=opt, remat=False,
+                aux_loss_weight=run.get("aux", 0.01),
+                loss_impl=run.get("loss_impl", "onehot")), device, mesh=mesh)
+            params = weights(run)
+            state = {"params": params,
+                     "opt": build_optimizer(opt).init(params),
+                     "step": torch.zeros((), dtype=torch.int32,
+                                         device=device)}
+            state = place(state, state_shardings(mesh, state, "adamw"))
+            # every_step: rank 0's whole state after each step, in
+            # "states", and no other rank's (their whole states are the
+            # same gathers); else each rank's after the last, in "state"
+            every = run.get("every_step", False)
+            losses, states = [], []
+            for batch in run["batches"]:
+                state, m = step_fn(state, dev(batch))
+                losses.append(float(m["loss"]))
+                if every:
+                    whole = full(state)
+                    if dist.get_rank() == 0:
+                        states.append(tree_map(lambda t: t.cpu(), whole))
+                    del whole
+            res = {"losses": losses}
+            if every:
+                res["states"] = states
+            else:
+                res["state"] = tree_map(lambda t: t.cpu(), full(state))
+            out["train"][name] = res
+    for name, run in spec.get("decode", {}).items():
+        cfg, feed = run["cfg"], run["feed"].to(device)
+        with use_mesh(mesh), parallel_context(ParallelContext()):
+            _, step, init_cache = make_serve_fns(
+                cfg, ServeConfig(max_len=run["max_len"]), device, mesh)
+            params = weights(run)
+            placed = place(params, params_shardings(mesh, params))
+            cache = init_cache(feed.shape[0])
+            toks, logits = [], []
+            for pos in range(feed.shape[1]):
+                nxt, lg, cache = step(placed, cache,
+                                      slot_rows(mesh, feed[:, pos:pos + 1]),
+                                      pos)
+                if lg.shape[-1] != cfg.vocab_size:
+                    lg = all_gather(lg, mesh, ("model",), -1)
+                toks.append(gather_slots(mesh, nxt, feed.shape[0]).cpu())
+                logits.append(gather_slots(mesh, lg, feed.shape[0]).cpu())
+        out["decode"][name] = {"tokens": torch.cat(toks, 1),
+                               "logits": torch.cat(logits, 1)}
+    for name, run in spec.get("serve", {}).items():
+        res, _ = serve_loop(weights(run), run["cfg"],
+                            ServeConfig(max_len=run["max_len"]),
+                            [list(r) for r in run["queue"]], run["slots"],
+                            run["max_new"], device, mesh)
+        out["serve"][name] = res
+    return out
+
+
 def main():
     case, rank, world, workdir = sys.argv[1:]
     rank, world, workdir = int(rank), int(world), pathlib.Path(workdir)
@@ -198,7 +300,8 @@ def main():
         store=dist.FileStore(str(workdir / "store"), world),
         rank=rank, world_size=world, **kwargs)
     try:
-        out = {"moe": case_moe, "train": case_train}[case](workdir, device)
+        out = {"moe": case_moe, "train": case_train,
+               "tp": case_tp}[case](workdir, device)
         torch.save(out, workdir / f"out_{rank}.pt")
     finally:
         dist.destroy_process_group()

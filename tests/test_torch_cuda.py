@@ -582,3 +582,196 @@ def test_parallel_moe_paths_across_four_cards_match_gloo(tmp_path):
     y_drop = moe_results(runs["cuda"], "ep_1.25")[0]
     y_all = moe_results(runs["cuda"], "ep_8.0")[0]
     assert np.abs(y_drop - y_all).max() > 1e-2
+
+
+#: first moments within this fraction of each leaf's largest
+#: (`chip_smoke.py` phase 5's bound); second moments within twice it, as
+#: nu is quadratic in the gradient: (1 - b2) 2 g dg against (1 - b2) g_max^2
+MU_RTOL = 1e-4
+NU_RTOL = 2e-4
+SETTLED_ATOL = 1e-6
+
+
+def _adam_reach(opt, t):
+    """The largest |m_hat| / sqrt(v_hat) AdamW's step t (from 1) can take
+    (Cauchy-Schwarz over the moments' weights: 1 at the first step)."""
+    a = [(1 - opt.b1) * opt.b1 ** (t - i) for i in range(1, t + 1)]
+    c = [(1 - opt.b2) * opt.b2 ** (t - i) for i in range(1, t + 1)]
+    return (sum(x * x / y for x, y in zip(a, c)) * (1 - opt.b2 ** t)) \
+        ** 0.5 / (1 - opt.b1 ** t)
+
+
+def _update_spread(opt, t, mu, nu):
+    """How far AdamW's step-t update u = m_hat / (sqrt(v_hat) + eps) of
+    each element can move while its moments stay within MU_RTOL and
+    NU_RTOL of the leaf's largest of `mu` and `nu` (u is monotone in
+    each; clamped to the reach of `_adam_reach`)."""
+    bc1, bc2 = 1 - opt.b1 ** t, 1 - opt.b2 ** t
+    dm = MU_RTOL * float(mu.abs().max())
+    dv = NU_RTOL * float(nu.abs().max())
+
+    def u(m, v):
+        return (m / bc1) / (torch.sqrt(v.clamp(min=0) / bc2) + opt.eps)
+
+    hi_m, lo_m = mu + dm, mu - dm
+    hi = torch.where(hi_m >= 0, u(hi_m, nu - dv), u(hi_m, nu + dv))
+    lo = torch.where(lo_m < 0, u(lo_m, nu - dv), u(lo_m, nu + dv))
+    reach = _adam_reach(opt, t)
+    mid = u(mu, nu)
+    return torch.maximum(hi.clamp(max=reach) - mid,
+                         mid - lo.clamp(min=-reach))
+
+
+def _states_close(got, want, opt, where, readings):
+    """Full-width float32 states on a mesh, after each step, against the
+    meshless ones.  Every optimizer leaf within MU_RTOL (mu) or NU_RTOL
+    (nu) of its largest.  Params within what those moment errors let
+    AdamW's updates move them: per element the sum over steps of lr x
+    `_update_spread` (with weight decay's share of the earlier error),
+    plus 2^-22 of the leaf's largest for float32 rounding; except that
+    the first step moves a weight whose first moment is clear of zero by
+    twice MU_RTOL of the largest by lr x sign(g) on both sides, so there
+    it counts SETTLED_ATOL (`chip_smoke.py` phase 5's bound).  Appends
+    each leaf's readings to `readings`."""
+    from repro_torch.optim.optimizers import cosine_lr
+    from repro_torch.tree import named_leaves
+    assert len(got) == len(want)
+    bound = {}
+    for t, (g_state, w_state) in enumerate(zip(got, want), start=1):
+        w_state = {"/".join(p): v.cpu() for p, v in named_leaves(w_state)}
+        assert g_state.keys() == w_state.keys()
+        lr = float(cosine_lr(opt, torch.tensor(t - 1)))
+        for name, w in w_state.items():
+            if not name.startswith("params/"):
+                continue
+            leaf = name[len("params/"):]
+            mu, nu = w_state["opt/mu/" + leaf], w_state["opt/nu/" + leaf]
+            decay = opt.weight_decay if w.ndim >= 2 else 0.0
+            step_bound = lr * _update_spread(opt, t, mu, nu)
+            if t == 1:
+                settled = mu.abs() > 2 * MU_RTOL * mu.abs().max()
+                step_bound = torch.where(settled, SETTLED_ATOL, step_bound)
+            bound[leaf] = bound.get(leaf, 0.0) * abs(1 - lr * decay) + \
+                step_bound
+        for name, w in w_state.items():
+            g = g_state[name]
+            d = (g - w).abs()
+            if name == "step":
+                assert torch.equal(g, w), f"{where} step {t}"
+                continue
+            top = max(float(w.abs().max()), 1e-30)
+            if name.startswith("opt/"):
+                rtol = MU_RTOL if name.startswith("opt/mu/") else NU_RTOL
+                err = float(d.max()) / top
+                readings.append(dict(where=where, step=t, leaf=name,
+                                     err_of_largest=err))
+                assert err <= rtol, \
+                    f"{where} step {t} {name}: {err:.3g} of the largest"
+                continue
+            leaf = name[len("params/"):]
+            mu = w_state["opt/mu/" + leaf].abs()
+            allowed = bound[leaf] + 2.0 ** -22 * top
+            worst = int(torch.argmax(d / allowed))
+            old_mask = mu > 1e-3 * mu.max()
+            old_fail = old_mask & (d > 1e-4)
+            readings.append(dict(
+                where=where, step=t, leaf=name, max_err=float(d.max()),
+                worst_share_of_bound=float(d.flatten()[worst]
+                                           / allowed.flatten()[worst]),
+                mu_at_max_err_of_largest=float(
+                    mu.flatten()[int(torch.argmax(d))] / mu.max()),
+                old_check_failures=int(old_fail.sum()),
+                old_check_failing_mu_of_largest=(
+                    [float(mu[old_fail].min() / mu.max()),
+                     float(mu[old_fail].max() / mu.max())]
+                    if old_fail.any() else None)))
+            assert bool((d <= allowed).all()), \
+                f"{where} step {t} {name}: {float(d.flatten()[worst]):.3g} " \
+                f"against {float(allowed.flatten()[worst]):.3g}"
+
+
+def test_tensor_parallel_full_width_smollm_across_four_cards(tmp_path):
+    """Full-width smollm-360m in float32 (TF32 off) on four cards, one
+    NCCL rank each: two AdamW train steps (4 x 256 tokens each) on (1, 4)
+    and (2, 2) meshes equal the meshless steps on one card (losses 1e-5
+    relative; rank 0's whole state after each step as `_states_close`),
+    and on (2, 2) `serve_loop` (4 requests on 4 slots) gives the meshless
+    loop's tokens.  At full width 15 heads do not divide 'model', so the
+    projections are gathered and every rank attends with every head; the
+    vocabulary (49152) is vocab-parallel.  Prints each leaf's readings,
+    one JSON line each (run with -s).  Skips on fewer than four cards
+    (run it with four)."""
+    import dataclasses
+    import json
+
+    from _torch_dist import finish, start_ranks
+    from _torch_dist_worker import seeded_params
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.launch.serve import make_requests, serve_loop
+    from repro_torch.optim.optimizers import (OptimizerConfig,
+                                              build_optimizer)
+    from repro_torch.runtime.serve import ServeConfig
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+    from repro_torch.tree import named_leaves, tree_map
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards (one NCCL rank each)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["smollm-360m"]
+    opt = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+    batches = [{k: torch.from_numpy(v) for k, v in batch_for_model(
+        cfg, DataConfig(seq_len=256, global_batch=4,
+                        vocab_size=cfg.vocab_size), i).items()}
+        for i in (0, 1)]
+    train = {"smollm": {"cfg": cfg, "opt": opt, "batches": batches,
+                        "params": 0, "every_step": True}}
+    serve = {"smollm": {"cfg": cfg, "params": 1, "slots": 4, "max_new": 6,
+                        "max_len": 32,
+                        "queue": make_requests(4, cfg.vocab_size)}}
+    got = {}
+    for shape in ((1, 4), (2, 2)):
+        work = tmp_path / f"{shape[0]}x{shape[1]}"
+        work.mkdir()
+        spec = {"mesh": shape, "train": train}
+        if shape == (2, 2):
+            spec["serve"] = serve
+        torch.save(spec, work / "tp_in.pt")
+        got[shape] = finish(start_ranks("tp", 4, work, "cuda"), 600)
+    dev = torch.device("cuda")
+    params = seeded_params(cfg, 0, dev)
+    old = {"/".join(p): t.cpu() for p, t in named_leaves(params)}
+    ocfg = OptimizerConfig(**opt)
+    step, _ = make_train_step(cfg, TrainConfig(optimizer=ocfg, remat=False),
+                              dev)
+    state = {"params": params, "opt": build_optimizer(ocfg).init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    losses, states = [], []
+    for b in batches:
+        state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        states.append(tree_map(lambda t: t.cpu(), state))
+    del state, params
+    run = serve["smollm"]
+    want_tokens, _ = serve_loop(seeded_params(cfg, 1, dev), cfg,
+                                ServeConfig(max_len=run["max_len"]),
+                                [list(q) for q in run["queue"]],
+                                run["slots"], run["max_new"], dev)
+    for rank in got[(2, 2)]:
+        assert rank["serve"]["smollm"] == want_tokens
+    readings = []
+    try:
+        for shape, ranks in got.items():
+            for r, rank in enumerate(ranks):
+                res = rank["train"]["smollm"]
+                np.testing.assert_allclose(res["losses"], losses, rtol=1e-5)
+                assert len(res["states"]) == (2 if r == 0 else 0)
+            _states_close(ranks[0]["train"]["smollm"]["states"], states,
+                          ocfg, f"{shape}", readings)
+    finally:
+        for line in readings:
+            print("readings:", json.dumps(line))
+    last = {"/".join(p): t for p, t in named_leaves(states[-1])}
+    assert any(not torch.equal(last[f"params/{n}"], t)
+               for n, t in old.items())
+    assert dataclasses.asdict(cfg)["n_heads"] % 4      # heads split

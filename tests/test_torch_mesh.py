@@ -14,9 +14,9 @@ from repro.runtime.parallel import ParallelContext as JContext
 from repro_torch.launch.mesh import (get_abstract_mesh, init_process_group,
                                      make_host_mesh, make_production_mesh,
                                      use_mesh)
-from repro_torch.launch.serve import serve_loop
 from repro_torch.runtime.parallel import (ParallelContext, get_context,
                                           parallel_context, shard_batch)
+from repro_torch.runtime.serve import slot_rows
 
 from _torch_dist import local_group
 
@@ -99,11 +99,25 @@ def test_shard_batch_pins_a_dtensor_to_the_data_axes():
 
 
 class _Mesh:
-    def __init__(self, **shape):
+    def __init__(self, index=0, **shape):
         self.shape = shape
+        self._index = index
+
+    def index(self, axis):
+        return self._index if axis == "data" else 0
 
 
 def test_serve_loop_refuses_a_mesh_that_shards_the_slots():
-    with pytest.raises(ValueError, match="data axes"):
-        serve_loop({}, None, None, [[1]], 4, 2, "cpu",
-                   _Mesh(data=2, model=4))
+    """The name is kept from when the loop refused a mesh whose data axes
+    shard the slots.  The refusal is gone: the launcher has no
+    `check_slots_unsharded`, and feeds each rank through `slot_rows`, its
+    rows of the slots over the data axes, or every slot when they do not
+    divide (`test_torch_tensor_parallel.py` serves on four ranks)."""
+    import repro_torch.launch.serve as launcher
+    assert not hasattr(launcher, "check_slots_unsharded")
+    assert launcher.slot_rows is slot_rows
+    feed = torch.arange(8)[:, None]
+    assert slot_rows(_Mesh(index=1, data=2, model=4), feed).flatten(
+        ).tolist() == [4, 5, 6, 7]
+    assert torch.equal(slot_rows(_Mesh(index=1, data=2, model=4),
+                                 feed[:3]), feed[:3])
