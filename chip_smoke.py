@@ -98,7 +98,22 @@ Phases, each of which fails the run (exit code 1, no result line):
    a full-width 4 x 1024 cache, `combine_partials`) held to the
    whole-cache decode attention in float32 and bf16 and timed beside
    it, and `decode_attention`'s split branch on the mesh (its partials
-   gathered over 'model' by NCCL) held to its whole-cache branch.
+   gathered over 'model' by NCCL) held to its whole-cache branch; each
+   path's `torch.cuda.max_memory_allocated` over what it found allocated
+   printed beside the meshless path's (the train step and the serve
+   loop run through the per-unit
+   gather: each unit's weights gathered inside the remat boundary);
+9. the per-unit gather through the mesh on the host mesh, each unit's
+   shard the whole unit: mixtral-8x22b at published widths, depth 56 ->
+   4, under the launcher's context (the expert stacks at the
+   expert-parallel path's shard): prefill 4 x 1024 and 8 greedy decode
+   steps; zamba2-2.7b's prefill 2 x 1024 (super-units gathered one at a
+   time, the mixers' projections at their 'model' shard): each through
+   `make_serve_fns(..., mesh=)` on the placed weights against the
+   meshless functions on the same weights under the same mesh and
+   context, logits and tokens bit-equal, the kernels' launches equal
+   (zamba2's SSD launched, mixtral's expert-parallel block a layer),
+   and `max_memory_allocated` of each beside the other.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
@@ -2078,15 +2093,22 @@ def phase_tensor_parallel(torch, dev, train_count):
         mesh_step(placed, batch)                   # warm
         torch.cuda.synchronize()
         reset()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         new, m = mesh_step(placed, batch)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
+        # the step's own draw: its peak over what was allocated before it
+        step_peak = torch.cuda.max_memory_allocated() - held
         train_counts = read()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     want, wm = plain_step(state0, batch)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_peak = torch.cuda.max_memory_allocated() - held
     check(train_counts == per_step,
           f"{arch} step on the mesh launched {train_counts} (expected "
           f"{per_step})")
@@ -2096,7 +2118,9 @@ def phase_tensor_parallel(torch, dev, train_count):
           f"{arch} one step through the mesh's train step on "
           f"{mesh.shape}: loss {float(m['loss'])} vs meshless "
           f"{float(wm['loss'])}, {differ} weights differ (bit-equal); "
-          f"{step_ms:.2f} ms vs meshless {plain_ms:.2f} ms")
+          f"{step_ms:.2f} ms vs meshless {plain_ms:.2f} ms; "
+          f"max_memory_allocated over what each found allocated "
+          f"{step_peak} B vs meshless {plain_peak} B")
     del new, want, placed
     # FlopCounterMode around a real plain-route step on the mesh
     rl, _ = train_count
@@ -2119,13 +2143,18 @@ def phase_tensor_parallel(torch, dev, train_count):
         torch.Generator(device=dev).manual_seed(0))
     scfg = ServeConfig(max_len=96)
     runs = {}
+    serve_peak = {}
     for name, on in (("meshless", None), ("mesh", mesh), ("mesh ", mesh),
                      ("meshless ", None)):
         reset()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         res, st = serve_loop(params, cfg, scfg, make_requests(8,
                                                               cfg.vocab_size),
                              4, 8, dev, on)
         torch.cuda.synchronize()
+        serve_peak.setdefault(name.strip(), []).append(
+            torch.cuda.max_memory_allocated() - held)
         runs.setdefault(name.strip(), []).append((res, st, read()))
     (res_m, st_m, serve_counts), (res_p, st_p, plain_counts) = \
         runs["mesh"][0], runs["meshless"][0]
@@ -2140,7 +2169,9 @@ def phase_tensor_parallel(torch, dev, train_count):
           f"tokens/s {[round(r[1]['tok_per_s'], 2) for r in runs['mesh']]} "
           f"vs meshless "
           f"{[round(r[1]['tok_per_s'], 2) for r in runs['meshless']]} "
-          f"(in turns)")
+          f"(in turns); max_memory_allocated over what each found "
+          f"allocated {serve_peak['mesh']} B vs meshless "
+          f"{serve_peak['meshless']} B")
     del params
 
     # 8c: the sequence-split decode combine at full width
@@ -2196,6 +2227,10 @@ def phase_tensor_parallel(torch, dev, train_count):
     print(f"  {arch} phase 8: {phase_s:.1f} s; split combine "
           f"{split} ms (CUDA events, 20 calls)", flush=True)
     metrics = {"step_ms": step_ms, "meshless_step_ms": plain_ms,
+               "step_max_memory_allocated": step_peak,
+               "meshless_step_max_memory_allocated": plain_peak,
+               "serve_max_memory_allocated": serve_peak["mesh"],
+               "meshless_serve_max_memory_allocated": serve_peak["meshless"],
                "train_flops_card": real_flops,
                "serve_tok_per_s": [r[1]["tok_per_s"] for r in runs["mesh"]],
                "meshless_serve_tok_per_s": [r[1]["tok_per_s"]
@@ -2205,6 +2240,108 @@ def phase_tensor_parallel(torch, dev, train_count):
     return metrics, {f"{arch}-tp-train": train_counts,
                      f"{arch}-tp-serve": {k: serve_counts[k]
                                           for k in wrappers}}
+
+
+def phase_unit_gather(torch, dev):
+    """9: the per-unit gather through the mesh, on the 1-rank host mesh
+    (every unit's shard is the whole unit: the gathers wrap without a
+    copy): mixtral-8x22b at published widths, 4 layers, under the
+    launcher's context (the expert stacks taken at the expert-parallel
+    path's shard), and zamba2-2.7b's prefill (the hybrid's super-units,
+    the mixers' projections), each against the meshless functions on
+    the same weights, bit for bit."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.launch.mesh import make_host_mesh, use_mesh
+    from repro_torch.models import build_model, moe
+    from repro_torch.runtime.parallel import ParallelContext, parallel_context
+    from repro_torch.runtime.serve import ServeConfig, make_serve_fns
+    from repro_torch.runtime.sharding import params_shardings, place
+
+    print("phase 9: the per-unit gather through the mesh (mixtral-8x22b "
+          "under the launcher's context, zamba2-2.7b's prefill)", flush=True)
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh("cuda")
+    wrappers = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+                "ssd": ssd}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    metrics, counts = {}, {}
+    for arch, layers, batch, steps in (("mixtral-8x22b", 4, 4, 8),
+                                       ("zamba2-2.7b", None, 2, 0)):
+        cfg = ARCHS[arch]
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers, unit=())
+        params = build_model(cfg, remat=False, device=dev).init(
+            torch.Generator(device=dev).manual_seed(0))
+        tokens = torch.randint(0, cfg.vocab_size, (batch, 1024), device=dev,
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(1))
+        scfg = ServeConfig(max_len=1024 + steps + 1)
+        plain_fns = make_serve_fns(cfg, scfg, dev)
+        mesh_fns = make_serve_fns(cfg, scfg, dev, mesh)
+        ctx = ParallelContext()
+        out = {}
+        for name, (prefill, decode, init_cache) in (("mesh", mesh_fns),
+                                                    ("meshless", plain_fns)):
+            with use_mesh(mesh), parallel_context(ctx):
+                p = place(params, params_shardings(mesh, params)) \
+                    if name == "mesh" else params
+                reset()
+                moe.moe_block_expert_parallel.calls = 0
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                logits = prefill(p, {"tokens": tokens})
+                torch.cuda.synchronize()
+                launched = read()
+                toks = [torch.argmax(logits, dim=-1)]
+                if steps:
+                    cache = init_cache(batch, scfg.max_len)
+                    for pos in range(steps):
+                        nxt, _, cache = decode(p, cache, toks[-1][:, None]
+                                               .to(torch.int32), pos)
+                        toks.append(nxt[:, 0])
+                torch.cuda.synchronize()
+            out[name] = (logits, torch.stack(toks, 1), launched,
+                         torch.cuda.max_memory_allocated() - held,
+                         moe.moe_block_expert_parallel.calls)
+            del p
+        (lg_m, tk_m, n_m, peak_m, ep_m), (lg_p, tk_p, n_p, peak_p, ep_p) = \
+            out["mesh"], out["meshless"]
+        check(torch.equal(lg_m, lg_p) and torch.equal(tk_m, tk_p),
+              f"{arch} through the mesh's per-unit gather on {mesh.shape}: "
+              f"prefill logits bit-equal to the meshless functions' "
+              f"({int((lg_m != lg_p).sum())} differ), tokens "
+              f"{tk_m.shape} equal ({bool(torch.equal(tk_m, tk_p))})")
+        check(n_m == n_p and n_m["rmsnorm"] > 0 and
+              (n_m["ssd"] > 0 if cfg.ssm_state else
+               n_m["flash_attention"] > 0) and
+              (ep_m == ep_p >= cfg.n_layers if cfg.n_experts else True),
+              f"{arch} prefill launches through the mesh {n_m} (meshless "
+              f"{n_p}); expert-parallel calls {ep_m} (meshless {ep_p})")
+        print(f"  {arch}: max_memory_allocated over what each found "
+              f"allocated: through the mesh {peak_m} B, meshless {peak_p} B",
+              flush=True)
+        metrics[arch] = {"max_memory_allocated": peak_m,
+                         "meshless_max_memory_allocated": peak_p,
+                         "prefill_launches": n_m,
+                         "expert_parallel_calls": ep_m}
+        counts[f"{arch}-unit-gather"] = n_m
+        del params, tokens, out, lg_m, lg_p
+        torch.cuda.empty_cache()
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    print(f"  phase 9: {metrics['phase_s']:.1f} s", flush=True)
+    return metrics, counts
 
 
 def main():
@@ -2254,6 +2391,8 @@ def main():
     metrics["smollm-360m-tp"], tp_counts = phase_tensor_parallel(
         torch, dev, train_count)
     counts.update(tp_counts)
+    metrics["unit-gather"], gather_counts = phase_unit_gather(torch, dev)
+    counts.update(gather_counts)
 
     for name, entry in kernels.items():
         by_path = {arch: c[name] for arch, c in counts.items()}
@@ -2268,8 +2407,10 @@ def main():
         m["flash_attention_tc_launches"] for m in serve) + sum(
         counts[path]["flash_attention"] for path in (
             "smollm-360m-train", "mixtral-8x22b-mesh",
-            "smollm-360m-train-mesh", "smollm-360m-tp-train"))
-    kernels["ssd"]["tc_launches"] = sum(m["ssd_tc_launches"] for m in serve)
+            "smollm-360m-train-mesh", "smollm-360m-tp-train",
+            "mixtral-8x22b-unit-gather", "zamba2-2.7b-unit-gather"))
+    kernels["ssd"]["tc_launches"] = sum(m["ssd_tc_launches"] for m in serve) \
+        + counts["zamba2-2.7b-unit-gather"]["ssd"]
     metrics.update(card=card, build_s=build_s, process_group=backend)
     print(json.dumps({"metrics": metrics}))
     print(card)

@@ -14,7 +14,8 @@ allocated at any width.  For each cell this:
      the sharded train step (`make_train_step(..., mesh=)`), the
      sharded prefill or one sharded serving decode step
      (`make_serve_fns(..., mesh=)`: the weights gathered over the data
-     axes, each rank computing tensor-parallel on its 'model' shards,
+     axes one unit at a time, each rank computing tensor-parallel on its
+     'model' shards,
      the decode cache placed by `cache_shardings` and this rank's rows
      of the slots),
   4. records the FLOPs, bytes, collectives by op and memory of rank 0,
@@ -59,8 +60,7 @@ from ..optim.optimizers import OptimizerConfig
 from ..runtime.parallel import ParallelContext, parallel_context
 from ..runtime.serve import (ServeConfig, cache_views, make_serve_fns,
                              slot_rows)
-from ..runtime.sharding import (params_shardings, place, state_shardings,
-                                tp_local)
+from ..runtime.sharding import params_shardings, place, state_shardings
 from ..runtime.train import TrainConfig, make_train_step, rank_rows
 from . import roofline as RL
 from .mesh import make_auto_mesh, use_mesh
@@ -132,8 +132,8 @@ def count_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         rows = _rows_bytes(mesh, batch)
         n_rows = rank_rows(mesh, batch["labels"]).shape[0]
         units = train_unit_programs(
-            cfg, {"params": tp_local(mesh, state["params"])}, n_rows,
-            shape.seq_len, attention_impl, remat=tcfg.remat)
+            cfg, {"params": placed["params"]}, n_rows, shape.seq_len,
+            attention_impl, remat=tcfg.remat)
     rl, ex = RL.count(step_fn, placed, batch)
     memory = {"argument_size_in_bytes": RL.local_bytes(placed) + rows,
               "output_size_in_bytes": ex.output_bytes,
@@ -157,8 +157,8 @@ def count_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         batch = input_specs(cfg, shape)
         rows = _rows_bytes(mesh, batch)
         n_rows = rank_rows(mesh, next(iter(batch.values()))).shape[0]
-        units = train_unit_programs(cfg, {"params": tp_local(mesh, params)},
-                                    n_rows, shape.seq_len, attention_impl,
+        units = train_unit_programs(cfg, {"params": placed}, n_rows,
+                                    shape.seq_len, attention_impl,
                                     grad=False)
     rl, ex = RL.count(prefill, placed, batch)
     memory = {"argument_size_in_bytes": RL.local_bytes(placed) + rows,
@@ -187,8 +187,8 @@ def count_decode_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                                             dtype=torch.int32))
         with use_mesh(mesh):
             views, _ = cache_views(mesh, cache)
-        units = decode_unit_programs(cfg, tp_local(mesh, params), views,
-                                     token.shape[0], attention_impl)
+            units = decode_unit_programs(cfg, placed, views,
+                                         token.shape[0], attention_impl)
     args = (placed, cache, token, shape.seq_len - 1)
     rl, ex = RL.count(decode_step, *args)
     memory = {"argument_size_in_bytes": RL.local_bytes(args),

@@ -74,7 +74,10 @@ _RING_FACTOR = {
 }
 
 # c10d operation (functional or in place) -> the reference's HLO op name
+# (HLO has no broadcast: one rank's tensor sent to the others is a
+# collective-permute fan-out there)
 _COLLECTIVE_NAMES = (
+    ("broadcast", "collective-permute"),
     ("reduce_scatter", "reduce-scatter"),
     ("allgather", "all-gather"), ("all_gather", "all-gather"),
     ("allreduce", "all-reduce"), ("all_reduce", "all-reduce"),
@@ -193,9 +196,13 @@ def flop_counter() -> "torch.utils.flop_counter.FlopCounterMode":
 
 
 def _tensors(tree):
-    """The tensors in a nested dict / list / tuple, in order."""
+    """The tensors in a nested dict / list / tuple, in order (a unit's
+    `UnitShard`: its shard)."""
+    from ..runtime.parallel import UnitShard
     if isinstance(tree, torch.Tensor):
         yield tree
+    elif isinstance(tree, UnitShard):
+        yield tree.local
     elif isinstance(tree, dict):
         for v in tree.values():
             yield from _tensors(v)
@@ -277,6 +284,22 @@ def _fake_mode_of(tree):
     return None
 
 
+@contextlib.contextmanager
+def _propagation_apart():
+    """DTensor's sharding propagation runs each new op on whole-shape fake
+    tensors, under the active fake mode when there is one; MemTracker
+    would count those as the rank's memory (its step's peak read as the
+    whole model's state).  In the body propagation takes a fake mode of
+    its own, which MemTracker leaves out."""
+    import torch.distributed.tensor._sharding_prop as prop
+    detect = prop.detect_fake_mode
+    prop.detect_fake_mode = lambda *a, **k: None
+    try:
+        yield
+    finally:
+        prop.detect_fake_mode = detect
+
+
 def count(fn, *args, **kwargs) -> Tuple[Roofline, Extras]:
     """Run `fn(*args, **kwargs)` once under fake tensors and count it.
 
@@ -289,7 +312,7 @@ def count(fn, *args, **kwargs) -> Tuple[Roofline, Extras]:
     mode = _fake_mode_of((args, kwargs)) or FakeTensorMode()
     flops, rec, mem = flop_counter(), _Recorder(), MemTracker()
     mem.track_external(*_tensors((args, kwargs)))
-    with mode, flops, rec, mem:
+    with mode, flops, rec, mem, _propagation_apart():
         out = fn(*args, **kwargs)
     peak = sum(v["Total"] for v in mem.get_tracker_snapshot("peak").values())
     roofline = Roofline(float(flops.get_total_flops()), float(rec.op_bytes),

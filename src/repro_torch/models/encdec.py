@@ -26,14 +26,12 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
-
 from ..configs.base import ModelConfig
 from .attention import (_project_qkv, attention, attention_init,
                         decode_attention, init_kv_cache)
 from .layers import (embed, embedding_init, mlp, mlp_init, rmsnorm,
                      rmsnorm_init, unembed)
-from .transformer import _stack, _stacked_zeros, _unbind, _unit
+from .transformer import _stack, _stacked_zeros, _unit, outside, run_units
 
 Params = Dict[str, Any]
 
@@ -67,12 +65,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _run_units(unit_fn, x, stacked, n, remat):
-    for p in _unbind(stacked, n):
-        if remat and torch.is_grad_enabled():
-            x = checkpoint(unit_fn, x, p, use_reentrant=False)
-        else:
-            x = unit_fn(x, p)
+#: the stacked unit trees, gathered one unit at a time (`run_units`)
+STACKS = ("enc_units", "dec_units")
+
+
+def _run_units(unit_fn, x, stacked, n, prefix, remat):
+    x, _ = run_units(lambda x, p: (unit_fn(x, p), 0.0), x, stacked, n,
+                     prefix, remat)
     return x
 
 
@@ -122,13 +121,15 @@ def _dec_step(p: Params, self_cache, cross_cache, x, cfg: ModelConfig,
 def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig,
            impl: str = "auto", remat: bool = True) -> torch.Tensor:
     """src_embeds: (B, S_src, d) -> encoder states (B, S_src, d)."""
+    params = outside(params, STACKS)
     x = src_embeds.to(torch.bfloat16)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
 
     def unit(x, p):
         return _enc_unit(p, x, cfg, positions, impl)
 
-    x = _run_units(unit, x, params["enc_units"], cfg.n_encoder_layers, remat)
+    x = _run_units(unit, x, params["enc_units"], cfg.n_encoder_layers,
+                   "enc_units", remat)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps, impl)
 
 
@@ -138,6 +139,7 @@ def forward(params: Params, src_embeds: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward. Returns (logits fp32 (B, S, V), aux=0)."""
     from ..runtime.parallel import shard_batch
+    params = outside(params, STACKS)
     enc = shard_batch(encode(params, src_embeds, cfg, impl, remat))
     x = embed(params["embed"], dec_tokens, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
@@ -146,7 +148,8 @@ def forward(params: Params, src_embeds: torch.Tensor,
     def unit(x, p):
         return _dec_unit(p, x, enc, cfg, positions, enc_pos, impl)
 
-    x = _run_units(unit, x, params["dec_units"], cfg.n_layers, remat)
+    x = _run_units(unit, x, params["dec_units"], cfg.n_layers, "dec_units",
+                   remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params["embed"], x, cfg), aux
@@ -171,10 +174,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, src_len: int,
 def prefill_cross(params: Params, src_embeds: torch.Tensor,
                   cfg: ModelConfig, cache: Params,
                   impl: str = "auto") -> Params:
-    """Run the encoder once and store each decoder layer's cross K/V."""
+    """Run the encoder once and store each decoder layer's cross K/V (on
+    a mesh, each layer's cross-attention weights gathered as it is
+    reached)."""
+    from ..runtime.parallel import gather_unit, unit_shards
+    params = outside(params, STACKS)
     enc = encode(params, src_embeds, cfg, impl)
-    ks, vs = zip(*(_rope_kv_cross(p["cross_attn"], enc, cfg)
-                   for p in _unbind(params["dec_units"], cfg.n_layers)))
+    ks, vs = zip(*(_rope_kv_cross(gather_unit(s["cross_attn"]), enc, cfg)
+                   for s in unit_shards(params["dec_units"], cfg.n_layers,
+                                        "dec_units")))
     cross = {"k": torch.stack(ks).to(torch.bfloat16),
              "v": torch.stack(vs).to(torch.bfloat16)}
     return {"self": cache["self"], "cross": cross}
@@ -185,10 +193,14 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Params]:
     """token: (B, 1) int; pos: int position.  Returns (logits (B, 1, V)
     fp32, cache); the self-attention caches are updated in place, as in
-    `transformer.decode_step`, and the cross caches only read."""
+    `transformer.decode_step`, and the cross caches only read; on a mesh
+    each layer's params are gathered as the step reaches it."""
+    from ..runtime.parallel import gather_unit, unit_shards
+    params = outside(params, STACKS)
     x = embed(params["embed"], token, cfg)
-    for u in range(cfg.n_layers):
-        x = _dec_step(_unit(params["dec_units"], u), _unit(cache["self"], u),
+    for u, shards in enumerate(unit_shards(params["dec_units"], cfg.n_layers,
+                                           "dec_units")):
+        x = _dec_step(gather_unit(shards), _unit(cache["self"], u),
                       _unit(cache["cross"], u), x, cfg, pos, impl)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
     return unembed(params["embed"], x, cfg), cache

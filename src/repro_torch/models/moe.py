@@ -23,12 +23,19 @@ the dropless `moe_block_gspmd`.  The reference runs the parallel paths
 in `shard_map`; here every rank runs them with the collectives of
 `runtime/parallel.py`.  On a mesh, x is this rank's rows of the global
 batch: its shard over ("pod", *data_axes), the whole batch when those
-axes have one rank.  The expert weights are the whole stacks (each rank
-takes its own slice) or DTensors gathered whole before the block; the
-attention beside the block computes tensor-parallel over 'model'
-(`models/attention.py`), and the router is replicated.  Their
-bucketed products (`_grouped_ffn`) are batched matmuls over (E, cap, d),
-as the reference's einsums are, outside any Pallas kernel.
+axes have one rank.  The expert stacks reach the block as the unit's
+shards (`parallel.UnitShard`) and are gathered over the data axes at
+the shard the path computes with, as the reference's `shard_map`s take
+them: the expert-parallel path its E / n_e experts, the TP-ff path its
+slice of the hidden dim (`sharding.compute_spec(..., moe=path)`).  The
+dropless path takes the stacks as placed, experts on 'model' and d on
+the data axes, and sums the partial products across them, as GSPMD
+compiles the reference's `ragged_dot` on sharded stacks (PERF.md has
+the compiled program).  The attention beside the block computes
+tensor-parallel over 'model' (`models/attention.py`), and the router is
+replicated.  The explicit paths' bucketed products (`_grouped_ffn`) are
+batched matmuls over (E, cap, d), as the reference's einsums are,
+outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -114,33 +121,97 @@ def _row_axes(mesh, ctx):
     return tuple(a for a in ("pod", *data) if a in mesh.shape)
 
 
-def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d), this rank's rows -> (y, aux_loss).
+def moe_path(cfg: ModelConfig, x: torch.Tensor) -> str:
+    """The path `moe_block` takes for x, this rank's rows (B, S, d):
+    "expert", "tp_ff" or "dropless" (the keys of `sharding.MOE_DIMS`).
 
     The reference's dispatcher, its conditions read on the global token
     count T: the expert-parallel path when a ParallelContext is set, the
     mesh has its expert axis (n_e ranks), n_e divides the experts and
     n_d * n_e divides T (n_d: the ranks of ctx.data_axes); else the TP-ff
     path when there are at most n_e experts, n_e divides the expert
-    hidden dim and n_d divides T; else the dropless path, which on a
-    mesh whose data axes hold several ranks gathers their rows, so that
-    the routing loss is the whole batch's as in the reference."""
-    from ..runtime.parallel import (all_gather, axis_index, axis_size,
-                                    get_context)
+    hidden dim and n_d divides T; else the dropless path."""
+    from ..runtime.parallel import axis_size, get_context
     ctx = get_context()
     mesh = get_abstract_mesh()
-    rows = _row_axes(mesh, ctx)
-    if ctx is not None and ctx.expert_axis in mesh.shape:
-        n_e = mesh.shape[ctx.expert_axis]
-        n_d = axis_size(mesh, [a for a in ctx.data_axes if a in mesh.shape])
-        T = x.shape[0] * x.shape[1] * axis_size(mesh, rows)
-        if cfg.n_experts % n_e == 0 and T % (n_d * n_e) == 0:
-            return moe_block_expert_parallel(params, x, cfg, ctx)
-        if cfg.n_experts <= n_e and \
-                (cfg.moe_d_ff or cfg.d_ff) % n_e == 0 and \
-                T % max(1, n_d) == 0:
-            return moe_block_tp_ff(params, x, cfg, ctx)
+    if ctx is None or ctx.expert_axis not in mesh.shape:
+        return "dropless"
+    n_e = mesh.shape[ctx.expert_axis]
+    n_d = axis_size(mesh, [a for a in ctx.data_axes if a in mesh.shape])
+    T = x.shape[0] * x.shape[1] * axis_size(mesh, _row_axes(mesh, ctx))
+    if cfg.n_experts % n_e == 0 and T % (n_d * n_e) == 0:
+        return "expert"
+    if cfg.n_experts <= n_e and (cfg.moe_d_ff or cfg.d_ff) % n_e == 0 and \
+            T % max(1, n_d) == 0:
+        return "tp_ff"
+    return "dropless"
+
+
+def _whole(cfg: ModelConfig):
+    d, ff, E = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts
+    return {"w_gate": (E, d, ff), "w_up": (E, d, ff), "w_down": (E, ff, d)}
+
+
+def _placed(mesh, k: str, shape):
+    """(spec, slices) of expert stack `k` of whole `shape` as the rules
+    place it on `mesh` (the dropless path's shards): whole, with no
+    axes, off a mesh or on one whose axes hold one rank each."""
+    from ..runtime.parallel import _one_rank
+    from ..runtime.sharding import compute_spec, shard_slices
+    if _one_rank(mesh):
+        return (None,) * len(shape), tuple(slice(0, n) for n in shape)
+    spec = compute_spec(mesh, f"moe/{k}", shape, "dropless")
+    return spec, shard_slices(mesh, spec, shape)
+
+
+def _path_stacks(params: Params, cfg: ModelConfig, path: str) -> Params:
+    """The block's params with its expert stacks as `path` computes with
+    them: a unit's `UnitShard`s gathered over the data axes at the path's
+    'model' shard, or, for the dropless path, taken as placed
+    (`parallel.gather_shard`); plain tensors, which must already be that
+    shard, as they are.  A stack of another shape raises: no path cuts
+    its own piece out of a whole stack."""
+    from ..runtime.parallel import gather_shard, get_context
+    from ..runtime.sharding import MOE_DIMS
+    mesh = get_abstract_mesh()
+    ctx = get_context()
+    n = mesh.shape.get("model", 1)
+    if path != "dropless" and ctx.expert_axis != "model" and n > 1:
+        raise ValueError(f"expert stacks are placed over 'model'; the "
+                         f"context's expert axis is {ctx.expert_axis!r}")
+    out = dict(params)
+    for k, shape in _whole(cfg).items():
+        t = gather_shard(params[k], moe=path)
+        if path == "dropless":
+            want = [s.stop - s.start for s in _placed(mesh, k, shape)[1]]
+        else:
+            want = list(shape)
+            want[MOE_DIMS[path][k]] //= n
+        if list(t.shape[-3:]) != want:
+            raise ValueError(f"moe/{k}: the {path} path computes on "
+                             f"{want}, got {tuple(t.shape)}")
+        out[k] = t
+    return out
+
+
+def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d), this rank's rows -> (y, aux_loss).
+
+    The path is `moe_path`'s; the expert stacks are taken as that path
+    computes with them (`_path_stacks`).  The dropless path, on a mesh
+    whose data axes hold several ranks, gathers their rows, so that the
+    routing loss is the whole batch's as in the reference."""
+    from ..runtime.parallel import (all_gather, axis_index, axis_size,
+                                    get_context)
+    path = moe_path(cfg, x)
+    params = _path_stacks(params, cfg, path)
+    if path == "expert":
+        return moe_block_expert_parallel(params, x, cfg, get_context())
+    if path == "tp_ff":
+        return moe_block_tp_ff(params, x, cfg, get_context())
+    mesh = get_abstract_mesh()
+    rows = _row_axes(mesh, get_context())
     if axis_size(mesh, rows) > 1:
         B = x.shape[0]
         y, aux = moe_block_gspmd(params, all_gather(x, mesh, rows), cfg)
@@ -152,7 +223,8 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig
 def moe_block_gspmd(params: Params, x: torch.Tensor, cfg: ModelConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss): global sort + grouped GEMM, no
-    drops."""
+    drops, on this rank's shards of the stacks (`_dropless_on_shards`;
+    whole stacks off a mesh)."""
     B, S, d = x.shape
     K, E = cfg.experts_per_token, cfg.n_experts
     x2d = x.reshape(B * S, d)
@@ -166,14 +238,58 @@ def moe_block_gspmd(params: Params, x: torch.Tensor, cfg: ModelConfig
     xs = x2d.repeat_interleave(K, dim=0)[order]            # (T*K, d)
     group_sizes = expert_counts(flat_e, E)
 
-    gate = grouped_mm(xs, params["w_gate"], group_sizes)
-    up = grouped_mm(xs, params["w_up"], group_sizes)
-    h = F.silu(gate.float()).to(x.dtype) * up
-    out = grouped_mm(h, params["w_down"], group_sizes)
+    out = _dropless_on_shards(params, xs, group_sizes, cfg)
 
     out = out[inv].reshape(B * S, K, d)                    # unsort, fold K
     y = torch.einsum("tkd,tk->td", out, w)
     return y.reshape(B, S, d), aux
+
+
+def _grouped_on(xs, w, group_sizes, experts: slice):
+    """`grouped_mm` of all the sorted rows against the stack's experts
+    `experts` (a slice of the whole stack's, `w` holding those): the rows
+    of the other experts meet a zero expert before and after them, and
+    come out zero."""
+    E = group_sizes.numel()
+    if experts.start == 0 and experts.stop == E:
+        return grouped_mm(xs, w, group_sizes)
+    ends = torch.cumsum(group_sizes, 0)
+    zero = ends.new_zeros(1)
+    before = ends[experts.start - 1:experts.start] if experts.start else zero
+    bounds = torch.cat([before, ends[experts], ends[-1:]])
+    pad = w.new_zeros((1,) + tuple(w.shape[1:]))
+    return grouped_mm(xs, torch.cat([pad, w, pad]),
+                      torch.diff(bounds, prepend=zero))
+
+
+def _dropless_on_shards(params: Params, xs, group_sizes, cfg: ModelConfig):
+    """The dropless products on the expert stacks as the rules place them
+    (what GSPMD compiles the reference's `ragged_dot` on sharded stacks
+    into): each rank multiplies every sorted row by its experts' shard
+    (its slice of d and of ff), the partial products summed over the
+    axes that split the contraction and the experts, the output's d
+    gathered over its axes.  xs: (N, d), every rank the same rows.  On
+    whole stacks (`_placed` off a mesh) these are three `grouped_mm`s."""
+    from ..runtime.parallel import all_gather, psum
+    from ..runtime.sharding import _axes_of
+    mesh = get_abstract_mesh()
+    whole = _whole(cfg)
+    (g_spec, (g_e, g_d, g_f)), (d_spec, (d_e, d_f, _)) = (
+        _placed(mesh, k, whole[k]) for k in ("w_gate", "w_down"))
+    if (g_e, g_f) != (d_e, d_f) or _placed(mesh, "w_up", whole["w_up"]) != \
+            (g_spec, (g_e, g_d, g_f)):
+        raise ValueError(f"expert stacks placed {g_spec} / {d_spec}: the "
+                         f"dropless path needs their experts and hidden "
+                         f"dims split alike")
+    x = xs[:, g_d]
+    over = _axes_of(g_spec[0]) + _axes_of(g_spec[1])
+    gate = psum(_grouped_on(x, params["w_gate"], group_sizes, g_e), mesh,
+                over)
+    up = psum(_grouped_on(x, params["w_up"], group_sizes, g_e), mesh, over)
+    h = F.silu(gate.float()).to(xs.dtype) * up
+    out = psum(_grouped_on(h, params["w_down"], group_sizes, d_e), mesh,
+               _axes_of(d_spec[0]) + _axes_of(d_spec[1]))
+    return all_gather(out, mesh, _axes_of(d_spec[2]), -1)
 
 
 # --------------------------------------------------------------------------
@@ -229,12 +345,6 @@ def _grouped_ffn(rows, expert_ids, n_experts: int, cap: int, wg, wu, wd):
     return torch.where(valid[:, None], got, 0.0)
 
 
-def _rows_of(t: torch.Tensor, i: int, n: int, dim: int = 0) -> torch.Tensor:
-    """Part i of n equal parts of t along `dim`."""
-    k = t.shape[dim] // n
-    return t.narrow(dim, i * k, k)
-
-
 def moe_block_expert_parallel(params, x, cfg: ModelConfig, ctx):
     """Expert parallelism: E/n experts per rank of the expert axis; token
     rows travel to their expert's rank over all-to-all and return.
@@ -242,8 +352,10 @@ def moe_block_expert_parallel(params, x, cfg: ModelConfig, ctx):
     x: (B, S, d), this rank's rows, which the ranks of the expert axis
     split in n_e equal parts (the reference's P((*data_axes, axis))
     sharding of the tokens, data-major); each part's outputs are gathered
-    back over the expert axis.  Rows past a destination's budget C, or
-    past an expert's capacity, contribute zeros."""
+    back over the expert axis.  The expert stacks are this rank's E / n_e
+    experts, (E / n_e, d, ff) and (E / n_e, ff, d).  Rows past a
+    destination's budget C, or past an expert's capacity, contribute
+    zeros."""
     from ..runtime.parallel import all_gather, all_to_all, pmean
     moe_block_expert_parallel.calls += 1
     mesh = get_abstract_mesh()
@@ -256,10 +368,8 @@ def moe_block_expert_parallel(params, x, cfg: ModelConfig, ctx):
     T_loc = B * S // n_e
     N = T_loc * K                                   # local expanded rows
     C = max(1, int(-(-N // n_e) * ctx.capacity_factor))  # per-dest budget
-    me = mesh.index(ax)
-    wg, wu, wd = (_rows_of(params[k], me, n_e)
-                  for k in ("w_gate", "w_up", "w_down"))
-    x2 = _rows_of(x.reshape(B * S, d), me, n_e)
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
+    x2 = x.reshape(B * S, d).narrow(0, mesh.index(ax) * T_loc, T_loc)
 
     w, idx, aux = _local_route(params["router"], x2, cfg)
     flat_e = idx.reshape(-1)                         # (N,)
@@ -289,20 +399,18 @@ def moe_block_tp_ff(params, x, cfg: ModelConfig, ctx):
     """Tensor parallelism over the expert hidden dim (few-expert MoE like
     mixtral where E <= n_shards): rows stay put, every rank of the expert
     axis computes its ff-slice for every one of this rank's rows, and the
-    partial results are summed over the axis."""
+    partial results are summed over the axis.  The expert stacks are this
+    rank's slice of the hidden dim, (E, d, ff / n_e) and (E, ff / n_e,
+    d)."""
     from ..runtime.parallel import pmean, psum
     moe_block_tp_ff.calls += 1
     mesh = get_abstract_mesh()
     ax = ctx.expert_axis
-    n_e = mesh.shape[ax]
     data_axes = _row_axes(mesh, ctx)
     B, S, d = x.shape
     K, E = cfg.experts_per_token, cfg.n_experts
     T_loc = B * S
-    me = mesh.index(ax)
-    wg = _rows_of(params["w_gate"], me, n_e, dim=2)
-    wu = _rows_of(params["w_up"], me, n_e, dim=2)
-    wd = _rows_of(params["w_down"], me, n_e, dim=1)
+    wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
     x2 = x.reshape(T_loc, d)
 
     w, idx, aux = _local_route(params["router"], x2, cfg)

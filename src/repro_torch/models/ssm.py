@@ -13,12 +13,28 @@ and bf16 rounding points.  The gated norm goes through
 `layers.rmsnorm(..., impl)`, so on the card it is the RMSNorm kernel.
 Every other cast sits where the reference puts it.
 
-On a mesh the mixer computes whole width on every rank of 'model': its
-`in_proj` and `out_proj` are gathered whole (`sharding.compute_spec`
-keeps no 'model' shard of them; GSPMD splits the fused [z, x, B, C, dt]
-output across 'model', which the port does not), and a serving step
-hands it its slots' conv window and state gathered whole, writing the
-rank's shard back after (`runtime/serve.py`).
+On a mesh the mixer computes tensor-parallel over 'model' where the
+rules shard its projections (`sharding.compute_spec`), as the
+reference's compiled (2, 4) program does: `in_proj` column-parallel and
+its fused [z, x, B, C, dt] output gathered over 'model'
+(`parallel.gather_model`; GSPMD moves only the pieces each rank needs,
+by collective-permutes); where 'model' splits `out_proj`'s rows on
+whole heads, each rank then runs its heads of z, x and dt with B and C
+whole (GSPMD splits B and C on the state dimension and sums the scores
+over 'model' instead: the port keeps each head's scan in one SSD kernel
+call), gathers the gated output whole over 'model' for the gated norm
+(GSPMD sums the norm's squares over 'model' instead: the port keeps the
+norm in one RMSNorm kernel call), and multiplies its rows of
+`out_proj`, summed by `psum_model`.  Where 'model' does not
+divide a projection (mamba2-130m's `in_proj`, 3352 columns on 16
+ranks) the rules keep it whole, and where its rows split heads
+(mamba2-130m's 1536 rows: 96 a rank, heads of 64) the conv, the scan and
+the norm run whole on every rank and `out_proj` row-parallel on the
+rank's columns of y.  A serving step hands
+`decode_mamba` the rank's slots of the conv window, whole width, and
+its shard of the state where the rules put 'model' on its heads or its
+head dim: the step updates that shard alone and gathers its part of y
+(`runtime/serve.py: cache_views`).
 """
 
 from __future__ import annotations
@@ -58,6 +74,30 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     """[z, xBC, dt] at [dssm, 2 dssm + 2N] (views, no copy)."""
     dssm, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
     return torch.split(zxbcdt, [dssm, dssm + 2 * N, H], dim=-1)
+
+
+def _in_proj(params: Params, x: torch.Tensor, cfg: ModelConfig):
+    """[z, xBC, dt] of x: column-parallel where the rank holds a 'model'
+    shard of `in_proj`'s columns, the fused output then gathered whole
+    over 'model'."""
+    from ..runtime.parallel import gather_model, model_slice
+    w = params["in_proj"]
+    width = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads
+    zxbcdt = x @ w
+    if model_slice("in_proj", w.shape, width) is not None:
+        zxbcdt = gather_model(zxbcdt, -1)
+    return _split_proj(cfg, zxbcdt)
+
+
+def _out_proj(params: Params, y: torch.Tensor, cfg: ModelConfig):
+    """y @ out_proj, row-parallel on the rank's columns of y (its rows of
+    `out_proj`) summed over 'model' where the rank holds a shard."""
+    from ..runtime.parallel import model_slice, psum_model
+    w = params["out_proj"]
+    rows = model_slice("out_proj", w.shape, cfg.d_inner)
+    if rows is None:
+        return y @ w
+    return psum_model(y[..., rows] @ w)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -144,18 +184,46 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, carry.to(dtype)
 
 
+def _mixer_heads(params: Params, cfg: ModelConfig) -> slice:
+    """The heads this rank's mixer runs: those of its rows of `out_proj`
+    where the rules split them over 'model' on whole heads (as GSPMD
+    splits z, x and dt by heads after the projection), else all."""
+    from ..runtime.parallel import model_slice
+    P = cfg.ssm_head_dim
+    rows = model_slice("out_proj", params["out_proj"].shape, cfg.d_inner)
+    if rows is None or rows.start % P or (rows.stop - rows.start) % P:
+        return slice(0, cfg.n_ssm_heads)
+    return slice(rows.start // P, rows.stop // P)
+
+
 def mamba_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
                 impl: str = "auto") -> torch.Tensor:
-    """Full-sequence Mamba2 block. x: (B, L, d) -> (B, L, d)."""
+    """Full-sequence Mamba2 block. x: (B, L, d) -> (B, L, d).
+
+    On a mesh whose 'model' splits `out_proj`'s rows on whole heads the
+    block runs this rank's heads (`_mixer_heads`): their columns of z, x
+    and dt, whole B and C, the conv on their channels and B's and C's,
+    and the scan; the gated output is gathered whole over 'model' for
+    the gated norm, and its rows of `out_proj` are summed over 'model'."""
+    from ..runtime.parallel import gather_model
     B_, L, _ = x.shape
     dssm, N, H, P = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
                      cfg.ssm_head_dim)
-    z, xBC, dt = _split_proj(cfg, x @ params["in_proj"])
-    xBC = _causal_conv(xBC, params["conv_w"], params["conv_b"])
-    xs, Bv, Cv = torch.split(xBC, [dssm, N, N], dim=-1)
-    dt = _softplus(dt.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
-    xh = xs.reshape(B_, L, H, P)
+    z, xBC, dt = _in_proj(params, x, cfg)
+    hs = _mixer_heads(params, cfg)
+    Hl = hs.stop - hs.start
+    conv_w, conv_b = params["conv_w"], params["conv_b"]
+    if Hl < H:
+        cols = slice(hs.start * P, hs.stop * P)
+        xBC = torch.cat([xBC[..., cols], xBC[..., dssm:]], dim=-1)
+        conv_w = torch.cat([conv_w[:, cols], conv_w[:, dssm:]], dim=-1)
+        conv_b = torch.cat([conv_b[cols], conv_b[dssm:]], dim=-1)
+        z, dt = z[..., cols], dt[..., hs]
+    xBC = _causal_conv(xBC, conv_w, conv_b)
+    xs, Bv, Cv = torch.split(xBC, [Hl * P, N, N], dim=-1)
+    dt = _softplus(dt.float() + params["dt_bias"][hs])
+    A = -torch.exp(params["A_log"][hs])
+    xh = xs.reshape(B_, L, Hl, P)
     if impl in KERNEL_IMPLS:
         y, _ = ssd(xh, dt, A, Bv, Cv, chunk=cfg.ssm_chunk)
     else:
@@ -170,11 +238,13 @@ def mamba_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
             Cp = F.pad(Cv, (0, 0, 0, pad))
         y, _ = ssd_scan(xp, dtp, A, Bp, Cp, Q)
         y = y[:, :L]
-    y = y + params["D"].to(y.dtype)[:, None] * xh
-    y = y.reshape(B_, L, dssm)
-    y = rmsnorm(params["gate_norm"],
-                y * F.silu(z.float()).to(y.dtype), cfg.norm_eps, impl)
-    return y @ params["out_proj"]
+    y = y + params["D"][hs].to(y.dtype)[:, None] * xh
+    y = y.reshape(B_, L, Hl * P)
+    v = y * F.silu(z.float()).to(y.dtype)
+    if Hl < H:
+        v = gather_model(v, -1)
+    y = rmsnorm(params["gate_norm"], v, cfg.norm_eps, impl)
+    return _out_proj(params, y, cfg)
 
 
 # --------------------------------------------------------------------------
@@ -202,11 +272,16 @@ def decode_mamba(params: Params, x: torch.Tensor, cache: Dict,
     Unlike the reference, which returns a new cache, the conv window and
     the state are written into `cache` in place (in bf16, as the
     reference stores them); the same dict is returned.  `impl` picks the
-    gated norm's route."""
+    gated norm's route.
+
+    The state may be this rank's 'model' shard of its heads or its head
+    dim (`parallel.cache_model_part`): the step updates that shard and
+    gathers its part of y whole over 'model'."""
+    from ..runtime.parallel import cache_model_part, gather_model
     B_ = x.shape[0]
     dssm, N, H, P = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
                      cfg.ssm_head_dim)
-    z, xBC, dt = _split_proj(cfg, x @ params["in_proj"])
+    z, xBC, dt = _in_proj(params, x, cfg)
     window = torch.cat([cache["conv"], xBC], dim=1)          # (B, K, C)
     conv = (window * params["conv_w"]).sum(dim=1) + params["conv_b"]
     xBC = F.silu(conv.float()).to(x.dtype)
@@ -214,15 +289,20 @@ def decode_mamba(params: Params, x: torch.Tensor, cache: Dict,
     dtv = _softplus(dt[:, 0].float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     dA = torch.exp(dtv * A)                                   # (B, H)
-    xh = xs.reshape(B_, H, P).float()
-    st = cache["state"].float() * dA[:, :, None, None] + torch.einsum(
-        "bh,bhp,bn->bhpn", dtv, xh, Bv.float())
+    _, hs, ps, _ = (s or slice(None) for s in cache_model_part(
+        cache["state"].shape, (B_, H, P, N)))
+    xh = xs.reshape(B_, H, P).float()[:, hs, ps]
+    st = cache["state"].float() * dA[:, hs, None, None] + torch.einsum(
+        "bh,bhp,bn->bhpn", dtv[:, hs], xh, Bv.float())
     y = torch.einsum("bhpn,bn->bhp", st, Cv.float())
-    y = y + params["D"][:, None] * xh
+    y = y + params["D"][hs, None] * xh
+    for dim, part in ((1, hs), (2, ps)):
+        if part != slice(None):
+            y = gather_model(y, dim)
     y = y.reshape(B_, 1, dssm).to(x.dtype)
     y = rmsnorm(params["gate_norm"],
                 y * F.silu(z.float()).to(y.dtype), cfg.norm_eps, impl)
-    out = y @ params["out_proj"]
+    out = _out_proj(params, y, cfg)
     cache["conv"].copy_(window[:, 1:])
     cache["state"].copy_(st)
     return out, cache

@@ -13,9 +13,15 @@ stacked (u_outer, every, ...) with no `b{j}` key, and the shared block is
 reference's nested scans become nested loops.  Encoder-decoder models are
 `models/encdec.py`.
 
-On a mesh the blocks compute tensor-parallel on this rank's 'model'
-shards of the weights (`models/attention.py`, `models/layers.py`); the
-norms and the residual stream stay whole on every rank of 'model'.
+On a mesh the params are the DTensors the rules place: the leaves
+outside the unit loop are gathered once a call (`parallel.gather_params`)
+and each unit's inside the loop, one unit at a time, inside the function
+that `checkpoint` wraps (`parallel.unit_shards`, `gather_unit`), as GSPMD
+gathers them inside the reference's scan body; the blocks compute
+tensor-parallel on this rank's 'model' shards of the weights
+(`models/attention.py`, `models/layers.py`, `models/ssm.py`,
+`models/moe.py`); the norms and the residual stream stay whole on every
+rank of 'model'.
 """
 
 from __future__ import annotations
@@ -151,11 +157,50 @@ def _shared_block(shared: Params, x, cfg: ModelConfig, positions, impl):
     return x + mlp(shared["mlp"], h, cfg.activation, cfg.d_ff)
 
 
+def outside(params: Params, stacks=("units",)) -> Params:
+    """The params with the leaves outside the unit loops as this rank
+    computes with them (`parallel.gather_params`; plain tensors as they
+    are) and the `stacks` as they are, for `run_units` to gather one
+    unit at a time."""
+    from ..runtime.parallel import gather_params
+    return dict(gather_params({k: v for k, v in params.items()
+                               if k not in stacks}),
+                **{k: params[k] for k in stacks})
+
+
+def run_units(unit_fn, x, stacked, n: int, prefix: str, remat: bool):
+    """x through the n units of `stacked` (params at `prefix`):
+    unit_fn(x, unit params) -> (x, aux), the aux summed.  Each unit's
+    params are gathered inside the function that `checkpoint` wraps, so
+    that the recompute gathers them again and no unit's gathered weights
+    outlive it (`parallel.gather_unit`)."""
+    from ..launch.mesh import get_abstract_mesh, use_mesh
+    from ..runtime.parallel import (gather_unit, get_context,
+                                    parallel_context, unit_shards)
+    mesh, ctx = get_abstract_mesh(), get_context()
+
+    def body(x, shards):
+        # the recompute runs in the backward, after the caller has left
+        # its mesh and context: it takes this forward's
+        with use_mesh(mesh), parallel_context(ctx):
+            return unit_fn(x, gather_unit(shards))
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for shards in unit_shards(stacked, n, prefix):
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(body, x, shards, use_reentrant=False)
+        else:
+            x, a = body(x, shards)
+        aux = aux + a
+    return x, aux
+
+
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
             impl: str = "auto", remat: bool = True
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """inputs: (B, S) int tokens, or (B, S, d) embeddings for frontend
     stubs.  Returns (logits fp32 (B, S, V), aux_loss scalar)."""
+    params = outside(params)
     if inputs.ndim == 2:
         x = embed(params["embed"], inputs, cfg)
     else:
@@ -180,13 +225,7 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
             return x, aux
         n_outer = cfg.n_units
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for up in _unbind(params["units"], n_outer):
-        if remat and torch.is_grad_enabled():
-            x, a = checkpoint(unit_fn, x, up, use_reentrant=False)
-        else:
-            x, a = unit_fn(x, up)
-        aux = aux + a
+    x, aux = run_units(unit_fn, x, params["units"], n_outer, "units", remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
     return unembed(params["embed"], x, cfg), aux
 
@@ -269,23 +308,29 @@ def decode_step(params: Params, cache: Params, token: torch.Tensor,
     Returns (logits (B, 1, V) fp32, cache).  The cache is updated in
     place (see `decode_attention`, `decode_mamba`); `impl` picks the
     RMSNorm route, and attention is always the naive path, as in the
-    reference."""
+    reference.  On a mesh each unit's params are gathered as the step
+    reaches it (`parallel.gather_unit`)."""
+    from ..runtime.parallel import gather_unit, unit_shards
+    params = outside(params)
     if token.ndim == 2:
         x = embed(params["embed"], token, cfg)
     else:
         x = token.to(torch.bfloat16)
     if cfg.shared_attn_every:
         shared = params["shared"]
-        for u in range(cfg.n_layers // cfg.shared_attn_every):
-            up, cu = _unit(params["units"], u), _unit(cache["units"], u)
+        n_outer = cfg.n_layers // cfg.shared_attn_every
+        for u, shards in enumerate(unit_shards(params["units"], n_outer,
+                                               "units")):
+            up, cu = gather_unit(shards), _unit(cache["units"], u)
             for k in range(cfg.shared_attn_every):
                 x = _decode_block(_unit(up, k), cfg.unit[0], _unit(cu, k), x,
                                   cfg, pos, impl)
             x = _decode_shared(shared, _unit(cache["shared"], u), x, cfg,
                                pos, impl)
     else:
-        for u in range(cfg.n_units):
-            x = _decode_unit(_unit(params["units"], u),
-                             _unit(cache["units"], u), x, cfg, pos, impl)
+        for u, shards in enumerate(unit_shards(params["units"], cfg.n_units,
+                                               "units")):
+            x = _decode_unit(gather_unit(shards), _unit(cache["units"], u),
+                             x, cfg, pos, impl)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
     return unembed(params["embed"], x, cfg), cache

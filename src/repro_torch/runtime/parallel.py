@@ -32,6 +32,19 @@ one of the same size each way per block.  Activations a rank needs whole
 (heads that do not divide over 'model', a vocabulary's maximum, a
 sequence-split attention's partials) are gathered by `gather_model` or
 `all_gather`.
+
+On a mesh the model takes its parameters as the DTensors the rules
+place (`sharding.param_spec`) and gathers them where it uses them, as
+GSPMD does inside the reference's scanned step: the leaves outside the
+unit loop once a step (`gather_params`), each unit's one unit at a time
+(`unit_shards` outside the loop, `gather_unit` inside the function
+that `checkpoint` wraps, so that the recompute gathers again and a
+unit's gathered weights die with it).  Each weight is gathered over the
+data axes at its 'model' shard (`sharding.compute_spec`); the gradient
+goes back to the shards by the gather's adjoint, the reduce-scatter.
+An MoE block's expert stacks stay ungathered in the unit
+(`UnitShard`): the block gathers them for the path it takes
+(`gather_shard(..., moe=path)`).
 """
 
 from __future__ import annotations
@@ -46,7 +59,8 @@ import torch
 import torch.distributed as dist
 
 from ..launch.mesh import Mesh, get_abstract_mesh
-from .sharding import compute_spec, shard_slices, tp_dim
+from .sharding import (_map_named, cache_spec, compute_spec, is_moe_stack,
+                       shard_slices, spec_to_placements, tp_dim)
 
 _state = threading.local()
 
@@ -237,6 +251,27 @@ def model_slice(path: str, shape: Sequence[int],
     return shard_slices(mesh, spec, tuple(whole))[d]
 
 
+def cache_model_part(local: Sequence[int], whole: Sequence[int]
+                     ) -> Tuple[Optional[slice], ...]:
+    """For a unit's cache leaf held at `local` whose whole shape is
+    `whole` (the rank's slots: the two agree on the batch dim), this
+    rank's slice of each dimension the rules put 'model' on
+    (`sharding.cache_spec`), None where it holds all of it."""
+    if tuple(local) == tuple(whole):
+        return (None,) * len(whole)
+    mesh = get_abstract_mesh()
+    spec = cache_spec(mesh, tuple(whole))
+    cut = shard_slices(mesh, spec, tuple(whole))
+    out = []
+    for d, (n, w) in enumerate(zip(local, whole)):
+        if n != w and spec[d] != "model":
+            raise ValueError(f"cache leaf {tuple(local)} of {tuple(whole)}: "
+                             f"dim {d} is split, but the rules put "
+                             f"{spec[d]!r} there")
+        out.append(cut[d] if n != w else None)
+    return tuple(out)
+
+
 def psum_model(x: torch.Tensor) -> torch.Tensor:
     """The sum of a row-parallel product's partial outputs over the
     ambient mesh's 'model' axis (the adjoint is the same sum)."""
@@ -248,3 +283,165 @@ def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     the ambient mesh's 'model' axis (the adjoint keeps the rank's part of
     the summed gradient)."""
     return all_gather(x, get_abstract_mesh(), ("model",), dim)
+
+
+# --------------------------------------------------------------------------
+# the parameters' gathers: once a step outside the unit loop, one unit at a
+# time inside it
+# --------------------------------------------------------------------------
+
+def _one_rank(mesh: Mesh) -> bool:
+    return all(n == 1 for n in mesh.shape.values())
+
+
+def _gather_local(local, mesh: Mesh, have, want, shape):
+    """A tensor whose shard `local` is placed `have` on `mesh`,
+    redistributed to `want` and returned as this rank's local tensor,
+    differentiably: the gradient goes back to `local` in `have`'s
+    placements, summed over the ranks on each axis `want` replicates
+    (the gather's adjoint, a reduce-scatter or an all-reduce).  On a
+    one-rank mesh, `local` itself."""
+    if _one_rank(mesh):
+        return local
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    dt = DTensor.from_local(local, mesh.device_mesh, have, run_check=False,
+                            shape=torch.Size(shape),
+                            stride=_contiguous_stride(shape))
+    grads = [Partial() if w == Replicate() else w for w in want]
+    return dt.redistribute(mesh.device_mesh, want).to_local(
+        grad_placements=grads)
+
+
+def _contiguous_stride(shape):
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def gather_params(params):
+    """What this rank computes with, from parameter DTensors (the leaves
+    that live outside the unit loop: the embedding, the final norm, a
+    hybrid's shared block): each one gathered over the data axes (and
+    whole over 'model' unless `compute_spec` keeps its 'model' shard),
+    differentiably: the gradient goes back to the shards summed over the
+    ranks that gathered them.  Plain tensors pass as they are."""
+    from torch.distributed.tensor import DTensor
+    mesh = get_abstract_mesh()
+
+    def gather(name, p):
+        if not isinstance(p, DTensor):
+            return p
+        want = spec_to_placements(mesh, compute_spec(mesh, name,
+                                                     tuple(p.shape)))
+        return _gather_local(p.to_local(), mesh, tuple(p.placements), want,
+                             tuple(p.shape))
+
+    return _map_named(gather, params)
+
+
+@dataclasses.dataclass(frozen=True)
+class UnitShard:
+    """This rank's shard of one unit of a stacked parameter DTensor, not
+    gathered yet.  `name` and `stacked` are the stacked parameter's path
+    and whole shape, `placements` its placements, `lead` the unit axes
+    taken off; `owner` is the 'model' rank that holds the unit when the
+    rules put 'model' on the unit axis (a stacked dense MLP whose unit
+    count 'model' divides: the rules read it as an expert stack)."""
+    name: str
+    local: torch.Tensor
+    stacked: Tuple[int, ...]
+    placements: tuple
+    lead: int = 1
+    owner: Optional[int] = None
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return tuple(self.stacked[self.lead:])
+
+
+def unit_shards(stacked, n: int, prefix: str):
+    """The n units of a stacked parameter tree at `prefix` ("units",
+    "dec_units"): for DTensor leaves, each unit's `UnitShard`s (this
+    rank's shard of the unit, a view of one `unbind` of the local
+    stack); for plain tensors, the units' views as they are."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = get_abstract_mesh()
+    names = list(mesh.shape)
+
+    def split(name, p):
+        if not isinstance(p, DTensor):
+            return p.unbind(0)
+        local = p.to_local()
+        on_units = [names[i] for i, pl in enumerate(p.placements)
+                    if isinstance(pl, Shard) and pl.dim == 0]
+        if on_units not in ([], ["model"]):
+            raise ValueError(f"{name}: unit axis placed over {on_units}; "
+                             f"a unit comes to a rank over 'model' only")
+        k = local.shape[0]
+        parts = local.unbind(0)
+        return [UnitShard(name, parts[u % k], tuple(p.shape),
+                          tuple(p.placements), 1,
+                          u // k if k < n else None) for u in range(n)]
+
+    per_leaf = _map_named(split, stacked, tuple(prefix.split("/")))
+    return [_pick(per_leaf, u) for u in range(n)]
+
+
+def _pick(tree, u: int):
+    if isinstance(tree, dict):
+        return {k: _pick(v, u) for k, v in tree.items()}
+    return tree[u]
+
+
+class _FromOwner(torch.autograd.Function):
+    """The owner's x on every rank of the group, broadcast from the
+    owner (its rank in the group).  The adjoint keeps the owner's
+    gradient and adds nothing: the gather that follows (`_gather_local`,
+    'model' replicated) has summed it over the group already."""
+
+    @staticmethod
+    def forward(ctx, x, owner, group):
+        ctx.mine = dist.get_rank(group) == owner
+        out = x.clone() if ctx.mine else torch.empty_like(x)
+        dist.broadcast(out, src=dist.get_global_rank(group, owner),
+                       group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.mine else torch.zeros_like(g)), None, None
+
+
+def gather_shard(s, moe: Optional[str] = None) -> torch.Tensor:
+    """A `UnitShard` as this rank computes with it: the unit's weight
+    gathered over the data axes at its `compute_spec` (`moe` names an
+    expert stack's path), brought first from its 'model' owner when the
+    rules put 'model' on the unit axis (`_FromOwner`).  A plain tensor
+    passes as it is."""
+    if not isinstance(s, UnitShard):
+        return s
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = get_abstract_mesh()
+    local = s.local
+    if s.owner is not None:
+        local = _FromOwner.apply(local, s.owner, mesh.group("model"))
+    have = tuple(Shard(pl.dim - s.lead) if isinstance(pl, Shard)
+                 and pl.dim >= s.lead else Replicate()
+                 for pl in s.placements)
+    spec = compute_spec(mesh, s.name, s.stacked, moe)[s.lead:]
+    return _gather_local(local, mesh, have, spec_to_placements(mesh, spec),
+                         s.shape)
+
+
+def gather_unit(unit):
+    """One unit's parameters (`unit_shards`) as this rank computes with
+    them (`gather_shard`); an MoE block's expert stacks stay
+    `UnitShard`s for the block to gather for its path.  Plain tensors
+    pass as they are."""
+    def gather(_, s):
+        if isinstance(s, UnitShard) and is_moe_stack(s.name):
+            return s
+        return gather_shard(s)
+    return _map_named(gather, unit)

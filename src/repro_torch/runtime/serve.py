@@ -7,17 +7,20 @@ On a mesh (`make_serve_fns(..., mesh=...)`) they run what the reference's
 sharded serving program runs, every rank the same functions on its
 shards:
 
-- the params are DTensors placed by `params_shardings`; each call
-  gathers them over the data axes and keeps the 'model' shards the
-  model code computes tensor-parallel with (`train.gather_params`);
+- the params are DTensors placed by `params_shardings`; the model
+  gathers them over the data axes where it uses them, each unit's as the
+  call reaches it, and keeps the 'model' shards it computes
+  tensor-parallel with (`runtime/parallel.py`: `gather_params`,
+  `gather_unit`);
 - the cache is made and placed by `cache_shardings`: this rank's slots
   over the data axes (every slot when they do not divide, as for a
   single long-context slot), and its kv heads on 'model', or its part of
   the sequence when the kv heads do not divide there (the attention
   then combines partial results over 'model', `models/attention.py`);
-  each SSM cache leaf is gathered to the rank's slots, whole width, for
-  the Mamba2 mixer (which computes whole width), and the rank's shard is
-  written back after the step;
+  each SSM conv window is gathered to the rank's slots, whole width,
+  and the rank's shard written back after the step; an SSM state is
+  used as placed where the rules put 'model' on its heads or head dim
+  (the step updates that shard), else gathered as the conv window is;
 - `decode_step` takes this rank's rows of the tokens (`slot_rows`) and
   returns its rows of the next tokens, each found from the vocabulary's
   shards (the local maximum and its index, then compared across 'model');
@@ -38,7 +41,7 @@ from ..models.attention import SeqShard
 from .parallel import all_gather, gather_model, model_slice
 from .sharding import (P, _axes_of, _map_named, batch_spec, cache_spec,
                        shard_slices, slot_rows, spec_to_placements)
-from .train import gather_params, mesh_apply
+from .train import mesh_apply
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,8 +125,7 @@ def _mesh_serve_fns(cfg: ModelConfig, scfg: ServeConfig, model, pick,
         the cache, updated in place."""
         with use_mesh(mesh):
             views, commit = cache_views(mesh, cache)
-            logits, _ = model.decode(gather_params(params, mesh), views,
-                                     token, pos)
+            logits, _ = model.decode(params, views, token, pos)
             commit()
             last = logits[:, -1]
             cols = model_slice("unembed", last.shape, cfg.vocab_size)
@@ -174,7 +176,9 @@ def cache_views(mesh, cache):
     (units..., B, K-1, C) or state (units..., B, H, P, N), is gathered
     over every axis the rules put on it bar its slots' own, then cut to
     the rank's slots; `commit` puts the slots back together and copies
-    the rank's shard of them in."""
+    the rank's shard of them in.  A state whose heads or head dim the
+    rules put on 'model' keeps that shard: the Mamba2 step updates it
+    alone (`models/ssm.py: decode_mamba`)."""
     later = []
 
     def leaf(name, t):
@@ -189,16 +193,22 @@ def cache_views(mesh, cache):
                 raise ValueError(f"cache leaf {name} placed {spec}: not a "
                                  f"layout the decode step computes on")
             return local
-        view = local
+        view, kept = local, set()
         for d, entry in enumerate(spec):
-            if entry is not None and (d != bdim or _axes_of(entry) != rows):
-                view = all_gather(view, mesh, _axes_of(entry), d)
+            if entry is None:
+                continue
+            if (d == bdim and _axes_of(entry) == rows) or (
+                    key == "state" and entry == "model"
+                    and d in (bdim + 1, bdim + 2)):
+                kept.add(d)     # the rank's slots, its heads or head dim
+                continue
+            view = all_gather(view, mesh, _axes_of(entry), d)
         cut = bool(rows) and _axes_of(spec[bdim]) != rows
         if cut:
             view = view[(slice(None),) * bdim + shard_slices(
                 mesh, P(rows), (t.shape[bdim],))]
         if view is not local:
-            later.append((local, view, spec, bdim, cut, rows,
+            later.append((local, view, spec, bdim, cut, rows, kept,
                           tuple(t.shape)))
         return view
 
@@ -206,12 +216,12 @@ def cache_views(mesh, cache):
     _mark_split_rings(mesh, cache, views)
 
     def commit():
-        for local, view, spec, bdim, cut, rows, shape in later:
+        for local, view, spec, bdim, cut, rows, kept, shape in later:
             if cut:
                 view = all_gather(view, mesh, rows, bdim)
             sl = list(shard_slices(mesh, spec, shape))
-            if not cut and spec[bdim] is not None:
-                sl[bdim] = slice(None)      # already the rank's slots
+            for d in kept:
+                sl[d] = slice(None)         # already the rank's part
             local.copy_(view[tuple(sl)])
 
     return views, commit

@@ -25,8 +25,9 @@ come from `spec_to_placements`.
 What a rank computes with is the data axes' gather of its shard:
 `compute_spec` keeps the 'model' entry of the weights that the model
 code multiplies tensor-parallel (Megatron's column- and row-parallel
-products, the vocab-parallel embedding and unembedding) and drops every
-other entry; `shard_slices` gives this rank's slice of each dimension of
+products, the Mamba2 mixer's projections, the vocab-parallel embedding
+and unembedding, an MoE block's expert stacks at their path's shard)
+and drops every other entry; `shard_slices` gives this rank's slice of each dimension of
 a spec'd tensor (the vocabulary's, the sequence's and the rows' offsets
 included), so that the model code asks the rules and never recomputes
 them.
@@ -137,34 +138,71 @@ def param_spec(mesh, path: str, shape: Tuple[int, ...]) -> P:
 #: weights computed tensor-parallel when the rules put 'model' on this
 #: dimension (counted from the end): column-parallel projections and the
 #: vocab-parallel unembedding, row-parallel output projection, the
-#: vocab-parallel table; the dense MLP's under an "mlp" key (an MoE
-#: block's stacks keep their own expert paths)
+#: vocab-parallel table, the Mamba2 mixer's column-parallel `in_proj`
+#: and row-parallel `out_proj`; the dense MLP's under an "mlp" key (an
+#: MoE block's stacks take their path's, `MOE_DIMS`)
 TP_DIMS = {"wq": -1, "wk": -1, "wv": -1, "unembed": -1, "wo": -2,
-           "table": -2}
+           "table": -2, "in_proj": -1, "out_proj": -2}
 MLP_TP_DIMS = {"w_up": -1, "w_gate": -1, "w_down": -2}
+#: an MoE block's expert stacks, (E, d, ff) and (E, ff, d): the
+#: dimension each explicit path computes split over 'model' (the
+#: expert axis, or the expert hidden dim); the dropless path computes
+#: on the stacks as placed (`compute_spec`)
+MOE_DIMS = {"expert": {"w_gate": -3, "w_up": -3, "w_down": -3},
+            "tp_ff": {"w_gate": -1, "w_up": -1, "w_down": -2},
+            "dropless": {}}
+
+
+def is_moe_stack(path: str) -> bool:
+    names = path.split("/")
+    return names[-2:-1] == ["moe"] and names[-1] in MLP_TP_DIMS
 
 
 def tp_dim(path: str) -> Optional[int]:
     """The dimension (counted from the end) on which the weight at `path`
     is computed tensor-parallel when the rules put 'model' there, or
-    None (`TP_DIMS`, `MLP_TP_DIMS`)."""
+    None (`TP_DIMS`, `MLP_TP_DIMS`; an expert stack's is its path's)."""
     names = path.split("/")
+    if is_moe_stack(path):
+        return None
     dims = MLP_TP_DIMS if names[-2:-1] == ["mlp"] else TP_DIMS
     return dims.get(names[-1])
 
 
-def compute_spec(mesh, path: str, shape: Tuple[int, ...]) -> P:
+def compute_spec(mesh, path: str, shape: Tuple[int, ...],
+                 moe: Optional[str] = None) -> P:
     """The spec of a parameter as a rank computes with it: 'model' on the
     dimension `param_spec` gives it for a tensor-parallel weight, nothing
     elsewhere (the data axes are gathered, and a weight sharded over
     'model' on any other dimension, such as a stacked unit axis, is
-    gathered whole)."""
+    gathered whole).
+
+    An MoE block's expert stack is computed as the block's path `moe`
+    takes it ("expert", "tp_ff", "dropless", `MOE_DIMS`; the dispatcher,
+    `models/moe.py: moe_path`, chooses): 'model' on the expert axis or
+    on the expert hidden dim, where the mesh has 'model', else whole;
+    the dropless path computes on the stack as placed (`param_spec`:
+    GSPMD's partial products on the shards, `models/moe.py`).  A stack
+    without its path raises."""
+    n = len(shape)
+    if is_moe_stack(path):
+        if moe not in MOE_DIMS:
+            raise ValueError(f"{path}: an expert stack's compute spec "
+                             f"needs its path, not {moe!r}")
+        if moe == "dropless":
+            return param_spec(mesh, path, shape)
+        d = MOE_DIMS[moe].get(path.split("/")[-1])
+        keep = d is not None and _axis_size(mesh, "model") > 1
+        if keep and shape[n + d] % _axis_size(mesh, "model"):
+            raise ValueError(f"{path} {shape}: 'model' does not divide "
+                             f"dim {d} for the {moe} path")
+        return P(*["model" if keep and i == n + d else None
+                   for i in range(n)])
     d = tp_dim(path)
     spec = param_spec(mesh, path, shape)
     keep = (d is not None and _axis_size(mesh, "model") > 1
-            and spec[len(shape) + d] == "model")
-    return P(*["model" if keep and i == len(shape) + d else None
-               for i in range(len(shape))])
+            and spec[n + d] == "model")
+    return P(*["model" if keep and i == n + d else None for i in range(n)])
 
 
 def _axes_of(entry) -> Tuple[str, ...]:
@@ -193,14 +231,6 @@ def slot_rows(mesh, x):
     spec = batch_spec(mesh, tuple(x.shape))
     return x if spec[0] is None else \
         x[shard_slices(mesh, spec, tuple(x.shape))[0]]
-
-
-def tp_local(mesh, params: Any):
-    """Whole parameters (every rank the same) cut to what this rank
-    computes with: each weight's slice under `compute_spec`."""
-    return _map_named(lambda name, t: t[shard_slices(
-        mesh, compute_spec(mesh, name, tuple(t.shape)), tuple(t.shape))],
-        params)
 
 
 @dataclasses.dataclass(frozen=True)

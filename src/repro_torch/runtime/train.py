@@ -14,12 +14,17 @@ On a mesh (`make_train_step(..., mesh=...)`) the step computes what the
 reference's sharded `jit` computes, with the state's leaves DTensors
 placed by `runtime/sharding.py: state_shardings`:
 
-- each rank gathers every parameter over the data axes (FSDP's gather,
-  `redistribute`, differentiable, whose adjoint is the reduce-scatter)
-  and keeps its 'model' shard of the weights that the model code
-  multiplies tensor-parallel (`sharding.compute_spec`: column- and
-  row-parallel projections, the vocab-parallel embedding, unembedding
-  and cross entropy); every other weight is gathered whole.  It runs its
+- the model takes the parameter DTensors and gathers each weight over
+  the data axes where it uses it (FSDP's gather, `redistribute`,
+  differentiable, whose adjoint is the reduce-scatter): the leaves
+  outside the unit loop once a step, each unit's one unit at a time
+  inside the remat boundary, so that the recompute gathers again
+  (`runtime/parallel.py`: `gather_params`, `gather_unit`).  It keeps its
+  'model' shard of the weights that the model code multiplies
+  tensor-parallel (`sharding.compute_spec`: column- and row-parallel
+  projections, the Mamba2 mixer's projections, the vocab-parallel
+  embedding, unembedding and cross entropy, the MoE expert stacks at
+  their path's shard); every other weight is gathered whole.  It runs its
   `batch_spec` shard of the batch (its rows over the data axes; a batch
   those axes do not divide raises, since the reference would shard the
   sequence, GSPMD's context parallelism for training, which the port
@@ -35,9 +40,7 @@ placed by `runtime/sharding.py: state_shardings`:
   the reference quantises the global array.
 
 The MoE experts compute through the reference's explicit paths
-(`models/moe.py`), which take the gathered stacks and use their own
-rank's experts; the Mamba2 mixer computes whole width on gathered
-projections.
+(`models/moe.py`) on the shards those paths take.
 """
 
 from __future__ import annotations
@@ -55,8 +58,7 @@ from ..tree import leaves, tree_map
 from .compression import CompressionConfig, compress_decompress
 from .parallel import (axis_size, gather_model, model_slice, pmax, psum,
                        psum_model)
-from .sharding import (_map_named, batch_spec, compute_spec, place,
-                       slot_rows, spec_to_placements, state_shardings)
+from .sharding import batch_spec, place, slot_rows, state_shardings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,34 +192,15 @@ def rank_rows(mesh, x: torch.Tensor) -> torch.Tensor:
     return slot_rows(mesh, x)
 
 
-def gather_params(params, mesh):
-    """What this rank computes with, from parameter DTensors: each one
-    gathered over the data axes (and whole over 'model' unless
-    `compute_spec` keeps its 'model' shard), differentiably: the
-    gradient goes back to the shards summed over the ranks that gathered
-    them.  Plain tensors pass as they are."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-
-    def gather(name, p):
-        if not isinstance(p, DTensor):
-            return p
-        want = spec_to_placements(mesh, compute_spec(mesh, name,
-                                                     tuple(p.shape)))
-        grads = [Partial() if w == Replicate() else w for w in want]
-        return p.redistribute(p.device_mesh, want).to_local(
-            grad_placements=grads)
-
-    return _map_named(gather, params)
-
-
 def mesh_apply(fn, mesh):
-    """fn(params, batch) on a mesh, under `use_mesh(mesh)`: params
-    DTensors gathered for this rank's compute (`gather_params`), batch
-    global, this rank's rows taken (`rank_rows`)."""
+    """fn(params, batch) on a mesh, under `use_mesh(mesh)`: params the
+    DTensors as placed, which the model gathers where it uses them
+    (`runtime/parallel.py`), batch global, this rank's rows taken
+    (`rank_rows`)."""
     def apply(params, batch):
         with use_mesh(mesh):
-            return fn(gather_params(params, mesh),
-                      {k: rank_rows(mesh, v) for k, v in batch.items()})
+            return fn(params, {k: rank_rows(mesh, v)
+                               for k, v in batch.items()})
 
     return apply
 

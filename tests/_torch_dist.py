@@ -96,3 +96,14 @@ def moe_results(got, name):
         sum(r[name]["grads"]["x"] for r in got if r["data_index"] == i)
         for i in (0, 1)]).numpy()
     return y, float(got[0][name]["aux"]), grads
+
+
+def tp_local(mesh, params, moe=None):
+    """Whole parameters (every rank the same) cut to what this rank
+    computes with: each weight's slice under `compute_spec` (`moe`: the
+    path of the MoE blocks' expert stacks), views of the whole leaves."""
+    from repro_torch.runtime.sharding import (_map_named, compute_spec,
+                                              shard_slices)
+    return _map_named(lambda name, t: t[shard_slices(
+        mesh, compute_spec(mesh, name, tuple(t.shape), moe),
+        tuple(t.shape))], params)

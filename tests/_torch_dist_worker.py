@@ -19,9 +19,14 @@ Cases:
 - tp (WORLD ranks): WORKDIR/tp_in.pt names the ("data", "model") mesh
   and the runs, each with its params or the seed to draw them from
   (`seeded_params`): train steps (two AdamW steps
-  of each config from its params), decode steps (a fed token a slot a
-  step: the next tokens and the whole logits) and `serve_loop` runs;
-  each on the mesh, tensor-parallel over 'model'.
+  of each config from its params; a run may name its "remat", its
+  attention "impl" and its MoE "capacity"; on cards each rank's
+  largest `max_memory_allocated` of a step, the state's gathers for the
+  comparison left out), decode steps (a fed token a
+  slot a step: the next tokens and the whole logits; at the run's MoE
+  "capacity"), `serve_loop` runs and prefills (the run's "tokens" and
+  attention "impl": the whole last-position logits and each kernel
+  wrapper's launches on this rank).
 """
 
 import dataclasses
@@ -69,6 +74,8 @@ def case_moe(workdir, device):
     from repro_torch.models import moe
     from repro_torch.runtime.sharding import P, spec_to_placements
 
+    from _torch_dist import tp_local
+
     cfg = moe_cfg()
     data = np.load(workdir / "moe_in.npz")
     world = dist.get_world_size()
@@ -93,17 +100,25 @@ def case_moe(workdir, device):
                           zip([*params, "x"], grads)}}
 
     out = {"data_index": i, "model_index": mesh.index("model")}
-    runs = {"ep": moe.moe_block_expert_parallel, "tp": moe.moe_block_tp_ff}
+    def shards(params, path):
+        # each path takes this rank's shard of the stacks (a view of the
+        # whole leaf, whose gradient is zero off the shard)
+        return dict(params, **tp_local(mesh, {"moe": {
+            k: params[k] for k in ("w_gate", "w_up", "w_down")}},
+            path)["moe"])
+
+    runs = {"ep": (moe.moe_block_expert_parallel, "expert"),
+            "tp": (moe.moe_block_tp_ff, "tp_ff")}
     for cf in (8.0, 1.25):
         ctx = ParallelContext(capacity_factor=cf)
-        for name, fn in runs.items():
+        for name, (fn, path) in runs.items():
             params, x = tensors()
             with use_mesh(mesh), parallel_context(ctx):
-                y, aux = fn(params, x, cfg, ctx)
+                y, aux = fn(shards(params, path), x, cfg, ctx)
             out[f"{name}_{cf}"] = record(y, aux, params, x)
     params, x = tensors()
     with use_mesh(mesh):
-        y, aux = moe.moe_block(params, x, cfg)
+        y, aux = moe.moe_block(shards(params, "dropless"), x, cfg)
     out["gspmd"] = record(y, aux, params, x)
 
     if world == 8:
@@ -223,13 +238,14 @@ def case_tp(workdir, device):
             return dev(run["params"])
         return seeded_params(run["cfg"], run["params"], device)
 
-    out = {"train": {}, "decode": {}, "serve": {}}
+    out = {"train": {}, "decode": {}, "prefill": {}, "serve": {}}
     for name, run in spec.get("train", {}).items():
         ctx = ParallelContext(capacity_factor=run.get("capacity", 1.25))
         with use_mesh(mesh), parallel_context(ctx):
             opt = OptimizerConfig(**run["opt"])
             step_fn, _ = make_train_step(run["cfg"], TrainConfig(
-                optimizer=opt, remat=False,
+                optimizer=opt, remat=run.get("remat", False),
+                attention_impl=run.get("impl", "auto"),
                 aux_loss_weight=run.get("aux", 0.01),
                 loss_impl=run.get("loss_impl", "onehot")), device, mesh=mesh)
             params = weights(run)
@@ -242,9 +258,13 @@ def case_tp(workdir, device):
             # "states", and no other rank's (their whole states are the
             # same gathers); else each rank's after the last, in "state"
             every = run.get("every_step", False)
-            losses, states = [], []
+            losses, states, peak = [], [], 0
             for batch in run["batches"]:
+                if device == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
                 state, m = step_fn(state, dev(batch))
+                if device == "cuda":
+                    peak = max(peak, torch.cuda.max_memory_allocated())
                 losses.append(float(m["loss"]))
                 if every:
                     whole = full(state)
@@ -252,6 +272,8 @@ def case_tp(workdir, device):
                         states.append(tree_map(lambda t: t.cpu(), whole))
                     del whole
             res = {"losses": losses}
+            if device == "cuda":
+                res["max_memory_allocated"] = peak
             if every:
                 res["states"] = states
             else:
@@ -259,7 +281,8 @@ def case_tp(workdir, device):
             out["train"][name] = res
     for name, run in spec.get("decode", {}).items():
         cfg, feed = run["cfg"], run["feed"].to(device)
-        with use_mesh(mesh), parallel_context(ParallelContext()):
+        ctx = ParallelContext(capacity_factor=run.get("capacity", 1.25))
+        with use_mesh(mesh), parallel_context(ctx):
             _, step, init_cache = make_serve_fns(
                 cfg, ServeConfig(max_len=run["max_len"]), device, mesh)
             params = weights(run)
@@ -276,6 +299,23 @@ def case_tp(workdir, device):
                 logits.append(gather_slots(mesh, lg, feed.shape[0]).cpu())
         out["decode"][name] = {"tokens": torch.cat(toks, 1),
                                "logits": torch.cat(logits, 1)}
+    for name, run in spec.get("prefill", {}).items():
+        from repro_torch.kernels.rmsnorm.ops import rmsnorm
+        from repro_torch.kernels.ssd.ops import ssd
+        cfg, tokens = run["cfg"], run["tokens"].to(device)
+        with use_mesh(mesh), parallel_context(ParallelContext()):
+            prefill, _, _ = make_serve_fns(cfg, ServeConfig(
+                max_len=tokens.shape[1], attention_impl=run["impl"]),
+                device, mesh)
+            params = weights(run)
+            placed = place(params, params_shardings(mesh, params))
+            ssd.launches = rmsnorm.launches = 0
+            lg = prefill(placed, {"tokens": tokens})
+            launches = {"ssd": ssd.launches, "rmsnorm": rmsnorm.launches}
+            if lg.shape[-1] != cfg.vocab_size:
+                lg = all_gather(lg, mesh, ("model",), -1)
+            lg = gather_slots(mesh, lg, tokens.shape[0])
+        out["prefill"][name] = {"logits": lg.cpu(), "launches": launches}
     for name, run in spec.get("serve", {}).items():
         res, _ = serve_loop(weights(run), run["cfg"],
                             ServeConfig(max_len=run["max_len"]),

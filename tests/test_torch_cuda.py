@@ -692,15 +692,18 @@ def _states_close(got, want, opt, where, readings):
 
 def test_tensor_parallel_full_width_smollm_across_four_cards(tmp_path):
     """Full-width smollm-360m in float32 (TF32 off) on four cards, one
-    NCCL rank each: two AdamW train steps (4 x 256 tokens each) on (1, 4)
-    and (2, 2) meshes equal the meshless steps on one card (losses 1e-5
+    NCCL rank each: two AdamW train steps (4 x 256 tokens each, remat on,
+    as the step runs by default: each unit's weights gathered in the
+    forward and again in the recompute) on (1, 4) and (2, 2) meshes
+    equal the meshless steps on one card (losses 1e-5
     relative; rank 0's whole state after each step as `_states_close`),
     and on (2, 2) `serve_loop` (4 requests on 4 slots) gives the meshless
     loop's tokens.  At full width 15 heads do not divide 'model', so the
     projections are gathered and every rank attends with every head; the
     vocabulary (49152) is vocab-parallel.  Prints each leaf's readings,
-    one JSON line each (run with -s).  Skips on fewer than four cards
-    (run it with four)."""
+    and each rank's largest `max_memory_allocated` of a step (the
+    weights gathered one unit at a time), one JSON line each (run with
+    -s).  Skips on fewer than four cards (run it with four)."""
     import dataclasses
     import json
 
@@ -725,7 +728,7 @@ def test_tensor_parallel_full_width_smollm_across_four_cards(tmp_path):
                         vocab_size=cfg.vocab_size), i).items()}
         for i in (0, 1)]
     train = {"smollm": {"cfg": cfg, "opt": opt, "batches": batches,
-                        "params": 0, "every_step": True}}
+                        "params": 0, "every_step": True, "remat": True}}
     serve = {"smollm": {"cfg": cfg, "params": 1, "slots": 4, "max_new": 6,
                         "max_len": 32,
                         "queue": make_requests(4, cfg.vocab_size)}}
@@ -742,7 +745,7 @@ def test_tensor_parallel_full_width_smollm_across_four_cards(tmp_path):
     params = seeded_params(cfg, 0, dev)
     old = {"/".join(p): t.cpu() for p, t in named_leaves(params)}
     ocfg = OptimizerConfig(**opt)
-    step, _ = make_train_step(cfg, TrainConfig(optimizer=ocfg, remat=False),
+    step, _ = make_train_step(cfg, TrainConfig(optimizer=ocfg, remat=True),
                               dev)
     state = {"params": params, "opt": build_optimizer(ocfg).init(params),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -759,7 +762,9 @@ def test_tensor_parallel_full_width_smollm_across_four_cards(tmp_path):
                                 run["slots"], run["max_new"], dev)
     for rank in got[(2, 2)]:
         assert rank["serve"]["smollm"] == want_tokens
-    readings = []
+    readings = [dict(where=f"{shape}", rank=r, max_memory_allocated=rank[
+        "train"]["smollm"]["max_memory_allocated"])
+        for shape, ranks in got.items() for r, rank in enumerate(ranks)]
     try:
         for shape, ranks in got.items():
             for r, rank in enumerate(ranks):
@@ -775,3 +780,135 @@ def test_tensor_parallel_full_width_smollm_across_four_cards(tmp_path):
     assert any(not torch.equal(last[f"params/{n}"], t)
                for n, t in old.items())
     assert dataclasses.asdict(cfg)["n_heads"] % 4      # heads split
+
+
+def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
+    """Reduced mixtral (expert-parallel on (2, 2): its 8 experts divide
+    'model', each rank gathers its 4 experts of a unit over 'data') and
+    reduced zamba2 (its super-units gathered one at a time, the mixers'
+    projections at their 'model' shard, the decode on the rank's shard
+    of the state) and reduced smollm (each MLP unit broadcast from the
+    'model' rank that holds it, the rules reading its stack as an
+    expert stack) on a (2, 2) mesh of four cards, one NCCL rank each:
+    two float32 AdamW steps (remat on; TF32 off; zamba2 and smollm on
+    the plain routes, as the SSD kernel has no backward) equal the steps on one
+    card (losses
+    1e-5 relative, optimizer state 1e-3 of each leaf's largest, both
+    steps being ill-conditioned in float32 as the CPU test shows, params
+    within two steps), and
+    6 fed decode steps give the one card's tokens, logits within 1e-3
+    (`tests/test_torch_unit_gather.py`'s bounds on the CPU).  MoE at
+    capacity 8.0 with the aux loss off, against the dropless path.
+    zamba2's float32 prefill on the kernel routes (each rank's mixers
+    on 4 of the 8 heads: the SSD kernel on those heads, the RMSNorm
+    kernel on the gated output gathered over 'model') gives the one
+    card's last-position logits within 1e-3 and launches each kernel as
+    often as the one card.  Prints, as `readings:` lines, each arch's
+    largest optimizer-state error over its leaf's largest beside the
+    1e-3 bound.  Skips on fewer than four cards (run it with four)."""
+    import json
+
+    from _torch_dist import finish, start_ranks
+
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.optim.optimizers import (OptimizerConfig,
+                                              build_optimizer)
+    from repro_torch.runtime.serve import ServeConfig, make_serve_fns
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+    from repro_torch.tree import named_leaves
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards (one NCCL rank each)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    opt = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+    rng = np.random.default_rng(3)
+    train, decode = {}, {}
+    for name in ("mixtral-8x22b", "zamba2-2.7b", "smollm-360m"):
+        cfg = reduced(ARCHS[name])
+        moe = bool(cfg.n_experts)
+        batches = [{k: torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (4, 16)).astype(np.int32))
+            for k in ("tokens", "labels")} for _ in range(2)]
+        train[name] = {"cfg": cfg, "opt": opt, "batches": batches,
+                       "params": 0, "capacity": 8.0 if moe else 1.25,
+                       "aux": 0.0 if moe else 0.01, "remat": True,
+                       "impl": "auto" if moe else "naive"}
+        decode[name] = {"cfg": cfg, "params": 1, "max_len": 16,
+                        "capacity": 8.0, "feed": torch.from_numpy(
+                            rng.integers(0, cfg.vocab_size, (4, 6)).astype(
+                                np.int32))}
+    zcfg = reduced(ARCHS["zamba2-2.7b"])
+    prefill = {"zamba2-2.7b": {"cfg": zcfg, "params": 2, "impl": "auto",
+                               "tokens": torch.from_numpy(rng.integers(
+                                   0, zcfg.vocab_size, (4, 64)).astype(
+                                       np.int32))}}
+    torch.save({"mesh": (2, 2), "train": train, "decode": decode,
+                "prefill": prefill}, tmp_path / "tp_in.pt")
+    got = finish(start_ranks("tp", 4, tmp_path, "cuda"), 600)
+    from _torch_dist_worker import seeded_params
+    for name, run in train.items():
+        cfg = run["cfg"]
+        ocfg = OptimizerConfig(**opt)
+        step, _ = make_train_step(cfg, TrainConfig(
+            optimizer=ocfg, remat=True, aux_loss_weight=run["aux"],
+            attention_impl=run["impl"]), dev)
+        params = seeded_params(cfg, 0, dev)
+        state = {"params": params, "opt": build_optimizer(ocfg).init(params),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        losses = []
+        for b in run["batches"]:
+            state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        want = {"/".join(p): t.cpu() for p, t in named_leaves(state)}
+        worst = max((float((rank["train"][name]["state"][leaf] - w).abs()
+                           .max()) / max(float(w.abs().max()), 1e-30), leaf)
+                    for rank in got for leaf, w in want.items()
+                    if leaf.startswith("opt/"))
+        print("readings:", json.dumps(dict(
+            arch=name, mesh=[2, 2], worst_opt_leaf=worst[1],
+            max_abs_err_over_leaf_max=worst[0], bound=1e-3)))
+        for rank in got:
+            res = rank["train"][name]
+            np.testing.assert_allclose(res["losses"], losses, rtol=1e-5)
+            for leaf, w in want.items():
+                g = res["state"][leaf]
+                if leaf.startswith("opt/") or leaf == "step":
+                    atol = 1e-3 * float(w.abs().max())
+                    torch.testing.assert_close(g, w, rtol=0, atol=atol,
+                                               msg=f"{name} {leaf}")
+                else:
+                    assert float((g - w).abs().max()) <= 2.2e-3, leaf
+        run = decode[name]
+        _, dstep, init_cache = make_serve_fns(
+            cfg, ServeConfig(max_len=run["max_len"]), dev)
+        params = seeded_params(cfg, 1, dev)
+        feed = run["feed"].to(dev)
+        cache = init_cache(feed.shape[0])
+        toks, logits = [], []
+        for pos in range(feed.shape[1]):
+            nxt, lg, cache = dstep(params, cache, feed[:, pos:pos + 1], pos)
+            toks.append(nxt.cpu())
+            logits.append(lg[:, -1:].cpu())
+        for rank in got:
+            res = rank["decode"][name]
+            torch.testing.assert_close(res["logits"], torch.cat(logits, 1),
+                                       rtol=0, atol=1e-3)
+            assert torch.equal(res["tokens"], torch.cat(toks, 1)), name
+        del params, cache, state
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssd.ops import ssd
+    run = prefill["zamba2-2.7b"]
+    fill, _, _ = make_serve_fns(zcfg, ServeConfig(
+        max_len=run["tokens"].shape[1], attention_impl="auto"), dev)
+    ssd.launches = rmsnorm.launches = 0
+    want = fill(seeded_params(zcfg, 2, dev),
+                {"tokens": run["tokens"].to(dev)}).cpu()
+    launches = {"ssd": ssd.launches, "rmsnorm": rmsnorm.launches}
+    for rank in got:
+        res = rank["prefill"]["zamba2-2.7b"]
+        print("readings:", json.dumps(dict(
+            arch="zamba2-2.7b prefill", mesh=[2, 2],
+            launches=res["launches"], one_card_launches=launches,
+            max_abs_err=float((res["logits"] - want).abs().max()))))
+        torch.testing.assert_close(res["logits"], want, rtol=0, atol=1e-3)
+        assert res["launches"] == launches and min(launches.values()) > 0

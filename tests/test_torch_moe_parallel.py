@@ -255,8 +255,9 @@ def test_launcher_path_on_one_rank_matches_reference(batch, seq):
 
 
 def _chosen(monkeypatch, mesh_shape, cfg, B, S, rows):
-    """(the reference's path, the port's path) for x of (B, S) tokens
-    (the port's rank holding B / rows of them) on a stub mesh."""
+    """(the reference's path, the port's path: `moe_path`'s) for x of
+    (B, S) tokens (the port's rank holding B / rows of them) on a stub
+    mesh."""
     picks = []
     for name in ("moe_block_expert_parallel", "moe_block_tp_ff",
                  "moe_block_gspmd"):
@@ -267,13 +268,13 @@ def _chosen(monkeypatch, mesh_shape, cfg, B, S, rows):
         monkeypatch.setattr(moe, name, mark)
     monkeypatch.setattr(jmoe, "get_abstract_mesh",
                         lambda: _Stub(**mesh_shape))
-    import repro_torch.runtime.parallel as par
-    monkeypatch.setattr(par, "all_gather", lambda x, mesh, axes: x)
-    monkeypatch.setattr(par, "axis_index", lambda mesh, axes: 0)
     with jax_context(JContext()):
         jmoe.moe_block({}, np.zeros((B, S, 1)), cfg)
     with use_mesh(_Stub(**mesh_shape)), parallel_context(ParallelContext()):
-        moe.moe_block({}, torch.zeros(B // rows, S, 1), cfg)
+        path = moe.moe_path(cfg, torch.zeros(B // rows, S, 1))
+    picks.append({"expert": "moe_block_expert_parallel",
+                  "tp_ff": "moe_block_tp_ff",
+                  "dropless": "moe_block_gspmd"}[path])
     return picks
 
 

@@ -41,9 +41,15 @@ and the JAX package's compiled sharded programs.
 - `serve_loop` on four gloo ranks, a (2, 2) mesh with 4 slots, gives
   the meshless loop's tokens for smollm and for mamba2.
 - The per-rank FLOPs and collective bytes by op on a fake (2, 4) group
-  are pinned; the meshless count over the per-rank count is 8 for the
-  train step of smollm and chatglm3 and for smollm's 4-slot decode, at
-  least the reference's `cost_analysis` ratio on the same cells.
+  are pinned (smollm's train step also under remat, whose recompute
+  gathers each unit's weights again, mixtral's, whose expert stacks are
+  gathered at the expert-parallel path's shard, mamba2's, whose mixer
+  projections are column- and row-parallel, and kimi-k2's 4-slot
+  decode, whose dropless path multiplies the stacks as placed); the
+  meshless count
+  over the per-rank count is 8 for the dense train steps and for
+  smollm's 4-slot decode, at least the reference's `cost_analysis`
+  ratio on the same cells.
 - `decode_partial` over slices of a cache, combined by
   `combine_partials`, equals `sdpa_naive` over the whole cache (1e-6).
 """
@@ -70,12 +76,11 @@ from repro_torch.models.attention import (combine_partials, decode_partial,
 from repro_torch.optim.optimizers import OptimizerConfig, build_optimizer
 from repro_torch.runtime.parallel import ParallelContext, parallel_context
 from repro_torch.runtime.serve import ServeConfig, make_serve_fns
-from repro_torch.runtime.sharding import (P, compute_spec, shard_slices,
-                                          tp_local)
+from repro_torch.runtime.sharding import P, compute_spec, shard_slices
 from repro_torch.runtime.train import TrainConfig, make_train_step
 from repro_torch.tree import named_leaves, tree_map
 
-from _torch_dist import finish, start_ranks
+from _torch_dist import finish, start_ranks, tp_local
 from _torch_parity import both_params, configs, numpy_params, train_batch
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -417,9 +422,9 @@ def _fake_mesh_count(fn):
             return fn(mesh)
 
 
-def _train_count(cfg, mesh=None):
+def _train_count(cfg, mesh=None, remat=False):
     from repro_torch.runtime.sharding import place, state_shardings
-    step, init = make_train_step(cfg, TrainConfig(remat=False),
+    step, init = make_train_step(cfg, TrainConfig(remat=remat),
                                  device="cpu", mesh=mesh)
     with FakeTensorMode():
         state = init(torch.Generator().manual_seed(0))
@@ -445,27 +450,70 @@ def _decode_count(cfg, mesh=None):
     return RL.count(step, params, cache, tok, 255)[0]
 
 
-#: rank 0's collective bytes by op on the fake (2, 4) group
+#: rank 0's collective bytes by op on the fake (2, 4) group.  The
+#: weights of reduced smollm's 2 units, gathered over 'data' at their
+#: 'model' shard (bf16): per unit wq and wo 64 x 16 (2048 B each), wk
+#: and wv 64 x 8 (1024 B each), w_up, w_gate and w_down 64 x 32 (4096 B
+#: each), 18432 B; 36864 B for both, and the forward's gathers of
+#: activations 32768 B more; the gradients reduce-scattered back to the
+#: halves, 18432 B.  Under remat the recompute gathers the weights and
+#: the activations again (2 x (36864 + 32768)); the reduce-scatter runs
+#: once.  Reduced mixtral's expert stacks (2 units, 8 experts of
+#: 64 x 32, 'model' on the experts, 'data' on d) take the
+#: expert-parallel path at 4 x 64 tokens: each rank gathers its 2
+#: experts of each stack over 'data', 2 x 64 x 32 x 2 B = 8192 B, 49152
+#: B for the 6 stacks (whole stacks gathered over both axes moved 294912
+#: B), and reduce-scatters 24576 B of their gradients.  Reduced mamba2's
+#: mixers (2 units; 2 x 64 tokens a rank, bf16): `in_proj`'s 74 of 296
+#: columns and `out_proj`'s 32 of 128 rows gathered over 'data', 9472 +
+#: 4096 B a unit (27136 B; 13568 B reduce-scattered back), the fused
+#: output gathered over 'model', 2 x 64 x 296 x 2 B = 75776 B a unit,
+#: and the gated output of the rank's 2 heads gathered over 'model' for
+#: the norm, 2 x 64 x 128 x 2 B = 32768 B a unit; all-reduce a unit:
+#: `out_proj`'s row-parallel sum forward and back (2 x 16384 B) and the
+#: two gathers' adjoints (75776 + 32768 B), 282624 B for both, beside
+#: the vocabulary's 52132 B.  Reduced kimi-k2's 4-slot
+#: decode takes the dropless path on the stacks as placed (2 of 8
+#: experts a rank on 'model', 32 of d = 64 on 'data'; its 8 routed rows
+#: gathered whole): gate's and up's partial products (8 x 32 bf16, 512
+#: B) summed over 'model' and 'data', down's over 'model', 2560 B of
+#: all-reduce a unit, and down's output gathered over 'data' (8 x 64,
+#: 1024 B a unit); whole stacks gathered moved 316000 B of all-gather.
 PINNED = {
     ("smollm-360m", "train"): {"all-gather": 69632.0,
                                "all-reduce": 208676.0,
                                "reduce-scatter": 18432.0},
+    ("smollm-360m", "train-remat"): {"all-gather": 139264.0,
+                                     "all-reduce": 241444.0,
+                                     "reduce-scatter": 18432.0},
+    ("mamba2-130m", "train"): {"all-gather": 244224.0,
+                               "all-reduce": 334756.0,
+                               "reduce-scatter": 13568.0},
+    ("mixtral-8x22b", "train"): {"all-gather": 129024.0,
+                                 "all-reduce": 185156.0,
+                                 "all-to-all": 83200.0,
+                                 "reduce-scatter": 31744.0},
     ("chatglm3-6b", "train"): {"all-gather": 69632.0,
                                "all-reduce": 217892.0,
                                "reduce-scatter": 18432.0},
     ("smollm-360m", "decode"): {"all-gather": 42592.0, "all-reduce": 1280.0},
+    ("kimi-k2-1t-a32b", "decode"): {"all-gather": 23136.0,
+                                    "all-reduce": 5888.0},
 }
 
 
 @pytest.mark.parametrize("arch, mode", list(PINNED))
 def test_per_rank_counts_on_2x4(runs, arch, mode):
     cfg = reduced(ARCHS[arch])
-    counter = _train_count if mode == "train" else _decode_count
-    whole = counter(cfg)
+    counter = {"train": _train_count, "decode": _decode_count,
+               "train-remat": lambda c, m=None: _train_count(c, m, True)}[mode]
     rank = _fake_mesh_count(lambda mesh: counter(cfg, mesh))
-    assert whole.flops == 8 * rank.flops
     assert rank.coll_per_op == PINNED[(arch, mode)]
-    if arch == "smollm-360m":
+    if cfg.n_experts or cfg.ssm_state:
+        return      # expert buckets; the mixers' conv and scan run whole
+    whole = counter(cfg)
+    assert whole.flops == 8 * rank.flops
+    if arch == "smollm-360m" and mode in ("train", "decode"):
         mesh_flops, meshless = runs[2][f"{mode}_flops"]
         assert whole.flops / rank.flops >= meshless / mesh_flops > 5
 
@@ -507,9 +555,24 @@ def test_compute_spec_keeps_model_on_the_tensor_parallel_dims():
         P(None, None, None)
     assert compute_spec(m, "units/b1/mlp/w_up", (2, 64, 128)) == \
         P(None, None, "model")
-    # an MoE block's stacks keep their expert paths; norms stay whole
-    assert compute_spec(m, "units/b1/moe/w_up", (2, 8, 64, 32)) == \
-        P(None, None, None, None)
+    # an MoE block's stacks: their path's spec, 'model' on the experts
+    # (expert-parallel) or on the hidden dim (TP-ff), as placed for the
+    # dropless path, and none without a path; norms stay whole
+    assert compute_spec(m, "units/b1/moe/w_up", (2, 8, 64, 32),
+                        "expert") == P(None, "model", None, None)
+    assert compute_spec(m, "units/b1/moe/w_up", (2, 8, 64, 32),
+                        "tp_ff") == P(None, None, None, "model")
+    assert compute_spec(m, "units/b1/moe/w_down", (2, 8, 32, 64),
+                        "tp_ff") == P(None, None, "model", None)
+    assert compute_spec(m, "units/b1/moe/w_up", (2, 8, 64, 32),
+                        "dropless") == P(None, "model", "data", None)
+    with pytest.raises(ValueError):
+        compute_spec(m, "units/b1/moe/w_up", (2, 8, 64, 32))
+    # the Mamba2 mixer: column-parallel in_proj, row-parallel out_proj
+    assert compute_spec(m, "units/b0/mamba/in_proj", (2, 64, 296)) == \
+        P(None, None, "model")
+    assert compute_spec(m, "units/b0/mamba/out_proj", (2, 128, 64)) == \
+        P(None, "model", None)
     assert compute_spec(m, "units/b0/norm/scale", (2, 64)) == P(None, None)
     assert shard_slices(m, P(("data", "model"), None), (16, 3)) == \
         (slice(12, 14), slice(0, 3))
