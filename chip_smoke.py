@@ -55,7 +55,14 @@ Phases, each of which fails the run (exit code 1, no result line):
    matches the uninterrupted run bit for bit, and a profile of 3 steps
    (`launch/profile.py`: the plain attention backward's share).
    Phase 2 also holds the RMSNorm backward kernel to `rmsnorm_bwd_ref`,
-   and phase 2b times it;
+   and phase 2b times it; and the split-row RMSNorm entry
+   (`rmsnorm_split`, the split-heads Mamba2 mixer's gated norm on a
+   'model' of several ranks) to its plain version and to the whole-row
+   norm, one rank's columns fed with the rows' other squares summed on
+   the card, and times it at zamba2's pod-rank (2048 x 320 of 5120) and
+   four-card (2048 x 1280) shapes beside its bound and F.rms_norm over
+   the whole row; its launches on the main paths (0: on one card no
+   path splits heads) are on the kernels line;
 6. distribution, on the 1-rank group's host mesh (1, 1), as the
    launchers run it (`--mesh host`, under the default ParallelContext):
    6a. mixtral-8x22b at published widths, depth 56 -> 4, launch counters
@@ -336,8 +343,11 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.flash_attention.ops import _ref_call
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
-    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+    from repro_torch.kernels.rmsnorm.ops import (rmsnorm, rmsnorm_bwd,
+                                                 rmsnorm_split)
+    from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_ref,
+                                                 rmsnorm_ref,
+                                                 rmsnorm_split_ref)
     from repro_torch.kernels.ssd.ops import ssd
     from repro_torch.kernels.ssd.ref import ssd_plain, ssd_ref
 
@@ -464,6 +474,43 @@ def phase_kernels(torch, dev):
                 if (dname == "bfloat16" and sdtype == torch.bfloat16
                         and shape == (8192, 960)):
                     rn_bwd_err = err
+
+    # the split-row entry (the split-heads Mamba2 mixer's gated norm): one
+    # rank's columns of rows `whole` wide, the other columns' squares added
+    # on this card where the mixer's psum over 'model' adds the other
+    # ranks'; zamba2's pod-rank (5 heads of 64) and four-card (20 heads)
+    # columns, decode's 2 rows, a block whose start is not 16-byte aligned
+    # (the scalar kernels) and a narrow one; both dtypes.  (rows, columns,
+    # whole width, first column)
+    rs_cases = [(2048, 320, 5120, 1600), (2048, 1280, 5120, 0),
+                (2, 320, 5120, 4800), (33, 100, 300, 100),
+                (257, 384, 1536, 384)]
+    rs_err = None
+    for dname, dtype in dts.items():
+        atol, rtol = RN_TOL[dname]
+        for rows, d, whole, c0 in rs_cases:
+            xw = randn((rows, whole), dtype)
+            sw = torch.linspace(0.5, 1.5, whole, device=dev).to(dtype)
+            xl, sl = xw[:, c0:c0 + d], sw[c0:c0 + d]
+            other = torch.cat([xw[:, :c0], xw[:, c0 + d:]], -1).float()
+            other = (other * other).sum(-1)
+
+            def sum_rows(ss, other=other):
+                return ss + other
+
+            out = rmsnorm_split(xl, sl, whole, sum_rows)
+            ref = rmsnorm_split_ref(xl, sl, whole, sum_rows)
+            whole_ref = rmsnorm_ref(xw, sw)[:, c0:c0 + d]
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            check(close(torch, out, ref, atol, rtol)
+                  and close(torch, out, whole_ref, atol, rtol),
+                  f"rmsnorm_split {dname} columns {c0}:{c0 + d} of {rows} "
+                  f"rows x {whole}: max err {err:.3g} against its plain "
+                  f"version, {max_err(out, whole_ref):.3g} against the "
+                  f"whole row's norm (atol {atol}, rtol {rtol})")
+            if dname == "bfloat16" and (rows, d) == (2048, 320):
+                rs_err = err
 
     def ssd_inputs(b, L, H, P, N, dtype, steep=False):
         x = (0.5 * randn((b, L, H, P), torch.float32)).to(dtype)
@@ -620,6 +667,29 @@ def phase_kernels(torch, dev):
         rn_shapes.append({"shape": [rows, d], "ms": k_ms, "library_ms": l_ms,
                           "bound_ms": bnd, "bound_by": by})
 
+    # the split-row entry at zamba2's prefill rows (2 x 1024) on a pod
+    # rank's 5 heads and a four-card rank's 20 (columns of rows 5120
+    # wide), the sum over ranks left out (one card): the kernel pair, its
+    # plain version, and F.rms_norm over the whole row, the nearest
+    # library call
+    rs_shapes = []
+    for rows, d in ((2048, 320), (2048, 1280)):
+        xr = randn((rows, d), torch.bfloat16)
+        sr = torch.linspace(0.5, 1.5, d, device=dev).to(torch.bfloat16)
+        xw = randn((rows, 5120), torch.bfloat16)
+        sw = torch.linspace(0.5, 1.5, 5120, device=dev).to(torch.bfloat16)
+        k_ms, host_us = cuda_ms(torch, lambda: rmsnorm_split(
+            xr, sr, 5120, lambda ss: ss), 200)
+        p_ms, _ = cuda_ms(torch, lambda: rmsnorm_split_ref(
+            xr, sr, 5120, lambda ss: ss), 200)
+        l_ms, _ = cuda_ms(torch, lambda: F.rms_norm(xw, (5120,), sw, 1e-6),
+                          200)
+        flops, nbytes, bnd, by = rn_cost(rows, d)
+        rs_shapes.append({"shape": [rows, d], "whole": 5120, "ms": k_ms,
+                          "plain_ms": p_ms, "library_ms": l_ms,
+                          "bound_ms": bnd, "bound_by": by, "flops": flops,
+                          "bytes": nbytes, "host_us": host_us})
+
     fa_shapes = []  # the new phases' prefill attention, bf16
     for name, B, S, T, H, K, D, causal in FA_MODEL_CASES:
         mq = randn((B, S, H, D), torch.bfloat16)
@@ -678,6 +748,12 @@ def phase_kernels(torch, dev):
         print(f"  rmsnorm {r['shape'][0]} x {r['shape'][1]}: {r['ms']:.5f} ms, "
               f"F.rms_norm {r['library_ms']:.5f} ms, bound "
               f"{r['bound_ms']:.5f} by {r['bound_by']}", flush=True)
+    for r in rs_shapes:
+        print(f"  rmsnorm_split {r['shape'][0]} x {r['shape'][1]} of "
+              f"{r['whole']}: {r['ms']:.5f} ms (plain {r['plain_ms']:.5f}, "
+              f"F.rms_norm of the whole row {r['library_ms']:.5f}, bound "
+              f"{r['bound_ms']:.5f} by {r['bound_by']}; host us "
+              f"{r['host_us']:.1f})", flush=True)
     print(f"  rmsnorm backward 8192 x 960: {rn_bwd_ms:.5f} ms (plain "
           f"{rn_bwd_plain_ms:.5f}, {rn_bwd_lib} {rn_bwd_lib_ms:.5f}, bound "
           f"{rn_bwd_bound:.5f} by {rn_bwd_by}; host us {rn_bwd_host_us:.1f}); "
@@ -721,7 +797,25 @@ def phase_kernels(torch, dev):
             "bwd_plain_ms": rn_bwd_plain_ms, "bwd_bound_ms": rn_bwd_bound,
             "bwd_bound_by": rn_bwd_by, "bwd_library_ms": rn_bwd_lib_ms,
             "bwd_library": rn_bwd_lib, "bwd_host_us": rn_bwd_host_us,
-            "bwd_flops": rn_bwd_flops, "bwd_bytes": rn_bwd_bytes},
+            "bwd_flops": rn_bwd_flops, "bwd_bytes": rn_bwd_bytes,
+            # the split-row entry: its two kernels around the caller's sum
+            # of one float a row over 'model' (launched where a mesh's
+            # 'model' splits the Mamba2 mixer's heads, which no one-card
+            # path does: the four-card test in tests/test_torch_cuda.py
+            # counts it there)
+            "split": {
+                "name": "rmsnorm_split",
+                "shape": "x (2048,320) of rows 5120 wide bf16 (a pod "
+                         "rank's 5 heads), the rows' squares summed on "
+                         "the card",
+                "max_abs_err": rs_err, "tolerance": RN_TOL["bfloat16"],
+                "ms": rs_shapes[0]["ms"],
+                "plain_ms": rs_shapes[0]["plain_ms"],
+                "bound_ms": rs_shapes[0]["bound_ms"],
+                "bound_by": rs_shapes[0]["bound_by"],
+                "library_ms": rs_shapes[0]["library_ms"],
+                "library": "F.rms_norm over the whole row (2048,5120)",
+                "model_shapes": rs_shapes}},
         "ssd": {
             "name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
@@ -2353,6 +2447,7 @@ def main():
         return 1
     try:
         from repro_torch.kernels import KERNELS, _build
+        from repro_torch.kernels.rmsnorm.ops import rmsnorm
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is not next to this "
               f"script ({e})", file=sys.stderr)
@@ -2374,6 +2469,9 @@ def main():
                 print(f"  [{name}] {line.strip()}")
 
     kernels = phase_kernels(torch, dev)
+    # the split-row entry's launches over every main path below (phases
+    # 3-9; none of them splits heads over 'model' on one card)
+    rmsnorm.split_launches = 0
     grouped_mm = phase_grouped_mm(torch, dev)
     metrics, counts = phase_main_paths(torch, dev)
     metrics["grouped_mm"] = grouped_mm
@@ -2398,6 +2496,7 @@ def main():
         by_path = {arch: c[name] for arch, c in counts.items()}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
+    kernels["rmsnorm"]["split"]["launches"] = rmsnorm.split_launches
     kernels["rmsnorm"]["bwd_launches"] = sum(
         counts[path]["rmsnorm.bwd"]
         for path in ("smollm-360m-train", "smollm-360m-train-mesh",

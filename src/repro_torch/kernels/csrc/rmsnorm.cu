@@ -24,6 +24,18 @@
 // (16384 bf16, 8192 fp32), takes `rmsnorm_scalar`: one warp a row, scalar
 // loads, the row read twice.
 //
+// A row split over ranks (`rmsnorm_sumsq`, `rmsnorm_apply`): the Mamba2
+// mixer's gated norm when 'model' splits its heads, each rank holding its
+// heads' columns of every row.  The norm needs the whole row's mean of
+// squares, so it runs as two launches with the caller's all-reduce of one
+// fp32 a row between them: pass 1 stores each row's sum of squares over
+// the local columns, pass 2 scales by rsqrt(ss / d_total + eps) and the
+// rank's slice of the weight.  Both are the forward kernel above with the
+// other half compiled out (`Mode`): the same row layout, so pass 2 reads
+// x again (one more read of the rank's columns than a whole-row norm,
+// which the collective in between makes unavoidable).  Bound: memory;
+// 2 reads and 1 write an element, plus 4 bytes a row each way.
+//
 // Backward (`rmsnorm_bwd`, for training).  The JAX package has no backward
 // kernel; its training path takes `jax.vjp` of the plain norm
 // (`repro/models/layers.py:35-39`), and this is that gradient.
@@ -79,11 +91,19 @@ template <> struct Vec<8> { uint2 v; };
 template <> struct Vec<16> { uint4 v; };
 template <> struct alignas(16) Vec<32> { uint4 v[2]; };
 
-template <typename T, typename S, int VPL, int RPT>
+// What a forward launch does with a row (the split row's two passes run
+// the whole-row kernel's code with one half compiled out).
+enum Mode {
+  kNorm = 0,   // whole row: sum of squares, then scale and store
+  kSumSq = 1,  // split row, pass 1: store the fp32 sum of squares only
+  kApply = 2,  // split row, pass 2: scale by rsqrt(ss[row] / d_norm + eps)
+};
+
+template <typename T, typename S, int VPL, int RPT, int MODE>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_vec(const T* __restrict__ x, const S* __restrict__ scale,
             T* __restrict__ out, long long rows, int d, long long x_stride,
-            float eps, int tpr) {
+            float eps, int tpr, float* __restrict__ ss_io, int d_norm) {
   constexpr int kV = 16 / sizeof(T);  // elements per 16-byte vector of x
   typedef Vec<kV * sizeof(S)> SV;
   __shared__ float red[RPT][kThreads / 32];
@@ -97,7 +117,7 @@ rmsnorm_vec(const T* __restrict__ x, const S* __restrict__ scale,
 #pragma unroll
   for (int k = 0; k < VPL; ++k) {
     const int i = lane + k * tpr;
-    if (row0 < rows && i < nv) sv[k] = sr[i];
+    if (MODE != kSumSq && row0 < rows && i < nv) sv[k] = sr[i];
 #pragma unroll
     for (int rr = 0; rr < RPT; ++rr) {
       const long long row = row0 + rr;
@@ -107,37 +127,50 @@ rmsnorm_vec(const T* __restrict__ x, const S* __restrict__ scale,
     }
   }
   float ss[RPT];
+  if (MODE == kApply) {
 #pragma unroll
-  for (int rr = 0; rr < RPT; ++rr) {
-    ss[rr] = 0.f;
-#pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      const T* e = reinterpret_cast<const T*>(&xv[rr][k]);
-#pragma unroll
-      for (int j = 0; j < kV; ++j) {
-        const float f = to_f(e[j]);
-        ss[rr] += f * f;
-      }
-    }
-    ss[rr] = warp_sum(ss[rr]);
-  }
-  if (tpr > 32) {  // uniform over the block
-    if ((threadIdx.x & 31) == 0)
-#pragma unroll
-      for (int rr = 0; rr < RPT; ++rr) red[rr][threadIdx.x >> 5] = ss[rr];
-    __syncthreads();
-    const int w0 = (sub * tpr) >> 5;
+    for (int rr = 0; rr < RPT; ++rr)
+      ss[rr] = row0 + rr < rows ? ss_io[row0 + rr] : 0.f;
+  } else {
 #pragma unroll
     for (int rr = 0; rr < RPT; ++rr) {
       ss[rr] = 0.f;
-      for (int w = 0; w < (tpr >> 5); ++w) ss[rr] += red[rr][w0 + w];
+#pragma unroll
+      for (int k = 0; k < VPL; ++k) {
+        const T* e = reinterpret_cast<const T*>(&xv[rr][k]);
+#pragma unroll
+        for (int j = 0; j < kV; ++j) {
+          const float f = to_f(e[j]);
+          ss[rr] += f * f;
+        }
+      }
+      ss[rr] = warp_sum(ss[rr]);
     }
+    if (tpr > 32) {  // uniform over the block
+      if ((threadIdx.x & 31) == 0)
+#pragma unroll
+        for (int rr = 0; rr < RPT; ++rr) red[rr][threadIdx.x >> 5] = ss[rr];
+      __syncthreads();
+      const int w0 = (sub * tpr) >> 5;
+#pragma unroll
+      for (int rr = 0; rr < RPT; ++rr) {
+        ss[rr] = 0.f;
+        for (int w = 0; w < (tpr >> 5); ++w) ss[rr] += red[rr][w0 + w];
+      }
+    }
+  }
+  if (MODE == kSumSq) {
+    if (lane == 0)
+#pragma unroll
+      for (int rr = 0; rr < RPT; ++rr)
+        if (row0 + rr < rows) ss_io[row0 + rr] = ss[rr];
+    return;
   }
 #pragma unroll
   for (int rr = 0; rr < RPT; ++rr) {
     const long long row = row0 + rr;
     if (row >= rows) break;
-    const float r = rsqrtf(ss[rr] / (float)d + eps);
+    const float r = rsqrtf(ss[rr] / (float)d_norm + eps);
     uint4* orow = reinterpret_cast<uint4*>(out + row * (long long)d);
 #pragma unroll
     for (int k = 0; k < VPL; ++k) {
@@ -157,73 +190,90 @@ rmsnorm_vec(const T* __restrict__ x, const S* __restrict__ scale,
 
 constexpr int kScalarWarps = 8;
 
-template <typename T, typename S>
+template <typename T, typename S, int MODE>
 __global__ void __launch_bounds__(32 * kScalarWarps)
 rmsnorm_scalar(const T* __restrict__ x, const S* __restrict__ scale,
                T* __restrict__ out, long long rows, int d,
-               long long x_stride, float eps) {
+               long long x_stride, float eps, float* __restrict__ ss_io,
+               int d_norm) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kScalarWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const T* xr = x + row * x_stride;
   T* orow = out + row * (long long)d;
   float ss = 0.f;
-  for (int i = lane; i < d; i += 32) { float f = to_f(xr[i]); ss += f * f; }
-  ss = warp_sum(ss);
-  const float r = rsqrtf(ss / (float)d + eps);
+  if (MODE == kApply) {
+    ss = ss_io[row];
+  } else {
+    for (int i = lane; i < d; i += 32) { float f = to_f(xr[i]); ss += f * f; }
+    ss = warp_sum(ss);
+  }
+  if (MODE == kSumSq) {
+    if (lane == 0) ss_io[row] = ss;
+    return;
+  }
+  const float r = rsqrtf(ss / (float)d_norm + eps);
   for (int i = lane; i < d; i += 32)
     orow[i] = from_f<T>(to_f(xr[i]) * r * to_f(scale[i]));
 }
 
-template <typename T, typename S, int VPL, int RPT>
+template <typename T, typename S, int VPL, int RPT, int MODE>
 void launch_vec(const void* x, const void* scale, void* out, long long rows,
-                int d, long long x_stride, float eps, int tpr,
-                cudaStream_t stream) {
+                int d, long long x_stride, float eps, int tpr, float* ss_io,
+                int d_norm, cudaStream_t stream) {
   const long long per_block = (long long)(kThreads / tpr) * RPT;
   const dim3 grid((unsigned)((rows + per_block - 1) / per_block));
-  rmsnorm_vec<T, S, VPL, RPT><<<grid, kThreads, 0, stream>>>(
-      (const T*)x, (const S*)scale, (T*)out, rows, d, x_stride, eps, tpr);
+  rmsnorm_vec<T, S, VPL, RPT, MODE><<<grid, kThreads, 0, stream>>>(
+      (const T*)x, (const S*)scale, (T*)out, rows, d, x_stride, eps, tpr,
+      ss_io, d_norm);
 }
 
-template <typename T, typename S, int RPT>
+template <typename T, typename S, int RPT, int MODE>
 void launch_vpl(int vpl, const void* x, const void* scale, void* out,
                 long long rows, int d, long long x_stride, float eps, int tpr,
-                cudaStream_t st) {
+                float* ss, int dn, cudaStream_t st) {
   switch (vpl) {
-    case 1: launch_vec<T, S, 1, RPT>(x, scale, out, rows, d, x_stride, eps, tpr, st); break;
-    case 2: launch_vec<T, S, 2, RPT>(x, scale, out, rows, d, x_stride, eps, tpr, st); break;
-    case 3: launch_vec<T, S, 3, RPT>(x, scale, out, rows, d, x_stride, eps, tpr, st); break;
-    case 4: launch_vec<T, S, 4, RPT>(x, scale, out, rows, d, x_stride, eps, tpr, st); break;
-    case 5: launch_vec<T, S, 5, RPT>(x, scale, out, rows, d, x_stride, eps, tpr, st); break;
-    case 6: launch_vec<T, S, 6, RPT>(x, scale, out, rows, d, x_stride, eps, tpr, st); break;
-    case 7: launch_vec<T, S, 7, RPT>(x, scale, out, rows, d, x_stride, eps, tpr, st); break;
-    default: launch_vec<T, S, 8, RPT>(x, scale, out, rows, d, x_stride, eps, tpr, st); break;
+    case 1: launch_vec<T, S, 1, RPT, MODE>(x, scale, out, rows, d, x_stride, eps, tpr, ss, dn, st); break;
+    case 2: launch_vec<T, S, 2, RPT, MODE>(x, scale, out, rows, d, x_stride, eps, tpr, ss, dn, st); break;
+    case 3: launch_vec<T, S, 3, RPT, MODE>(x, scale, out, rows, d, x_stride, eps, tpr, ss, dn, st); break;
+    case 4: launch_vec<T, S, 4, RPT, MODE>(x, scale, out, rows, d, x_stride, eps, tpr, ss, dn, st); break;
+    case 5: launch_vec<T, S, 5, RPT, MODE>(x, scale, out, rows, d, x_stride, eps, tpr, ss, dn, st); break;
+    case 6: launch_vec<T, S, 6, RPT, MODE>(x, scale, out, rows, d, x_stride, eps, tpr, ss, dn, st); break;
+    case 7: launch_vec<T, S, 7, RPT, MODE>(x, scale, out, rows, d, x_stride, eps, tpr, ss, dn, st); break;
+    default: launch_vec<T, S, 8, RPT, MODE>(x, scale, out, rows, d, x_stride, eps, tpr, ss, dn, st); break;
   }
 }
 
-template <typename T, typename S>
+// One forward launch in `MODE`: the vector kernel where the row's layout
+// allows it, else the scalar one.  `ss_io` is the split row's fp32 sums
+// (written by kSumSq, read by kApply; unused by kNorm), `d_norm` the
+// width the sum of squares is divided by (d for a whole row).
+template <typename T, typename S, int MODE>
 int launch(const void* x, const void* scale, void* out, long long rows, int d,
-           long long x_stride, float eps, cudaStream_t stream) {
+           long long x_stride, float eps, float* ss_io, int d_norm,
+           cudaStream_t stream) {
   constexpr int kV = 16 / sizeof(T);
   const int nv = d / kV;
   const bool vec = d % kV == 0 && x_stride % kV == 0 &&
                    nv <= kMaxVpl * kThreads &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+                   (MODE == kSumSq ||
+                    (reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0));
   if (!vec) {
     const dim3 grid((unsigned)((rows + kScalarWarps - 1) / kScalarWarps));
-    rmsnorm_scalar<T, S><<<grid, 32 * kScalarWarps, 0, stream>>>(
-        (const T*)x, (const S*)scale, (T*)out, rows, d, x_stride, eps);
+    rmsnorm_scalar<T, S, MODE><<<grid, 32 * kScalarWarps, 0, stream>>>(
+        (const T*)x, (const S*)scale, (T*)out, rows, d, x_stride, eps, ss_io,
+        d_norm);
     return (int)cudaGetLastError();
   }
   int tpr = 32;
   while (nv > kTargetVpl * tpr && tpr < kThreads) tpr *= 2;
   const int vpl = (nv + tpr - 1) / tpr;
   if (nv >= kPairFrom)
-    launch_vpl<T, S, 2>(vpl, x, scale, out, rows, d, x_stride, eps, tpr, stream);
+    launch_vpl<T, S, 2, MODE>(vpl, x, scale, out, rows, d, x_stride, eps, tpr, ss_io, d_norm, stream);
   else
-    launch_vpl<T, S, 1>(vpl, x, scale, out, rows, d, x_stride, eps, tpr, stream);
+    launch_vpl<T, S, 1, MODE>(vpl, x, scale, out, rows, d, x_stride, eps, tpr, ss_io, d_norm, stream);
   return (int)cudaGetLastError();
 }
 
@@ -491,13 +541,47 @@ int rmsnorm_fwd(const void* x, const void* scale, void* out, long long rows,
   if (rows == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (x_dtype == 0 && scale_dtype == 0)
-    return launch<float, float>(x, scale, out, rows, d, x_stride, eps, s);
+    return launch<float, float, kNorm>(x, scale, out, rows, d, x_stride, eps, nullptr, d, s);
   if (x_dtype == 0 && scale_dtype == 1)
-    return launch<float, __nv_bfloat16>(x, scale, out, rows, d, x_stride, eps, s);
+    return launch<float, __nv_bfloat16, kNorm>(x, scale, out, rows, d, x_stride, eps, nullptr, d, s);
   if (x_dtype == 1 && scale_dtype == 0)
-    return launch<__nv_bfloat16, float>(x, scale, out, rows, d, x_stride, eps, s);
+    return launch<__nv_bfloat16, float, kNorm>(x, scale, out, rows, d, x_stride, eps, nullptr, d, s);
   if (x_dtype == 1 && scale_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(x, scale, out, rows, d, x_stride, eps, s);
+    return launch<__nv_bfloat16, __nv_bfloat16, kNorm>(x, scale, out, rows, d, x_stride, eps, nullptr, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// A row split over ranks, pass 1: ss[i] = the fp32 sum of squares of this
+// rank's d columns of row i (ss: rows floats).
+int rmsnorm_sumsq(const void* x, float* ss, long long rows, int d,
+                  long long x_stride, int x_dtype, void* stream) {
+  if (rows == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_dtype == 0)
+    return launch<float, float, kSumSq>(x, nullptr, nullptr, rows, d, x_stride, 0.f, ss, d, s);
+  if (x_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, kSumSq>(x, nullptr, nullptr, rows, d, x_stride, 0.f, ss, d, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Pass 2, after the caller has summed ss over the ranks: out = x *
+// rsqrt(ss[i] / d_total + eps) * scale in fp32, cast to x's type; scale is
+// this rank's d entries of the weight.
+int rmsnorm_apply(const void* x, const void* scale, const float* ss,
+                  void* out, long long rows, int d, long long x_stride,
+                  int d_total, float eps, int x_dtype, int scale_dtype,
+                  void* stream) {
+  if (rows == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* io = const_cast<float*>(ss);  // read only in kApply
+  if (x_dtype == 0 && scale_dtype == 0)
+    return launch<float, float, kApply>(x, scale, out, rows, d, x_stride, eps, io, d_total, s);
+  if (x_dtype == 0 && scale_dtype == 1)
+    return launch<float, __nv_bfloat16, kApply>(x, scale, out, rows, d, x_stride, eps, io, d_total, s);
+  if (x_dtype == 1 && scale_dtype == 0)
+    return launch<__nv_bfloat16, float, kApply>(x, scale, out, rows, d, x_stride, eps, io, d_total, s);
+  if (x_dtype == 1 && scale_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16, kApply>(x, scale, out, rows, d, x_stride, eps, io, d_total, s);
   return (int)cudaErrorInvalidValue;
 }
 

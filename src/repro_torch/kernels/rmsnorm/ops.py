@@ -11,17 +11,24 @@ whose backward launches the backward kernel (`rmsnorm_bwd`: dx and
 dscale, r recomputed from x); `rmsnorm.bwd_launches` counts it.  On a
 CPU tensor autograd differentiates `rmsnorm_ref`; `rmsnorm_bwd_ref` is
 the backward written out, which the card's kernel is held to.
+
+`rmsnorm_split` is the norm of a row split by columns over ranks (the
+Mamba2 mixer's gated norm where 'model' splits its heads): one kernel
+writes each row's fp32 sum of squares over the local columns, the
+caller's `sum_rows` adds them over the ranks (an all-reduce of one
+float a row), and a second kernel scales the rank's columns.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import torch
 
 from .. import _build, reject_dtensor
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_ref, rmsnorm_split_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: blocks of the backward's first kernel per SM (each writes one fp32
@@ -45,6 +52,23 @@ def _bind():
                        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_float,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return lib, fwd, bwd
+
+
+@functools.cache
+def _bind_split():
+    lib = _build.load("rmsnorm")
+    sumsq = lib.rmsnorm_sumsq
+    sumsq.restype = ctypes.c_int
+    sumsq.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                      ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                      ctypes.c_void_p]
+    apply = lib.rmsnorm_apply
+    apply.restype = ctypes.c_int
+    apply.argtypes = ([ctypes.c_void_p] * 4
+                      + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_void_p])
+    return lib, sumsq, apply
 
 
 @functools.cache
@@ -145,8 +169,67 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return _RMSNorm.apply(x, scale, eps)
 
 
+def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, d_total: int,
+                  sum_rows: Callable[[torch.Tensor], torch.Tensor],
+                  eps: float = 1e-6) -> torch.Tensor:
+    """The norm of rows `d_total` wide split by columns over ranks.  x:
+    (..., d), this rank's d columns of each row; scale: (d,), its slice
+    of the weight; `sum_rows` sums a (rows,) fp32 vector over the ranks
+    that hold the rest of each row (`parallel.psum` over 'model').  Same
+    dtype out as in.
+
+    A CPU tensor takes `rmsnorm_split_ref` (autograd runs through
+    `sum_rows`, whose adjoint, a psum's, is the same sum).  A CUDA
+    tensor launches the sum-of-squares kernel, sums, then launches the
+    scaling kernel (counted together as one `rmsnorm.launches`, as the
+    whole-row norm they stand for, and in `rmsnorm.split_launches`), or
+    raises.  The pair has no backward, so a CUDA input that needs a
+    gradient raises: its only caller on the card is the split-heads
+    Mamba2 mixer, which cannot train there before the SSD kernel has a
+    backward.
+    """
+    reject_dtensor("rmsnorm_split", x, scale)
+    if x.device.type == "cpu":
+        return rmsnorm_split_ref(x, scale, d_total, sum_rows, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_split: no kernel for {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        raise NotImplementedError(
+            "the split-row rmsnorm kernels have no backward; their only "
+            "caller on the card, the split-heads Mamba2 mixer, cannot train "
+            "there before the ssd kernel has one (ROADMAP.md, Queue 2)")
+    d = _check(x, scale)
+    if d_total < d:
+        raise ValueError(f"rmsnorm_split: {d} local columns of rows "
+                         f"{d_total} wide")
+    x2 = _rows(x, d)
+    rows = x2.shape[0]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib, sumsq, apply = _bind_split()
+    ss = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    _build.check(lib, "rmsnorm_sumsq", sumsq(
+        x2.data_ptr(), ss.data_ptr(), rows, d, x2.stride(0),
+        _DTYPES[x.dtype], stream))
+    ss = sum_rows(ss)
+    if ss.shape != (rows,) or ss.dtype != torch.float32 or \
+            ss.device != x.device:
+        raise ValueError(f"rmsnorm_split: sum_rows gave {tuple(ss.shape)} "
+                         f"{ss.dtype} on {ss.device} for {rows} rows")
+    ss = ss.contiguous()
+    out = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
+    _build.check(lib, "rmsnorm_apply", apply(
+        x2.data_ptr(), scale.data_ptr(), ss.data_ptr(), out.data_ptr(), rows,
+        d, x2.stride(0), d_total, eps, _DTYPES[x.dtype],
+        _DTYPES[scale.dtype], stream))
+    rmsnorm.launches += 1
+    rmsnorm.split_launches += 1
+    return out.reshape(x.shape)
+
+
 #: forward kernel launches since the last reset (plain-version calls not
 #: counted; under remat a recomputed forward counts again)
 rmsnorm.launches = 0
 #: backward kernel launches (`rmsnorm_bwd`) since the last reset
 rmsnorm.bwd_launches = 0
+#: `rmsnorm_split` calls on the card (each also one of `launches`)
+rmsnorm.split_launches = 0

@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the fused RMSNorm kernels."""
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -9,6 +9,21 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
                 eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_split_ref(x: torch.Tensor, scale: torch.Tensor, d_total: int,
+                      sum_rows: Callable[[torch.Tensor], torch.Tensor],
+                      eps: float = 1e-6) -> torch.Tensor:
+    """The norm of rows split by columns over ranks: x holds this rank's
+    columns of each row, scale its slice of the weight, d_total the
+    row's whole width; `sum_rows` sums the (rows,) fp32 vector of local
+    sums of squares over the ranks that hold the rest of each row.  Equal
+    to `rmsnorm_ref` of the whole row, cut to the rank's columns, up to
+    the order of the sum."""
+    xf = x.float()
+    ss = sum_rows(torch.sum(xf * xf, dim=-1).reshape(-1))
+    var = ss.reshape(x.shape[:-1] + (1,)) / d_total
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 

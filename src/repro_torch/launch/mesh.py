@@ -43,8 +43,10 @@ class Mesh:
         self.device_mesh = device_mesh
         self.shape: Dict[str, int] = {}
         if device_mesh is not None:
+            # `.shape`, not `.mesh.shape`: newer torch builds the mesh
+            # tensor on each read, which a fake tensor mode refuses
             self.shape = dict(zip(device_mesh.mesh_dim_names,
-                                  map(int, device_mesh.mesh.shape)))
+                                  map(int, device_mesh.shape)))
 
     @property
     def device_type(self) -> str:

@@ -287,17 +287,26 @@ def _fake_mode_of(tree):
 @contextlib.contextmanager
 def _propagation_apart():
     """DTensor's sharding propagation runs each new op on whole-shape fake
-    tensors, under the active fake mode when there is one; MemTracker
-    would count those as the rank's memory (its step's peak read as the
-    whole model's state).  In the body propagation takes a fake mode of
-    its own, which MemTracker leaves out."""
-    import torch.distributed.tensor._sharding_prop as prop
-    detect = prop.detect_fake_mode
-    prop.detect_fake_mode = lambda *a, **k: None
+    tensors; under the count's modes MemTracker would count those as the
+    rank's memory (its step's peak read as the whole model's state), and
+    the other modes their FLOPs and bytes.  In the body propagation runs
+    with every Python dispatch mode popped, under a fake mode of its own,
+    so none of the count's modes sees it.  (A fake mode of its own alone
+    is not enough: torch 2.11's MemTracker, still on the stack, counted
+    the tensors made under it.)"""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    from torch.utils._python_dispatch import _disable_current_modes
+    real = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def apart(self, op_schema):
+        with _disable_current_modes():
+            return real(self, op_schema)
+
+    ShardingPropagator._propagate_tensor_meta_non_cached = apart
     try:
         yield
     finally:
-        prop.detect_fake_mode = detect
+        ShardingPropagator._propagate_tensor_meta_non_cached = real
 
 
 def count(fn, *args, **kwargs) -> Tuple[Roofline, Extras]:

@@ -15,26 +15,27 @@ Every other cast sits where the reference puts it.
 
 On a mesh the mixer computes tensor-parallel over 'model' where the
 rules shard its projections (`sharding.compute_spec`), as the
-reference's compiled (2, 4) program does: `in_proj` column-parallel and
-its fused [z, x, B, C, dt] output gathered over 'model'
-(`parallel.gather_model`; GSPMD moves only the pieces each rank needs,
-by collective-permutes); where 'model' splits `out_proj`'s rows on
-whole heads, each rank then runs its heads of z, x and dt with B and C
-whole (GSPMD splits B and C on the state dimension and sums the scores
-over 'model' instead: the port keeps each head's scan in one SSD kernel
-call), gathers the gated output whole over 'model' for the gated norm
-(GSPMD sums the norm's squares over 'model' instead: the port keeps the
-norm in one RMSNorm kernel call), and multiplies its rows of
-`out_proj`, summed by `psum_model`.  Where 'model' does not
-divide a projection (mamba2-130m's `in_proj`, 3352 columns on 16
-ranks) the rules keep it whole, and where its rows split heads
-(mamba2-130m's 1536 rows: 96 a rank, heads of 64) the conv, the scan and
-the norm run whole on every rank and `out_proj` row-parallel on the
-rank's columns of y.  A serving step hands
-`decode_mamba` the rank's slots of the conv window, whole width, and
-its shard of the state where the rules put 'model' on its heads or its
-head dim: the step updates that shard alone and gathers its part of y
-(`runtime/serve.py: cache_views`).
+reference's compiled (2, 4) program does: `in_proj` column-parallel,
+and where 'model' splits `out_proj`'s rows on whole heads each rank
+runs its heads.  It receives just their columns of z, x and dt, and B
+and C whole, from the ranks that computed them, by one all-to-all over
+'model' (`parallel.move_model_columns`; GSPMD moves the same head
+columns by collective-permutes and all-to-alls, and splits B and C on
+the state dimension, summing the scores over 'model': the port keeps B
+and C whole, so that each head's scan stays one SSD kernel call).  The
+gated norm runs on the rank's columns with the rows' squares summed
+over 'model' (`kernels/rmsnorm/ops.py: rmsnorm_split` on the kernel
+routes, as GSPMD all-reduces them), and `out_proj` multiplies the
+normed columns by the rank's rows, summed by `psum_model`.  Where the
+heads do not split (mamba2-130m's 24 heads on 16 ranks: its 1536 rows
+split 96 a rank, heads of 64) the fused output is gathered whole (or,
+where 'model' does not divide `in_proj`, as mamba2-130m's 3352
+columns on 16 ranks, held whole), the conv, the scan and the norm run
+whole on every rank, and `out_proj` row-parallel on the rank's columns
+of y.  A serving step hands `decode_mamba` the rank's slots of the
+conv window, whole width, and its shard of the state where the rules
+put 'model' on its heads or its head dim (`runtime/serve.py:
+cache_views`): the step updates that shard alone.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..kernels.rmsnorm.ops import rmsnorm_split
+from ..kernels.rmsnorm.ref import rmsnorm_split_ref
 from ..kernels.ssd.ops import ssd
 from .layers import KERNEL_IMPLS, _dense_init, rmsnorm, rmsnorm_init
 
@@ -76,28 +79,82 @@ def _split_proj(cfg: ModelConfig, zxbcdt: torch.Tensor):
     return torch.split(zxbcdt, [dssm, dssm + 2 * N, H], dim=-1)
 
 
-def _in_proj(params: Params, x: torch.Tensor, cfg: ModelConfig):
-    """[z, xBC, dt] of x: column-parallel where the rank holds a 'model'
-    shard of `in_proj`'s columns, the fused output then gathered whole
-    over 'model'."""
-    from ..runtime.parallel import gather_model, model_slice
+def _fused_wants(cfg: ModelConfig, heads: slice):
+    """The (start, stop) ranges of the fused [z, x, B, C, dt] output that
+    a rank running `heads` needs: its heads' columns of z and x, B and C
+    whole, its heads' dt."""
+    dssm, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    h0, h1 = heads.start, heads.stop
+    return ((h0 * P, h1 * P), (dssm + h0 * P, dssm + h1 * P),
+            (2 * dssm, 2 * dssm + 2 * N),
+            (2 * dssm + 2 * N + h0, 2 * dssm + 2 * N + h1))
+
+
+def _in_proj(params: Params, x: torch.Tensor, cfg: ModelConfig,
+             heads: Optional[slice] = None):
+    """[z, xBC, dt] of x.  With `heads` (the rank's, where 'model' splits
+    them), z, x and dt at those heads' columns and B and C whole, else
+    all of each.
+
+    Where the rank holds a 'model' shard of `in_proj`'s columns the
+    product is column-parallel; with `heads` each rank then receives
+    just the columns it needs from the ranks that computed them
+    (`parallel.move_model_columns`: one all-to-all over 'model', as
+    GSPMD reshards the reference's product by collective-permutes and
+    all-to-alls), without them the fused output is gathered whole over
+    'model'.  A whole `in_proj` gives the rank's columns by slicing."""
+    from ..runtime.parallel import (gather_model, model_slice,
+                                    move_model_columns)
+    dssm, N, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     w = params["in_proj"]
-    width = 2 * cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads
+    width = 2 * dssm + 2 * N + cfg.n_ssm_heads
     zxbcdt = x @ w
-    if model_slice("in_proj", w.shape, width) is not None:
-        zxbcdt = gather_model(zxbcdt, -1)
-    return _split_proj(cfg, zxbcdt)
+    split = model_slice("in_proj", w.shape, width) is not None
+    if heads is None:
+        if split:
+            zxbcdt = gather_model(zxbcdt, -1)
+        return _split_proj(cfg, zxbcdt)
+    Hl = heads.stop - heads.start
+    if not split:
+        z, xBC, dt = _split_proj(cfg, zxbcdt)
+        cols = slice(heads.start * P, heads.stop * P)
+        return (z[..., cols],
+                torch.cat([xBC[..., cols], xBC[..., dssm:]], dim=-1),
+                dt[..., heads])
+    n = dssm // (Hl * P)
+    wants = tuple(_fused_wants(cfg, slice(r * Hl, (r + 1) * Hl))
+                  for r in range(n))
+    mine = move_model_columns(zxbcdt, width, wants)
+    return torch.split(mine, [Hl * P, Hl * P + 2 * N, Hl], dim=-1)
 
 
-def _out_proj(params: Params, y: torch.Tensor, cfg: ModelConfig):
-    """y @ out_proj, row-parallel on the rank's columns of y (its rows of
-    `out_proj`) summed over 'model' where the rank holds a shard."""
+def _out_proj(params: Params, y: torch.Tensor, cfg: ModelConfig,
+              at_rows: bool = False):
+    """y @ out_proj, row-parallel where the rank holds a shard of
+    `out_proj`'s rows: on the rank's columns of y, summed over 'model'.
+    `at_rows`: y holds just those columns already (the mixer ran the
+    rank's heads); else y is whole and is sliced to them."""
     from ..runtime.parallel import model_slice, psum_model
     w = params["out_proj"]
     rows = model_slice("out_proj", w.shape, cfg.d_inner)
     if rows is None:
         return y @ w
-    return psum_model(y[..., rows] @ w)
+    return psum_model((y if at_rows else y[..., rows]) @ w)
+
+
+def _gated_norm(params: Params, v: torch.Tensor, cfg: ModelConfig,
+                impl: str, cols: Optional[slice]) -> torch.Tensor:
+    """The gated norm of v = y * silu(z).  With `cols` v holds the rank's
+    columns of each row (its heads): the norm of the split row, its sum
+    of squares added over 'model' (`rmsnorm_split` on the kernel routes,
+    its plain version on the plain ones), as the reference's program
+    all-reduces it; else the whole-row norm (`layers.rmsnorm`)."""
+    if cols is None:
+        return rmsnorm(params["gate_norm"], v, cfg.norm_eps, impl)
+    from ..runtime.parallel import psum_model
+    norm = rmsnorm_split if impl in KERNEL_IMPLS else rmsnorm_split_ref
+    return norm(v, params["gate_norm"]["scale"][cols], cfg.d_inner,
+                psum_model, cfg.norm_eps)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -201,24 +258,25 @@ def mamba_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
     """Full-sequence Mamba2 block. x: (B, L, d) -> (B, L, d).
 
     On a mesh whose 'model' splits `out_proj`'s rows on whole heads the
-    block runs this rank's heads (`_mixer_heads`): their columns of z, x
-    and dt, whole B and C, the conv on their channels and B's and C's,
-    and the scan; the gated output is gathered whole over 'model' for
-    the gated norm, and its rows of `out_proj` are summed over 'model'."""
-    from ..runtime.parallel import gather_model
+    block runs this rank's heads (`_mixer_heads`): it receives their
+    columns of z, x and dt and B and C whole (`_in_proj`), runs the conv
+    on their channels and B's and C's and the scan, norms the gated
+    output's rank's columns with their squares summed over 'model'
+    (`_gated_norm`), and multiplies its rows of `out_proj`, summed over
+    'model'.  Where the heads do not split (H not a multiple of 'model',
+    or a head split by the rows), every rank runs all of them on the
+    fused output gathered whole (or held whole)."""
     B_, L, _ = x.shape
     dssm, N, H, P = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
                      cfg.ssm_head_dim)
-    z, xBC, dt = _in_proj(params, x, cfg)
     hs = _mixer_heads(params, cfg)
     Hl = hs.stop - hs.start
+    cols = slice(hs.start * P, hs.stop * P) if Hl < H else None
+    z, xBC, dt = _in_proj(params, x, cfg, None if cols is None else hs)
     conv_w, conv_b = params["conv_w"], params["conv_b"]
-    if Hl < H:
-        cols = slice(hs.start * P, hs.stop * P)
-        xBC = torch.cat([xBC[..., cols], xBC[..., dssm:]], dim=-1)
+    if cols is not None:
         conv_w = torch.cat([conv_w[:, cols], conv_w[:, dssm:]], dim=-1)
         conv_b = torch.cat([conv_b[cols], conv_b[dssm:]], dim=-1)
-        z, dt = z[..., cols], dt[..., hs]
     xBC = _causal_conv(xBC, conv_w, conv_b)
     xs, Bv, Cv = torch.split(xBC, [Hl * P, N, N], dim=-1)
     dt = _softplus(dt.float() + params["dt_bias"][hs])
@@ -241,10 +299,8 @@ def mamba_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
     y = y + params["D"][hs].to(y.dtype)[:, None] * xh
     y = y.reshape(B_, L, Hl * P)
     v = y * F.silu(z.float()).to(y.dtype)
-    if Hl < H:
-        v = gather_model(v, -1)
-    y = rmsnorm(params["gate_norm"], v, cfg.norm_eps, impl)
-    return _out_proj(params, y, cfg)
+    return _out_proj(params, _gated_norm(params, v, cfg, impl, cols), cfg,
+                     at_rows=cols is not None)
 
 
 # --------------------------------------------------------------------------
@@ -276,7 +332,11 @@ def decode_mamba(params: Params, x: torch.Tensor, cache: Dict,
 
     The state may be this rank's 'model' shard of its heads or its head
     dim (`parallel.cache_model_part`): the step updates that shard and
-    gathers its part of y whole over 'model'."""
+    gathers its part of y whole over 'model'.  Decode gathers the fused
+    output whole too, and norms the whole row: the rules put 'model' on
+    the state's head dim in every registered configuration (zamba2's and
+    mamba2's heads of 64, 16 reduced, on 'model' of 2-16), so no decode
+    step holds just the heads the mixer would split."""
     from ..runtime.parallel import cache_model_part, gather_model
     B_ = x.shape[0]
     dssm, N, H, P = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,

@@ -12,6 +12,14 @@ The step-dependent scalars (`step + 1`, `b1 ** t`, `b2 ** t`,
 device, computed as the reference computes them, so the two agree to the
 ulp and the card is never asked for a host round trip.
 
+On a mesh the leaves are DTensors.  AdamW is elementwise and runs on
+them as DTensor operations; Adafactor updates each rank's own shards,
+as GSPMD compiles the reference's update: its row and column means and
+the RMS clip's mean are local sums added over the mesh axes that split
+them (`runtime/parallel.psum`, all-reduces), so no rank holds a whole
+factored product.  Plain leaves take the reference's arithmetic as it
+is written.
+
 Quirks kept from the reference on purpose: weight decay goes to every
 leaf with `ndim >= 2`, so a norm scale stacked over units, (n_units, d),
 is decayed; Adafactor factors a leaf when its last two dims are both at
@@ -23,7 +31,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
@@ -130,7 +138,109 @@ def _factored(p) -> bool:
     return p.ndim >= 2 and p.shape[-1] >= 128 and p.shape[-2] >= 128
 
 
+def _split_axes(t, mesh) -> Dict[int, Tuple[str, ...]]:
+    """For a DTensor leaf: each dim (counted from 0) mapped to the mesh
+    axes of more than one rank that split it, in the mesh's order."""
+    from torch.distributed.tensor import Shard
+    out: Dict[int, Tuple[str, ...]] = {}
+    for name, pl in zip(mesh.shape, t.placements):
+        if isinstance(pl, Shard) and mesh.shape[name] > 1:
+            d = pl.dim % t.ndim
+            out[d] = out.get(d, ()) + (name,)
+    return out
+
+
+def _without_dim(placements, n: int, d: int) -> tuple:
+    """The placements of a leaf of n dims with dim d reduced away: its
+    shards there become replicas, those of later dims move down one."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for q in placements:
+        k = q.dim % n if isinstance(q, Shard) else None
+        out.append(q if k is None or k < d else
+                   Replicate() if k == d else Shard(k - 1))
+    return tuple(out)
+
+
+def _adafactor_leaf(cfg: OptimizerConfig, p, g, v, lr, beta2):
+    """The Adafactor update of one leaf.  A plain tensor takes the
+    reference's arithmetic as it is written.  A DTensor leaf updates this
+    rank's shards, as GSPMD runs the reference's update on each device:
+    every elementwise term on the local tensors, each mean a local sum
+    added over the mesh axes that split its dim (`parallel.psum`) and
+    divided by the global size, the results wrapped as DTensors at the
+    leaf's (and its state's) placements.  A dim no axis splits is whole
+    here and takes the local mean, the plain arithmetic."""
+    from torch.distributed.tensor import DTensor
+
+    from ..launch.mesh import Mesh
+    from ..runtime.parallel import psum
+    n = p.ndim
+    mesh = Mesh(p.device_mesh) if isinstance(p, DTensor) else None
+    split = _split_axes(p, mesh) if mesh is not None else {}
+    at = tuple(p.placements) if mesh is not None else None
+
+    def local(t, placements):
+        """t's local shard at `placements` (redistributed first where it
+        is placed otherwise); a plain tensor as it is."""
+        if placements is None:
+            return t
+        if tuple(t.placements) != placements:
+            t = t.redistribute(t.device_mesh, placements)
+        return t.to_local()
+
+    def wrap(x, like, placements):
+        if placements is None:
+            return x
+        return DTensor.from_local(x, like.device_mesh, placements,
+                                  run_check=False, shape=like.shape,
+                                  stride=like.stride())
+
+    def mean(x, dim, axes, size):
+        if not axes:
+            return x.mean(dim)
+        return psum(x.sum(dim), mesh, axes) / size
+
+    pl = local(p, at)
+    gl = local(g, at).float()
+    g2 = gl * gl + cfg.decay_offset
+    if _factored(p):
+        rows, cols = split.get(n - 2, ()), split.get(n - 1, ())
+        # `opt_shardings`: vr at the leaf's spec without its last dim, vc
+        # without its second last
+        at_vr = at and _without_dim(at, n, n - 1)
+        at_vc = at and _without_dim(at, n, n - 2)
+        vr = beta2 * local(v["vr"], at_vr) + (1 - beta2) * mean(
+            g2, -1, cols, p.shape[-1])
+        vc = beta2 * local(v["vc"], at_vc) + (1 - beta2) * mean(
+            g2, -2, rows, p.shape[-2])
+        denom = (vr[..., None] * vc[..., None, :]
+                 / torch.clamp(mean(vr, -1, rows, p.shape[-2])[
+                     ..., None, None], min=1e-30))
+        u = gl * torch.rsqrt(denom + 1e-30)
+        nv = {"vr": wrap(vr, v["vr"], at_vr),
+              "vc": wrap(vc, v["vc"], at_vc)}
+    else:
+        vl = beta2 * local(v["v"], at) + (1 - beta2) * g2
+        u = gl * torch.rsqrt(vl + 1e-30)
+        nv = {"v": wrap(vl, v["v"], at)}
+    # update clipping (Adafactor's RMS rule), over the whole leaf
+    every = tuple(a for a in (mesh.shape if mesh is not None else ())
+                  if any(a in axes for axes in split.values()))
+    if every:
+        ms = psum(torch.sum(u * u), mesh, every) / p.numel()
+    else:
+        ms = torch.mean(u * u)
+    u = u / torch.clamp(torch.sqrt(ms + 1e-30), min=1.0)
+    if p.ndim >= 2:
+        u = u + cfg.weight_decay * pl.float()
+    return wrap((pl.float() - lr * u).to(p.dtype), p, at), nv
+
+
 def adafactor(cfg: OptimizerConfig) -> Optimizer:
+    """On a mesh (DTensor leaves) each leaf updates its own shards; plain
+    leaves take the reference's arithmetic as it is written
+    (`_adafactor_leaf`)."""
     def init(params):
         def st(p):
             if _factored(p):
@@ -151,25 +261,7 @@ def adafactor(cfg: OptimizerConfig) -> Optimizer:
         beta2 = 1.0 - t ** -0.8
 
         def upd(p, g, v):
-            g = g.float()
-            g2 = g * g + cfg.decay_offset
-            if _factored(p):
-                vr = beta2 * v["vr"] + (1 - beta2) * g2.mean(-1)
-                vc = beta2 * v["vc"] + (1 - beta2) * g2.mean(-2)
-                denom = (vr[..., None] * vc[..., None, :]
-                         / torch.clamp(vr.mean(-1)[..., None, None],
-                                       min=1e-30))
-                u = g * torch.rsqrt(denom + 1e-30)
-                nv = {"vr": vr, "vc": vc}
-            else:
-                nv = {"v": beta2 * v["v"] + (1 - beta2) * g2}
-                u = g * torch.rsqrt(nv["v"] + 1e-30)
-            # update clipping (Adafactor's RMS rule)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
-            u = u / torch.clamp(rms, min=1.0)
-            if p.ndim >= 2:
-                u = u + cfg.weight_decay * p.float()
-            return (p.float() - lr * u).to(p.dtype), nv
+            return _adafactor_leaf(cfg, p, g, v, lr, beta2)
 
         out = tree_map(upd, params, grads, state["v"])
         return _pick(params, out, 0), {"v": _pick(params, out, 1)}

@@ -31,7 +31,9 @@ backward all-reduce stands where Megatron puts its at the block's input,
 one of the same size each way per block.  Activations a rank needs whole
 (heads that do not divide over 'model', a vocabulary's maximum, a
 sequence-split attention's partials) are gathered by `gather_model` or
-`all_gather`.
+`all_gather`; where each rank needs only some columns of a
+column-parallel output (the split-heads Mamba2 mixer's heads),
+`move_model_columns` brings it just those by one all-to-all.
 
 On a mesh the model takes its parameters as the DTensors the rules
 place (`sharding.param_spec`) and gathers them where it uses them, as
@@ -51,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from typing import Optional, Sequence, Tuple
@@ -283,6 +286,79 @@ def gather_model(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     the ambient mesh's 'model' axis (the adjoint keeps the rank's part of
     the summed gradient)."""
     return all_gather(x, get_abstract_mesh(), ("model",), dim)
+
+
+@functools.lru_cache(maxsize=None)
+def _column_plan(width: int, n: int, me: int, wants: Tuple) -> Tuple:
+    """The all-to-all that brings each rank of a group of n the columns
+    it wants of a tensor `width` wide, split in n equal blocks in rank
+    order: (the local ranges this rank sends, destination-major, the
+    columns sent to each rank, the columns received from each rank)."""
+    block = width // n
+    lo, hi = me * block, (me + 1) * block
+    send, send_counts = [], []
+    for ranges in wants:
+        cut = [(max(a, lo) - lo, min(b, hi) - lo) for a, b in ranges
+               if max(a, lo) < min(b, hi)]
+        send.extend(cut)
+        send_counts.append(sum(b - a for a, b in cut))
+    recv_counts = [sum(max(0, min(b, (s + 1) * block) - max(a, s * block))
+                       for a, b in wants[me]) for s in range(n)]
+    return tuple(send), tuple(send_counts), tuple(recv_counts)
+
+
+class _MoveColumns(torch.autograd.Function):
+    """The columns each rank wants, from the ranks' blocks, by one
+    all-to-all of uneven splits; the adjoint sends the gradients back
+    the same way and adds those of a column sent to several ranks."""
+
+    @staticmethod
+    def forward(ctx, x, group, plan):
+        send, send_counts, recv_counts = plan
+        ctx.group, ctx.plan, ctx.shape = group, plan, x.shape
+        out_dims = tuple(x.shape[:-1])
+        buf = torch.cat([x[..., a:b] for a, b in send], -1) if send else \
+            x.new_empty(out_dims + (0,))
+        buf = buf.movedim(-1, 0).contiguous()
+        out = x.new_empty((sum(recv_counts),) + out_dims)
+        dist.all_to_all_single(out, buf, list(recv_counts),
+                               list(send_counts), group=group)
+        return out.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        send, send_counts, recv_counts = ctx.plan
+        g = g.movedim(-1, 0).contiguous()
+        back = g.new_empty((sum(send_counts),) + tuple(g.shape[1:]))
+        dist.all_to_all_single(back, g, list(send_counts),
+                               list(recv_counts), group=ctx.group)
+        back = back.movedim(0, -1)
+        gx = back.new_zeros(ctx.shape)
+        at = 0
+        for a, b in send:
+            gx[..., a:b] += back[..., at:at + b - a]
+            at += b - a
+        return gx, None, None
+
+
+def move_model_columns(x: torch.Tensor, width: int,
+                       wants: Tuple[Tuple[Tuple[int, int], ...], ...]
+                       ) -> torch.Tensor:
+    """x: (..., width / n), this rank's block of the columns of a tensor
+    `width` wide split in equal blocks over the ambient mesh's 'model'
+    axis (n ranks, a column-parallel product's output).  `wants[r]`: the
+    sorted, disjoint (start, stop) ranges of columns rank r of 'model'
+    needs.  Returns (..., its count) this rank's, in order, moved by one
+    all-to-all over 'model' (the split sizes worked out once from the
+    shapes), differentiably."""
+    mesh = get_abstract_mesh()
+    n, me = mesh.shape["model"], mesh.index("model")
+    if len(wants) != n or x.shape[-1] * n != width:
+        raise ValueError(f"move_model_columns: {x.shape[-1]} of {width} "
+                         f"columns, wants of {len(wants)} ranks, {n} on "
+                         f"'model'")
+    return _MoveColumns.apply(x, mesh.group("model"),
+                              _column_plan(width, n, me, wants))
 
 
 # --------------------------------------------------------------------------

@@ -33,9 +33,10 @@ placed by `runtime/sharding.py: state_shardings`:
   gradients' reduction back to the parameters' shards gives the mean
   over the global batch (`runtime/parallel.py`: the collectives'
   adjoints are those of a sum of the ranks' losses);
-- the optimizer updates the shards (DTensor operations: the global
-  gradient norm and Adafactor's means reduce across the shards), and
-  the new state is placed by the same shardings (`out_shardings`);
+- the optimizer updates the shards (AdamW as DTensor operations, the
+  global gradient norm reducing across the shards; Adafactor on each
+  rank's local shards, its means summed over the axes that split them),
+  and the new state is placed by the same shardings (`out_shardings`);
 - with compression, each gradient is gathered whole and quantised as
   the reference quantises the global array.
 

@@ -18,15 +18,16 @@ Cases:
   Adafactor steps with 2 microbatches from a fresh state.
 - tp (WORLD ranks): WORKDIR/tp_in.pt names the ("data", "model") mesh
   and the runs, each with its params or the seed to draw them from
-  (`seeded_params`): train steps (two AdamW steps
-  of each config from its params; a run may name its "remat", its
+  (`seeded_params`): train steps (two steps of each config from its
+  params, by the optimizer its "opt" names, AdamW unless it says
+  otherwise, the state placed for it; a run may name its "remat", its
   attention "impl" and its MoE "capacity"; on cards each rank's
   largest `max_memory_allocated` of a step, the state's gathers for the
   comparison left out), decode steps (a fed token a
   slot a step: the next tokens and the whole logits; at the run's MoE
   "capacity"), `serve_loop` runs and prefills (the run's "tokens" and
   attention "impl": the whole last-position logits and each kernel
-  wrapper's launches on this rank).
+  wrapper's launches on this rank, the split-row RMSNorm's apart).
 """
 
 import dataclasses
@@ -253,7 +254,7 @@ def case_tp(workdir, device):
                      "opt": build_optimizer(opt).init(params),
                      "step": torch.zeros((), dtype=torch.int32,
                                          device=device)}
-            state = place(state, state_shardings(mesh, state, "adamw"))
+            state = place(state, state_shardings(mesh, state, opt.name))
             # every_step: rank 0's whole state after each step, in
             # "states", and no other rank's (their whole states are the
             # same gathers); else each rank's after the last, in "state"
@@ -309,13 +310,15 @@ def case_tp(workdir, device):
                 device, mesh)
             params = weights(run)
             placed = place(params, params_shardings(mesh, params))
-            ssd.launches = rmsnorm.launches = 0
+            ssd.launches = rmsnorm.launches = rmsnorm.split_launches = 0
             lg = prefill(placed, {"tokens": tokens})
             launches = {"ssd": ssd.launches, "rmsnorm": rmsnorm.launches}
+            split = rmsnorm.split_launches
             if lg.shape[-1] != cfg.vocab_size:
                 lg = all_gather(lg, mesh, ("model",), -1)
             lg = gather_slots(mesh, lg, tokens.shape[0])
-        out["prefill"][name] = {"logits": lg.cpu(), "launches": launches}
+        out["prefill"][name] = {"logits": lg.cpu(), "launches": launches,
+                                "split_launches": split}
     for name, run in spec.get("serve", {}).items():
         res, _ = serve_loop(weights(run), run["cfg"],
                             ServeConfig(max_len=run["max_len"]),

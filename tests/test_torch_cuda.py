@@ -782,6 +782,17 @@ def test_tensor_parallel_full_width_smollm_across_four_cards(tmp_path):
     assert dataclasses.asdict(cfg)["n_heads"] % 4      # heads split
 
 
+#: full-width float32 zamba2-2.7b's last-position logits on a (1, 4)
+#: mesh against one card: the row-parallel sums and the split norm's
+#: squares add over 'model' in another order, float32 rounding that 54
+#: random-init layers carry to the logits.  9.19e-4 seen on four H100s
+#: (logits up to 4.93); a 1e-7 relative change of the embedding alone
+#: moves them by 2.68e-3 (logits up to 7.68; `tests/_torch_perturb.py`
+#: at full width on an H100 machine's CPU, plain routes).  The bound is
+#: about three times the reading, just over the one-point change.
+FULL_ZAMBA2_ATOL = 3e-3
+
+
 def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
     """Reduced mixtral (expert-parallel on (2, 2): its 8 experts divide
     'model', each rank gathers its 4 experts of a unit over 'data') and
@@ -801,11 +812,19 @@ def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
     capacity 8.0 with the aux loss off, against the dropless path.
     zamba2's float32 prefill on the kernel routes (each rank's mixers
     on 4 of the 8 heads: the SSD kernel on those heads, the RMSNorm
-    kernel on the gated output gathered over 'model') gives the one
-    card's last-position logits within 1e-3 and launches each kernel as
-    often as the one card.  Prints, as `readings:` lines, each arch's
+    kernel on the rank's columns of the gated output, the rows' squares
+    summed over 'model') gives the one card's last-position logits within
+    1e-3 and launches each kernel as often as the one card.  Then
+    full-width float32 zamba2-2.7b's prefill of 2 x 1024 tokens (phase
+    3c's) on a (1, 4) mesh on the kernel routes, 20 of its 80 heads a
+    rank, gives the one card's last-position logits within
+    FULL_ZAMBA2_ATOL, each rank launching SSD and RMSNorm as often as the
+    one card, both more than 0.  In both prefills each rank's gated norms
+    are the split-row pair, one a mixer (`rmsnorm.split_launches` equals
+    the config's layers, 12 and 54; the one card's is 0).  Prints, as `readings:` lines, each arch's
     largest optimizer-state error over its leaf's largest beside the
-    1e-3 bound.  Skips on fewer than four cards (run it with four)."""
+    1e-3 bound, and each prefill's error.  Skips on fewer than four cards
+    (run it with four)."""
     import json
 
     from _torch_dist import finish, start_ranks
@@ -900,15 +919,51 @@ def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
     run = prefill["zamba2-2.7b"]
     fill, _, _ = make_serve_fns(zcfg, ServeConfig(
         max_len=run["tokens"].shape[1], attention_impl="auto"), dev)
-    ssd.launches = rmsnorm.launches = 0
+    ssd.launches = rmsnorm.launches = rmsnorm.split_launches = 0
     want = fill(seeded_params(zcfg, 2, dev),
                 {"tokens": run["tokens"].to(dev)}).cpu()
     launches = {"ssd": ssd.launches, "rmsnorm": rmsnorm.launches}
+    assert rmsnorm.split_launches == 0
     for rank in got:
         res = rank["prefill"]["zamba2-2.7b"]
         print("readings:", json.dumps(dict(
             arch="zamba2-2.7b prefill", mesh=[2, 2],
             launches=res["launches"], one_card_launches=launches,
+            split_launches=res["split_launches"],
             max_abs_err=float((res["logits"] - want).abs().max()))))
         torch.testing.assert_close(res["logits"], want, rtol=0, atol=1e-3)
         assert res["launches"] == launches and min(launches.values()) > 0
+        assert res["split_launches"] == zcfg.n_layers
+    del want
+    torch.cuda.empty_cache()
+    # 3c at full width in float32 on (1, 4): 20 of zamba2-2.7b's 80 heads a
+    # rank, the split-row RMSNorm kernels on its 1280 columns
+    fcfg = ARCHS["zamba2-2.7b"]
+    tokens = torch.from_numpy(rng.integers(0, fcfg.vocab_size, (2, 1024))
+                              .astype(np.int32))
+    work = tmp_path / "1x4"
+    work.mkdir()
+    torch.save({"mesh": (1, 4), "prefill": {"zamba2-full": {
+        "cfg": fcfg, "params": 3, "impl": "auto", "tokens": tokens}}},
+        work / "tp_in.pt")
+    full = finish(start_ranks("tp", 4, work, "cuda"), 600)
+    fill, _, _ = make_serve_fns(fcfg, ServeConfig(
+        max_len=tokens.shape[1], attention_impl="auto"), dev)
+    ssd.launches = rmsnorm.launches = rmsnorm.split_launches = 0
+    want = fill(seeded_params(fcfg, 3, dev),
+                {"tokens": tokens.to(dev)}).cpu()
+    launches = {"ssd": ssd.launches, "rmsnorm": rmsnorm.launches}
+    assert rmsnorm.split_launches == 0
+    for rank in full:
+        res = rank["prefill"]["zamba2-full"]
+        print("readings:", json.dumps(dict(
+            arch="zamba2-2.7b full-width float32 prefill 2 x 1024",
+            mesh=[1, 4], launches=res["launches"],
+            one_card_launches=launches,
+            split_launches=res["split_launches"], bound=FULL_ZAMBA2_ATOL,
+            max_abs_logit=float(want.abs().max()),
+            max_abs_err=float((res["logits"] - want).abs().max()))))
+        torch.testing.assert_close(res["logits"], want, rtol=0,
+                                   atol=FULL_ZAMBA2_ATOL)
+        assert res["launches"] == launches and min(launches.values()) > 0
+        assert res["split_launches"] == fcfg.n_layers

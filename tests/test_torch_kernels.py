@@ -23,8 +23,9 @@ from repro_torch.kernels.flash_attention.ops import (_tma_ready,
                                                      flash_attention,
                                                      tc_block_k)
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_plain
-from repro_torch.kernels.rmsnorm.ops import rmsnorm
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
+from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_split
+from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_ref, rmsnorm_ref,
+                                             rmsnorm_split_ref)
 
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -235,6 +236,55 @@ def test_rmsnorm_backward_ref_matches_autograd_and_jax_vjp(dtype, shape):
         assert (err <= ds_atol.numpy() + ds_rtol * np.abs(want)).all()
     torch.testing.assert_close(dx.float(), xa.grad.float(), atol=TOL[dtype],
                                rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 64, 128), (300, 96)])
+@pytest.mark.parametrize("ranks", [2, 4])
+def test_split_row_rmsnorm_equals_the_whole_row_norm(dtype, shape, ranks):
+    """`rmsnorm_split` (a CPU tensor: `rmsnorm_split_ref`) of each of
+    `ranks` column blocks of the rows, its `sum_rows` adding the other
+    blocks' sums of squares as the 'model' psum does (its adjoint the
+    same sum: the gradients of every block's squares flow back to that
+    block), equals `rmsnorm_ref` of the whole rows, forward and gradient
+    of x and the scale, within the file's tolerances (float32 sums in
+    another order; bf16 rounds an fp32 result once).  On a mesh the
+    mixer's sum is `parallel.psum` over 'model': the gloo meshes of
+    `test_torch_unit_gather.py` hold those steps to the meshless ones."""
+    rng = np.random.default_rng(7)
+    _, x = _both(rng.standard_normal(shape), dtype)
+    _, scale = _both(1.0 + 0.3 * rng.standard_normal(shape[-1]), dtype)
+    _, g = _both(rng.standard_normal(shape), dtype)
+    d = shape[-1]
+    w = d // ranks
+    xa, sa = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    want = rmsnorm_ref(xa, sa)
+    want_dx, want_ds = torch.autograd.grad(want, (xa, sa), g)
+    xb, sb = x.clone().requires_grad_(), scale.clone().requires_grad_()
+    blocks = [xb[..., r * w:(r + 1) * w] for r in range(ranks)]
+
+    def sum_rows(r):
+        def add(ss):
+            return ss + sum(torch.sum(b.float() ** 2, dim=-1).reshape(-1)
+                            for i, b in enumerate(blocks) if i != r)
+        return add
+
+    n0 = rmsnorm.launches
+    got = torch.cat([rmsnorm_split(blocks[r], sb[r * w:(r + 1) * w], d,
+                                   sum_rows(r)) for r in range(ranks)], -1)
+    assert rmsnorm.launches == n0           # the plain version on the CPU
+    assert got.dtype == x.dtype and got.shape == x.shape
+    dx, ds = torch.autograd.grad(got, (xb, sb), g)
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    for a, b in ((got, want), (dx, want_dx)):
+        torch.testing.assert_close(a.float(), b.float(), atol=TOL[dtype],
+                                   rtol=rtol)
+    ds_atol, ds_rtol = dscale_bound(x, g, dtype)
+    err = (ds.float() - want_ds.float()).abs()
+    assert bool((err <= ds_atol + ds_rtol * want_ds.float().abs()).all())
+    assert torch.equal(
+        rmsnorm_split(blocks[0], sb[:w], d, sum_rows(0)),
+        rmsnorm_split_ref(blocks[0], sb[:w], d, sum_rows(0)))
 
 
 def test_wrappers_on_cpu_are_the_plain_versions_and_count_nothing():

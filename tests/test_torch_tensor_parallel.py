@@ -212,12 +212,13 @@ def _batches(cfg):
     return [train_batch(cfg, S, B, "float32", step=i)[1] for i in (0, 1)]
 
 
-def _train_meshless(cfg, params, batches, aux=0.01, loss_impl="onehot"):
+def _train_meshless(cfg, params, batches, aux=0.01, loss_impl="onehot",
+                    opt=OPT):
     step_fn, _ = make_train_step(cfg, TrainConfig(
-        optimizer=OptimizerConfig(**OPT), remat=False, aux_loss_weight=aux,
+        optimizer=OptimizerConfig(**opt), remat=False, aux_loss_weight=aux,
         loss_impl=loss_impl), "cpu")
     state = {"params": params,
-             "opt": build_optimizer(OptimizerConfig(**OPT)).init(params),
+             "opt": build_optimizer(OptimizerConfig(**opt)).init(params),
              "step": torch.zeros((), dtype=torch.int32)}
     losses = []
     for batch in batches:
@@ -466,13 +467,15 @@ def _decode_count(cfg, mesh=None):
 #: B), and reduce-scatters 24576 B of their gradients.  Reduced mamba2's
 #: mixers (2 units; 2 x 64 tokens a rank, bf16): `in_proj`'s 74 of 296
 #: columns and `out_proj`'s 32 of 128 rows gathered over 'data', 9472 +
-#: 4096 B a unit (27136 B; 13568 B reduce-scattered back), the fused
-#: output gathered over 'model', 2 x 64 x 296 x 2 B = 75776 B a unit,
-#: and the gated output of the rank's 2 heads gathered over 'model' for
-#: the norm, 2 x 64 x 128 x 2 B = 32768 B a unit; all-reduce a unit:
-#: `out_proj`'s row-parallel sum forward and back (2 x 16384 B) and the
-#: two gathers' adjoints (75776 + 32768 B), 282624 B for both, beside
-#: the vocabulary's 52132 B.  Reduced kimi-k2's 4-slot
+#: 4096 B a unit (27136 B; 13568 B reduce-scattered back); the rank's
+#: columns of the fused output moved over 'model' by one all-to-all
+#: (`parallel.move_model_columns`): rank 0 receives its 2 heads' z and
+#: x (32 + 32), B and C (32) and dt (2), 98 columns of 128 rows, 25088
+#: B, and the adjoint sends back the gradients of the 74 columns it
+#: computed, 18944 B, 44032 B a unit; all-reduce a unit: `out_proj`'s
+#: row-parallel sum forward and back (2 x 16384 B) and the gated norm's
+#: squares, one float32 a row forward and back (2 x 512 B), 67584 B for
+#: both, beside the vocabulary's 52132 B.  Reduced kimi-k2's 4-slot
 #: decode takes the dropless path on the stacks as placed (2 of 8
 #: experts a rank on 'model', 32 of d = 64 on 'data'; its 8 routed rows
 #: gathered whole): gate's and up's partial products (8 x 32 bf16, 512
@@ -486,8 +489,9 @@ PINNED = {
     ("smollm-360m", "train-remat"): {"all-gather": 139264.0,
                                      "all-reduce": 241444.0,
                                      "reduce-scatter": 18432.0},
-    ("mamba2-130m", "train"): {"all-gather": 244224.0,
-                               "all-reduce": 334756.0,
+    ("mamba2-130m", "train"): {"all-gather": 27136.0,
+                               "all-reduce": 119716.0,
+                               "all-to-all": 88064.0,
                                "reduce-scatter": 13568.0},
     ("mixtral-8x22b", "train"): {"all-gather": 129024.0,
                                  "all-reduce": 185156.0,

@@ -33,17 +33,26 @@ compiled sharded programs, and the step's memory on a fake (2, 4) group.
     embedding moves its meshless moments by 1.26e-4 of the largest, the
     mesh by 1.4e-4), whose mixers compute with `in_proj`
     column-parallel (296 columns, which 2 and 4 divide) and `out_proj`
-    row-parallel, each rank running its heads (2 of 8 on a 'model' of 4)
-    with the gated output gathered over 'model' for the norm; their
-    decode updates the rank's shard of the state (the rules put 'model'
-    on its head dim, 16).
+    row-parallel, each rank running its heads (2 of 8 on a 'model' of
+    4): it receives their columns of the fused output by one all-to-all
+    and norms its columns of the gated output with the rows' squares
+    summed over 'model'; their decode updates the rank's shard of the
+    state (the rules put 'model' on its head dim, 16);
+  - reduced smollm at d = 128 and ff = 256 ("smollm-adafactor"), two
+    Adafactor steps (leaves factored; each rank updates its shards)
+    against the meshless Adafactor steps;
+  and a decode of reduced mamba2 with heads of 3 ("mamba2-heads": the
+  rules put 'model' on the state's 32 heads, so the step updates its
+  heads' shard of the state and gathers their y over 'model').
   The decodes' next tokens equal the meshless ones, and their logits
   are within 1e-3 (the bf16 cache, as there; zamba2's, with 26 bf16
   caches a slot, within 2.5e-3: 1.26e-3 seen).
 - On (2, 4) the losses of mixtral-tp's and mamba2's train steps equal the
   reference's compiled sharded step on 8 host devices under the same
-  context (1e-5 relative); the reference's collective bytes by op of
-  the (2, 4) programs beside `test_torch_tensor_parallel.py`'s pinned
+  context (1e-5 relative), and smollm-adafactor's losses and whole state
+  equal the reference's compiled sharded Adafactor step (at least one
+  factored leaf split on both of its last two dims); the reference's
+  collective bytes by op of the (2, 4) programs beside `test_torch_tensor_parallel.py`'s pinned
   counts, of reduced zamba2's train step (the port's beside it) and of
   reduced kimi's 4-slot decode, are printed (`readings:` lines, run
   with -s).
@@ -65,9 +74,16 @@ compiled sharded programs, and the step's memory on a fake (2, 4) group.
   run with -s):
   XLA's CPU buffer assignment is not the card's, so nothing bounds the
   ratio.
-- Reduced mixtral at d = 1024 on a fake (16, 16) group: with AdamW the
-  train step's peak stays under a quarter of the whole model's bf16
-  params; the peak with Adafactor is printed beside it.
+- Reduced mixtral at d = 1024 on a fake (16, 16) group: with AdamW and
+  with Adafactor the train step's peak stays under a quarter of the
+  whole model's bf16 params.
+- Reduced zamba2's mixer forward on a fake (2, 4) group moves over
+  'model' no more than its heads' z, x and dt columns, B and C, and one
+  float32 a row for the norm's squares, and gathers nothing.
+- A train step whose heads do not divide 'model' (reduced smollm, 6
+  heads, 2 x 4096 tokens): the port's count has the reference's
+  argument bytes, and its peak is printed beside the reference's
+  `memory_analysis()` temp bytes.
 """
 
 import dataclasses
@@ -115,7 +131,21 @@ DECODE_LEN, DECODE_STEPS = 16, 6
 #: slots a decode: 2 keep mixtral-tp on TP-ff on (2, 2), 8 keep kimi on
 #: the expert-parallel path on (2, 4)
 SLOTS = {"mixtral-tp": 2, "kimi-k2-1t-a32b": 8, "kimi-dropless": 2,
-         "mamba2-130m": 4, "zamba2-2.7b": 4}
+         "mamba2-130m": 4, "zamba2-2.7b": 4, "mamba2-heads": 4}
+#: reduced smollm at d = 128 and ff = 256, so that Adafactor factors
+#: its MLP stacks and its table (a leaf's last two dims both >= 128;
+#: reduced widths of 64 factor nothing); two Adafactor steps
+ADAFACTOR_ARCH = "smollm-adafactor"
+ADAFACTOR_OPT = dict(OPT, name="adafactor")
+#: Adafactor's second moments, float32 means of squared gradients (1e-4
+#: and under here, so STATE_ATOL's absolute 1e-6 says nothing), whose
+#: gradients are summed over the ranks in another order: within this
+#: share of each leaf's largest (1.14e-6 seen on (2, 4), `wv`'s)
+ADAFACTOR_STATE = 1e-5
+#: decode only: reduced mamba2 at d = 48 with heads of 3, 32 heads: the
+#: rules put 'model' on the state's heads (3 a head does not divide it),
+#: so the step updates a heads' shard and gathers y over them
+DECODE_ONLY = ("mamba2-heads",)
 TIMEOUT_S = 420
 MEMORY_UNITS = (3, 5)
 #: decode logits: a row-parallel sum that moves a float32 ulp can round
@@ -142,10 +172,14 @@ d = np.load(sys.argv[1])
 mesh = make_auto_mesh((2, 4), ("data", "model"))
 rep = NamedSharding(mesh, P())
 opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=10)
-cfgs = {"mixtral-tp": dataclasses.replace(
+# (config, optimizer) of each train run
+cfgs = {"mixtral-tp": (dataclasses.replace(
             reduced(ARCHS["mixtral-8x22b"]), n_experts=2,
-            experts_per_token=2, unit=()),
-        "mamba2-130m": reduced(ARCHS["mamba2-130m"])}
+            experts_per_token=2, unit=()), "adamw"),
+        "mamba2-130m": (reduced(ARCHS["mamba2-130m"]), "adamw"),
+        "smollm-adafactor": (dataclasses.replace(
+            reduced(ARCHS["smollm-360m"]), d_model=128, d_ff=256),
+            "adafactor")}
 out = {}
 
 def tree(prefix):
@@ -158,23 +192,30 @@ def tree(prefix):
             node[parts[-1]] = jnp.asarray(d[key])
     return params
 
-for name, cfg in cfgs.items():
+for name, (cfg, opt_name) in cfgs.items():
     params = tree(f"{name}/params/")
+    o = dataclasses.replace(opt, name=opt_name)
     step, _ = make_train_step(cfg, TrainConfig(
-        optimizer=opt, remat=False, aux_loss_weight=0.0))
-    state = {"params": params, "opt": build_optimizer(opt).init(params),
+        optimizer=o, remat=False, aux_loss_weight=0.0))
+    state = {"params": params, "opt": build_optimizer(o).init(params),
              "step": jnp.zeros((), jnp.int32)}
     out[name] = []
     for i in (0, 1):
         batch = {k: jnp.asarray(d[f"{name}/batch{i}/{k}"])
                  for k in ("tokens", "labels")}
-        sh = state_shardings(mesh, state, "adamw")
+        sh = state_shardings(mesh, state, opt_name)
         with use_mesh(mesh), parallel_context(
                 ParallelContext(capacity_factor=8.0)):
             state, m = jax.jit(step, in_shardings=(
                 sh, logical_batch_shardings(mesh, batch)),
                 out_shardings=(sh, rep))(state, batch)
         out[name].append(float(m["loss"]))
+    if opt_name == "adafactor":
+        # its whole state after the second step, for the port's to meet
+        np.savez(sys.argv[3], **{
+            "/".join(str(k.key) for k in path): np.asarray(leaf)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(
+                {"params": state["params"], "opt": state["opt"]})[0]})
 
 # memory_analysis of the memory test's cells (remat, 4 x 64 tokens)
 out["memory"] = {}
@@ -197,6 +238,24 @@ for units in json.loads(sys.argv[2]):
             ).memory_analysis()
     out["memory"][str(units)] = [ma.argument_size_in_bytes,
                                  ma.temp_size_in_bytes]
+# a train step whose 6 heads do not divide 'model' (4), at 2 x 4096
+# tokens: the reference's "auto" attention streams keys in chunks above
+# 2048 keys
+cfg = dataclasses.replace(reduced(ARCHS["smollm-360m"]), n_heads=6, unit=())
+params = build_model(cfg).init(jax.random.PRNGKey(0))
+step, _ = make_train_step(cfg, TrainConfig(optimizer=opt))
+state = jax.tree.map(lambda a: jax.ShapeDtypeStruct(a.shape, a.dtype), {
+    "params": params, "opt": build_optimizer(opt).init(params),
+    "step": jnp.zeros((), jnp.int32)})
+batch = {k: jax.ShapeDtypeStruct((2, 4096), jnp.int32)
+         for k in ("tokens", "labels")}
+sh = state_shardings(mesh, state, "adamw")
+with use_mesh(mesh):
+    ma = jax.jit(step, in_shardings=(
+        sh, logical_batch_shardings(mesh, batch)),
+        out_shardings=(sh, rep)).lower(state, batch).compile(
+        ).memory_analysis()
+out["attention_memory"] = [ma.argument_size_in_bytes, ma.temp_size_in_bytes]
 # the collectives of the (2, 4) programs beside the port's pinned counts
 # (`test_torch_tensor_parallel.py: PINNED`): train at 4 x 64 tokens, and
 # kimi's decode of 4 slots (its dropless path)
@@ -241,6 +300,12 @@ print(json.dumps(out))
 
 
 def _config(name):
+    if name == ADAFACTOR_ARCH:
+        return dataclasses.replace(reduced(ARCHS["smollm-360m"]),
+                                   d_model=128, d_ff=256)
+    if name == "mamba2-heads":
+        return dataclasses.replace(reduced(ARCHS["mamba2-130m"]),
+                                   d_model=48, ssm_head_dim=3)
     if name == "mixtral-tp":
         return dataclasses.replace(reduced(ARCHS["mixtral-8x22b"]),
                                    n_experts=2, experts_per_token=2, unit=())
@@ -262,14 +327,18 @@ def _batches(cfg, name):
 def runs(tmp_path_factory):
     train, decode = {}, {}
     rng = np.random.default_rng(11)
-    for name in ARCHS_HERE:
+    for name in ARCHS_HERE + (ADAFACTOR_ARCH,):
         cfg = _config(name)
         moe = bool(cfg.n_experts)
         bucketed = moe and name != "kimi-dropless"
-        train[name] = {"cfg": cfg, "opt": OPT, "batches": _batches(cfg, name),
+        train[name] = {"cfg": cfg, "batches": _batches(cfg, name),
+                       "opt": ADAFACTOR_OPT if name == ADAFACTOR_ARCH
+                       else OPT,
                        "params": _float32_params(cfg, 5), "remat": True,
                        "capacity": 8.0 if bucketed else 1.25,
                        "aux": 0.0 if bucketed else 0.01}
+    for name in ARCHS_HERE + DECODE_ONLY:
+        cfg = _config(name)
         feed = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (SLOTS[name], DECODE_STEPS)).astype(np.int32))
         decode[name] = {"cfg": cfg, "params": _float32_params(cfg, 6),
@@ -281,9 +350,10 @@ def runs(tmp_path_factory):
         torch.save({"mesh": shape, "train": train, "decode": decode},
                    work / "tp_in.pt")
         started[mesh_name] = start_ranks("tp", shape[0] * shape[1], work)
-    ref_in = tmp_path_factory.mktemp("unit_ref") / "in.npz"
+    ref_dir = tmp_path_factory.mktemp("unit_ref")
+    ref_in, ref_state = ref_dir / "in.npz", ref_dir / "adafactor_state.npz"
     flat = {}
-    for name in ("mixtral-tp", "mamba2-130m"):
+    for name in ("mixtral-tp", "mamba2-130m", ADAFACTOR_ARCH):
         run = train[name]
         flat.update({f"{name}/params/{k}": v.numpy()
                      for k, v in _flat(run["params"]).items()})
@@ -293,14 +363,14 @@ def runs(tmp_path_factory):
     np.savez(ref_in, **flat)
     ref = subprocess.Popen(
         [sys.executable, "-c", REFERENCE, str(ref_in),
-         json.dumps(MEMORY_UNITS)],
+         json.dumps(MEMORY_UNITS), str(ref_state)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=REPO,
         env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                  JAX_PLATFORMS="cpu"))
     try:
         want = {
             "train": {n: _train_meshless(r["cfg"], r["params"], r["batches"],
-                                         r["aux"])
+                                         r["aux"], opt=r["opt"])
                       for n, r in train.items()},
             "decode": {n: _decode_meshless(r["cfg"], r["params"], r["feed"])
                        for n, r in decode.items()},
@@ -313,7 +383,11 @@ def runs(tmp_path_factory):
                     proc.kill()
         out, err = ref.communicate(timeout=TIMEOUT_S)
     assert ref.returncode == 0, err[-3000:]
-    return got, want, json.loads(out.strip().splitlines()[-1])
+    ref_out = json.loads(out.strip().splitlines()[-1])
+    with np.load(ref_state) as saved:
+        ref_out["adafactor_state"] = {k: torch.from_numpy(saved[k])
+                                      for k in saved.files}
+    return got, want, ref_out
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -346,8 +420,62 @@ def test_train_steps_equal_the_meshless_steps(runs, mesh, arch):
                for n, t in old.items())
 
 
+def _adafactor_state_close(state, want, where):
+    """The Adafactor run's whole state held to `want` (flat, the same
+    keys): its factored and unfactored second moments within
+    ADAFACTOR_STATE of each leaf's largest, params within PARAM_ATOL
+    (each step moves a weight by at most about lr: the update is clipped
+    to RMS 1)."""
+    assert state.keys() >= want.keys() and want, where
+    for name, w in want.items():
+        g = state[name]
+        top = float(w.abs().max()) if name.startswith("opt/") else 1.0
+        atol = (ADAFACTOR_STATE if name.startswith("opt/") else
+                PARAM_ATOL) * top
+        torch.testing.assert_close(g, w, rtol=0, atol=atol,
+                                   msg=f"{where} {name}")
+
+
 @pytest.mark.parametrize("mesh", list(MESHES))
-@pytest.mark.parametrize("arch", ARCHS_HERE)
+def test_adafactor_on_the_ranks_shards_equals_the_meshless_step(runs, mesh):
+    got, want, _ = runs
+    want_losses, want_state = want["train"][ADAFACTOR_ARCH]
+    want_state = {k: v for k, v in _flat(want_state).items() if k != "step"}
+    for r, rank in enumerate(got[mesh]):
+        run = rank["train"][ADAFACTOR_ARCH]
+        np.testing.assert_allclose(run["losses"], want_losses,
+                                   rtol=LOSS_RTOL)
+        _adafactor_state_close(run["state"], want_state, f"{mesh} rank {r}")
+    old = want["params"][ADAFACTOR_ARCH]
+    assert any(not torch.equal(want_state["params/" + n], t)
+               for n, t in old.items())
+
+
+def test_2x4_adafactor_equals_the_references_sharded_step(runs):
+    """Two Adafactor steps on (2, 4) against the reference's compiled
+    sharded step, whose factored leaves GSPMD keeps at each device's
+    shards: the losses within LOSS_RTOL, the whole state as
+    `_adafactor_state_close` holds it.  At least one factored leaf (the
+    MLP stacks) is split on each of its last two dims, so that both of
+    its means are summed over the ranks."""
+    from repro_torch.optim.optimizers import _factored
+    from repro_torch.runtime.sharding import param_spec
+    got, _, ref = runs
+    losses = ref[ADAFACTOR_ARCH]
+    want = ref["adafactor_state"]
+    for r, rank in enumerate(got["2x4"]):
+        run = rank["train"][ADAFACTOR_ARCH]
+        np.testing.assert_allclose(run["losses"], losses, rtol=LOSS_RTOL)
+        _adafactor_state_close(run["state"], want, f"2x4 rank {r}")
+    params = {k[len("params/"):]: v for k, v in want.items()
+              if k.startswith("params/")}
+    both = [name for name, p in params.items() if _factored(p) and all(
+        param_spec(_Stub(), name, tuple(p.shape))[-k] for k in (1, 2))]
+    assert both, sorted(params)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCHS_HERE + DECODE_ONLY)
 def test_decode_gives_the_meshless_tokens(runs, mesh, arch):
     got, want, _ = runs
     want_toks, want_logits = want["decode"][arch]
@@ -498,11 +626,12 @@ def test_an_expert_path_refuses_a_whole_stack_and_takes_its_shard():
 
 def test_no_whole_model_on_a_rank_and_the_adafactor_reading():
     """Reduced mixtral at d = 1024 (2 layers, 16 x 16 tokens) on a fake
-    (16, 16) group: with AdamW the train step's peak stays under the
-    whole model's bf16 params (each rank gathers one unit at a time, at
-    its shards).  With Adafactor the peak is printed beside it (a
-    `readings:` line, run with -s): the port's factored update on
-    DTensor shards holds about twice the whole model (ROADMAP)."""
+    (16, 16) group: with AdamW and with Adafactor the train step's peak
+    stays under a quarter of the whole model's bf16 params (each rank
+    gathers one unit at a time, at its shards, and Adafactor's factored
+    update runs on the rank's shards, its means summed over the axes
+    that split them); both are printed (a `readings:` line, run with
+    -s)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.optim.optimizers import OptimizerConfig
@@ -524,3 +653,76 @@ def test_no_whole_model_on_a_rank_and_the_adafactor_reading():
     print("readings:", json.dumps(dict(whole_params_bf16=whole, **{
         f"{k}_step_peak": v for k, v in peaks.items()})))
     assert peaks["adamw"] < whole / 4
+    assert peaks["adafactor"] < whole / 4
+
+
+def test_the_mixer_moves_its_heads_columns_and_the_squares_over_model(
+        monkeypatch):
+    """Reduced zamba2's mixer forward (`mamba_block`, plain routes) on a
+    fake (2, 4) group, rank 0's 2 x 64 rows: over 'model' it receives
+    by all-to-all at most its 2 heads' columns of z and x (2 x 16
+    each), dt (2) and B and C (2N = 32), and all-reduces one float32 a
+    row (the gated norm's squares) beside `out_proj`'s row-parallel sum;
+    it gathers nothing (the fused and the gated output stay at the
+    rank's columns)."""
+    from repro_torch.models.ssm import mamba_block, mamba_init
+    cfg = reduced(ARCHS["zamba2-2.7b"])
+    rows, L = 2, 64
+
+    def no_gather(*args, **kwargs):
+        raise AssertionError("the split-heads mixer gathered over 'model'")
+
+    monkeypatch.setattr(parallel, "gather_model", no_gather)
+    with RL.fake_group(8):
+        mesh = make_auto_mesh((2, 4), ("data", "model"), device="cpu")
+        with use_mesh(mesh), parallel_context(ParallelContext()):
+            with FakeTensorMode():
+                params = mamba_init(torch.Generator().manual_seed(0), cfg)
+                local = tp_local(mesh, {"mamba": params})["mamba"]
+                x = torch.zeros((rows, L, cfg.d_model), dtype=torch.bfloat16)
+            heads = cfg.n_ssm_heads // mesh.shape["model"]
+            with torch.no_grad():
+                rl, _ = RL.count(lambda p, v: mamba_block(p, v, cfg, "naive"),
+                                 local, x)
+    cols = 2 * heads * cfg.ssm_head_dim + heads + 2 * cfg.ssm_state
+    bound = rows * L * cols * 2                         # bf16
+    squares = rows * L * 4
+    out_sum = rows * L * cfg.d_model * 2
+    print("readings:", json.dumps(dict(
+        cell="zamba2 reduced mixer forward, fake (2, 4), rank 0",
+        heads_columns_bound=bound, **rl.coll_per_op)))
+    assert set(rl.coll_per_op) == {"all-to-all", "all-reduce"}, \
+        rl.coll_per_op
+    assert rl.coll_per_op["all-to-all"] <= bound
+    assert rl.coll_per_op["all-reduce"] == squares + out_sum
+
+
+def test_attention_memory_beside_the_references(runs):
+    """A train step whose heads do not divide 'model' (reduced smollm
+    with 6 heads on a (2, 4) mesh, 2 x 4096 tokens, remat): the port's
+    count (`dryrun.count_train_cell` on a fake group) has rank 0's
+    arguments equal to the reference's `memory_analysis()` of its
+    compiled step, and its peak is printed beside the reference's
+    argument + temp bytes (a `readings:` line, run with -s): every rank
+    attends with all 6 heads, whose (2 / 2, 6, 4096, 4096) float32
+    scores the port's plain attention keeps (24 MB a layer's
+    probabilities) where the reference's chunked attention streams the
+    keys."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from test_torch_tensor_parallel import _config as tp_config
+    cfg = tp_config("smollm-split")
+    with RL.fake_group(8):
+        mesh = make_auto_mesh((2, 4), ("data", "model"), device="cpu")
+        with use_mesh(mesh), parallel_context(ParallelContext()):
+            memory = dryrun.count_train_cell(
+                cfg, ShapeConfig("t", 4096, 2, "train"), mesh)[2]
+    arg, temp = runs[2]["attention_memory"]
+    print("readings:", json.dumps(dict(
+        cell="smollm reduced, 6 heads, (2, 4), 2 x 4096, remat",
+        port_argument_bytes=memory["argument_size_in_bytes"],
+        port_peak_bytes=memory["peak_bytes"],
+        reference_argument_bytes=arg, reference_temp_bytes=temp,
+        port_peak_over_reference_argument_plus_temp=memory["peak_bytes"]
+        / (arg + temp))))
+    assert memory["argument_size_in_bytes"] == arg
