@@ -15,7 +15,13 @@ Phases, each of which fails the run (exit code 1, no result line):
    SSD call must take the tensor-core kernel); then kernel, plain version
    and, where one exists, one PyTorch library call timed with CUDA events
    (SSD also in the strided layout, RMSNorm at every model's prefill
-   width, flash attention at every model's prefill shape);
+   width, flash attention at every model's prefill shape); and flash
+   attention at a context-parallel rank's shape (smollm's heads, a rank's
+   256 queries at each quarter of 1024 positions against all 1024 keys,
+   causal and with an 8-token window, float32 and bf16) against its
+   plain version, timed beside `scaled_dot_product_attention` given the
+   same mask (the four-card `gpu` test in `tests/test_torch_cuda.py`
+   runs the context-parallel train step itself);
    2c. the MoE grouped GEMM, a library call (`torch._grouped_mm`), against
    its per-expert loop at mixtral's and kimi's prefill shapes, timed
    beside its bound;
@@ -302,17 +308,25 @@ def dscale_ok(torch, got, want, x, g, dtype):
     return bool((err <= 1e-5 * mag + rtol * want.float().abs()).all())
 
 
-def fa_cost(B, S, H, K, D, T=None, causal=True):
+def fa_cost(B, S, H, K, D, T=None, causal=True, pairs=None, kv_rows=None,
+            fp32=False):
     """(flops, bytes, bound ms, what bounds it) of bf16 attention, S
     queries against T keys (T = S unless given): QK^T and PV over the
-    visible (query, key) pairs (causal with S = T: S(S+1)/2; else S T),
-    2 flops a MAC; q, k, v read once, the output written once, positions
-    int32."""
+    visible (query, key) pairs (causal with S = T: S(S+1)/2; else S T;
+    or `pairs`, counted from the positions' mask), 2 flops a MAC; q, the
+    k and v rows some query sees (all T, or `kv_rows`, counted from the
+    mask) read once, the output written once, positions int32.  `fp32`:
+    float32 tensors at the card's float32 peak (the scalar kernel)."""
     T = S if T is None else T
-    pairs = S * (S + 1) // 2 if causal else S * T
+    if pairs is None:
+        pairs = S * (S + 1) // 2 if causal else S * T
+    kv_rows = T if kv_rows is None else kv_rows
     flops = 4 * B * H * D * pairs
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * T * K * D) + 4 * (S + T)
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    size = 4 if fp32 else 2
+    nbytes = size * (2 * B * S * H * D + 2 * B * kv_rows * K * D) \
+        + 4 * (S + T)
+    t_ops = flops / (PEAK_FP32_FLOPS if fp32 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
     return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -713,6 +727,9 @@ def phase_kernels(torch, dev):
               f"sdpa {l_ms:.4f}, bound {bnd:.4f} by {by}", flush=True)
         del mq, mk, mv, mqt, mkt, mvt
 
+    cp_rows, cp_err = phase_context_parallel_attention(torch, dev, randn,
+                                                       plain_fa)
+
     b, L, H, P, N = 4, 1024, 24, 64, 128          # mamba2-130m prefill
     sx, sdt, sA, sB, sC = ssd_inputs(b, L, H, P, N, torch.bfloat16)
     ssd_ms, ssd_host_us = cuda_ms(
@@ -779,7 +796,13 @@ def phase_kernels(torch, dev):
             "train_plain_backward_ms": fa_plain_bwd_ms,
             "train_backward": "the VJP of the plain attention (no backward "
                               "kernel, as in the reference)",
-            "model_shapes": fa_shapes},
+            "model_shapes": fa_shapes,
+            "context_parallel": {
+                "shape": "a rank's q (2,256,15,64) at each quarter of 1024 "
+                         "positions against the gathered k/v (2,1024,5,64), "
+                         "causal, and with an 8-token window",
+                "max_abs_err": cp_err, "tolerance": FA_TOL["bfloat16"],
+                "rows": cp_rows}},
         "rmsnorm": {
             "name": "rmsnorm", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -831,6 +854,78 @@ def phase_kernels(torch, dev):
             "zamba2_shape_bound_ms": ssd_zamba_bound, "host_us": ssd_host_us,
             "flops": ssd_flops, "bytes": ssd_bytes},
     }
+
+
+#: context parallelism: a rank's queries (S = 256 of smollm's 1024
+#: positions on a 'data' of 4, both rows of a 2 x 1024 batch) against
+#: the keys and values gathered from every rank; each quarter's start
+CP_B, CP_S, CP_T, CP_H, CP_K, CP_D = 2, 256, 1024, 15, 5, 64
+CP_STARTS = (768, 0, 256, 512)
+
+
+def phase_context_parallel_attention(torch, dev, randn, plain_fa):
+    """Phase 2b's context-parallel block: the flash kernel at a rank's
+    query positions against the whole sequence's keys, in float32 and
+    bf16, causal and with an 8-token window, each quarter of the
+    sequence, held to its plain version (FA_TOL), then timed beside it
+    and beside `scaled_dot_product_attention` given the same boolean
+    mask, with the bound of the pairs and the key rows the mask lets
+    through.  Returns (rows, the largest bf16 error)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    B, S, T, H, K, D = CP_B, CP_S, CP_T, CP_H, CP_K, CP_D
+    kp = torch.arange(T, dtype=torch.int32, device=dev)
+    rows, worst = [], 0.0
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        atol, rtol = FA_TOL[dname]
+        k = randn((B, T, K, D), dtype)
+        v = randn((B, T, K, D), dtype, 3.0)
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        for start in CP_STARTS:
+            q = randn((B, S, H, D), dtype)
+            qt = q.transpose(1, 2).contiguous()
+            qp = torch.arange(start, start + S, dtype=torch.int32,
+                              device=dev)
+            for window in (None, 8):
+                out = flash_attention(q, k, v, qp, kp, window=window)
+                ref = plain_fa(q, k, v, qp, kp, window, None, True)
+                torch.cuda.synchronize()
+                err = max_err(out, ref)
+                check(close(torch, out, ref, atol, rtol),
+                      f"flash_attention {dname} at a context-parallel "
+                      f"rank's positions {start}-{start + S - 1} of {T}, "
+                      f"window={window}: max err {err:.3g} (atol {atol}, "
+                      f"rtol {rtol})")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
+                mask = kp[None, :] <= qp[:, None]
+                if window is not None:
+                    mask &= (qp[:, None] - kp[None, :]) < window
+                k_ms, _ = cuda_ms(torch, lambda: flash_attention(
+                    q, k, v, qp, kp, window=window), 20)
+                p_ms, _ = cuda_ms(torch, lambda: plain_fa(
+                    q, k, v, qp, kp, window, None, True), 5)
+                l_ms, _ = cuda_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, enable_gqa=True), 20)
+                _, _, bnd, by = fa_cost(
+                    B, S, H, K, D, T, pairs=int(mask.sum()),
+                    kv_rows=int(mask.any(0).sum()),
+                    fp32=dtype == torch.float32)
+                rows.append({"dtype": dname, "positions": [start,
+                                                           start + S - 1],
+                             "window": window, "max_abs_err": err,
+                             "ms": k_ms, "plain_ms": p_ms,
+                             "library_ms": l_ms, "bound_ms": bnd,
+                             "bound_by": by})
+                print(f"  flash_attention context-parallel {dname} q "
+                      f"{start}-{start + S - 1} of {T} window={window}: "
+                      f"err {err:.3g}, {k_ms:.4f} ms, plain {p_ms:.4f}, "
+                      f"sdpa with the mask {l_ms:.4f}, bound {bnd:.5f} by "
+                      f"{by}", flush=True)
+    return rows, worst
 
 
 def phase_grouped_mm(torch, dev):

@@ -25,9 +25,12 @@ and writes one JSON per cell under build/repro_torch/dryrun/.
 
 As in the reference, the cell runs inside `use_mesh` and
 `parallel_context(ParallelContext())`.  A cell that raises is recorded
-with `status: error`, the error and the end of its traceback (a train
-batch that does not divide over the data axes would stop there: the
-port has no context parallelism for training, and no cell needs it).
+with `status: error`, the error and the end of its traceback.  Every
+cell's batch divides over the data axes.  The step's count of one that
+did not would take the rank's part of the sequence, or the whole batch
+(`sharding.leaf_shard`), as the train step runs it; its unit programs
+would not: they are built at the rank's rows of the whole sequence,
+with no k and v gathers, which is a row split's unit.
 
 `memory` holds rank 0's `argument_size_in_bytes` (its shards of the
 state and its rows of the inputs), `output_size_in_bytes` (its shards
@@ -60,8 +63,9 @@ from ..optim.optimizers import OptimizerConfig
 from ..runtime.parallel import ParallelContext, parallel_context
 from ..runtime.serve import (ServeConfig, cache_views, make_serve_fns,
                              slot_rows)
-from ..runtime.sharding import params_shardings, place, state_shardings
-from ..runtime.train import TrainConfig, make_train_step, rank_rows
+from ..runtime.sharding import (leaf_shard, params_shardings, place,
+                                state_shardings)
+from ..runtime.train import TrainConfig, make_train_step
 from . import roofline as RL
 from .mesh import make_auto_mesh, use_mesh
 from .unit_programs import decode_unit_programs, train_unit_programs
@@ -112,9 +116,10 @@ def _gen():
 
 
 def _rows_bytes(mesh, batch) -> int:
-    """Bytes of this rank's rows of a global batch (as the step takes
-    them)."""
-    return RL.local_bytes({k: rank_rows(mesh, v) for k, v in batch.items()})
+    """Bytes of this rank's shard of a global batch (as the step takes
+    it)."""
+    return RL.local_bytes({k: leaf_shard(mesh, v)[0]
+                           for k, v in batch.items()})
 
 
 def count_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -130,7 +135,7 @@ def count_train_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
                                               tcfg.optimizer.name))
         batch = input_specs(cfg, shape)
         rows = _rows_bytes(mesh, batch)
-        n_rows = rank_rows(mesh, batch["labels"]).shape[0]
+        n_rows = leaf_shard(mesh, batch["labels"])[0].shape[0]
         units = train_unit_programs(
             cfg, {"params": placed["params"]}, n_rows, shape.seq_len,
             attention_impl, remat=tcfg.remat)
@@ -156,7 +161,7 @@ def count_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, mesh,
         placed = place(params, params_shardings(mesh, params))
         batch = input_specs(cfg, shape)
         rows = _rows_bytes(mesh, batch)
-        n_rows = rank_rows(mesh, next(iter(batch.values()))).shape[0]
+        n_rows = leaf_shard(mesh, next(iter(batch.values())))[0].shape[0]
         units = train_unit_programs(cfg, {"params": placed}, n_rows,
                                     shape.seq_len, attention_impl,
                                     grad=False)

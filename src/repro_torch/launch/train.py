@@ -14,9 +14,13 @@ around everything; the train state placed by `state_shardings` and
 step computes); the step-indexed data pipeline, async checkpoints every
 `--ckpt-every` steps, `--resume` from the latest checkpoint (restored
 with the mesh's shardings), straggler tracking, and crash recovery.
-`--reduced` is the default (the reference keeps it so); `--full` trains
-the published widths, with remat on.  AdamW unless the model has more
-than 100e9 parameters (then Adafactor).
+A `--batch`, or a microbatch of it (`--microbatches`), whose rows the
+mesh's data axes do not divide trains on each rank's part of its
+sequence, or replicated where the sequence does not divide either
+(`runtime/train.py: mesh_apply`), as the reference's compiled step
+does.  `--reduced` is the default (the reference keeps it so); `--full`
+trains the published widths, with remat on.  AdamW unless the model has
+more than 100e9 parameters (then Adafactor).
 
 `train_loop` is the loop itself.  A step that raises a RuntimeError (a
 CUDA fault, an out-of-memory error) restores the latest checkpoint and

@@ -29,6 +29,17 @@ written only by the rank that holds position `pos`; each rank attends
 over its slots (`decode_partial`) and the partial maxima, sums and
 outputs, gathered over the split's axes, are combined by
 `combine_partials`.
+
+Context parallelism (a train batch whose rows do not divide over the
+data axes, split on its sequence there, `sharding.leaf_shard`): each
+rank's queries, at its own positions, attend over the keys and values
+of the whole sequence, gathered over the data axes after RoPE
+(`whole_sequence`; the gather is over the data axes only, so the
+tensor parallelism over 'model' is as above).  The kernel takes the
+query and key positions apart and skips tiles by position, so the
+rank's queries past position 0 against the longer key sequence go
+through it as they are; "auto" on the CPU chooses by the gathered
+length, as the meshless forward does.
 """
 
 from __future__ import annotations
@@ -232,15 +243,37 @@ def sdpa(q, k, v, q_pos, k_pos, window, softcap, scale,
                       causal=causal)
 
 
+def whole_sequence(k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor, split):
+    """(k, v, their positions) of the whole sequence: under a sequence
+    split over the data axes (`sharding.SeqSplit`), the ranks' parts
+    gathered on dim 1 (the gather's adjoint sums every rank's gradient
+    of the keys and keeps the rank's own), else as they are."""
+    from ..launch.mesh import get_abstract_mesh
+    from ..runtime.parallel import all_gather
+    if split is None or not split.axes:
+        return k, v, positions
+    mesh = get_abstract_mesh()
+    return (all_gather(k, mesh, split.axes, 1),
+            all_gather(v, mesh, split.axes, 1),
+            torch.arange(split.length, dtype=torch.int32, device=k.device))
+
+
 def attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, window: Optional[int] = None,
               impl: str = "auto", kv_override=None,
               causal: bool = True) -> torch.Tensor:
     """Full-sequence attention (prefill).
 
-    positions: (S,) int32.  kv_override: (k, v, k_pos) for cross-attention,
-    k and v as `_project_qkv(..., "kv")` gives them.
+    positions: (S,) int32, x's places in the whole sequence.
+    kv_override: (k, v, k_pos) for cross-attention, k and v as
+    `_project_qkv(..., "kv")` gives them (all the keys, gathered).  Under
+    a sequence split over the data axes (`parallel.get_seq_split`) the
+    self-attention gathers the rotated keys and the values of the whole
+    sequence over those axes, at positions 0..length; the queries keep
+    x's.
     """
+    from ..runtime.parallel import get_seq_split
     B, S, _ = x.shape
     cos, sin = rope_frequencies(cfg.head_dim, cfg.rope_fraction,
                                 cfg.rope_theta, positions)
@@ -250,7 +283,7 @@ def attention(params: Params, x: torch.Tensor, cfg: ModelConfig,
         k = _project(params, x, cfg, "k", kv)
         v = _project(params, x, cfg, "v", kv)
         k = apply_rope(k, cos, sin, cfg.rope_fraction)
-        k_pos = positions
+        k, v, k_pos = whole_sequence(k, v, positions, get_seq_split())
     else:
         k, v, k_pos = kv_override
         window = None

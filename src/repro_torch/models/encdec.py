@@ -19,6 +19,16 @@ encoder keys unrotated (`_rope_kv_cross`), while `decode_step`'s cross
 attention rotates neither.  So decode does not reproduce the forward
 after position 0, in either package; a test pins the port's divergence
 to the reference's.
+
+Context parallelism (`forward`'s splits): the source and the target
+each take their own `batch_spec` on a mesh, so each may be split on its
+sequence over the data axes, or whole.  The encoder's bidirectional
+self-attention gathers the source's keys over its axes
+(`models/attention.py`), the cross-attention the encoder states' keys
+and values (`attention.whole_sequence`), at the source's global
+positions, and
+the decoder's positions are the target's global ones (the cross query
+rotated at them, as above).
 """
 
 from __future__ import annotations
@@ -28,10 +38,11 @@ from typing import Any, Dict, Tuple
 import torch
 from ..configs.base import ModelConfig
 from .attention import (_project_qkv, attention, attention_init,
-                        decode_attention, init_kv_cache)
+                        decode_attention, init_kv_cache, whole_sequence)
 from .layers import (embed, embedding_init, mlp, mlp_init, rmsnorm,
                      rmsnorm_init, unembed)
-from .transformer import _stack, _stacked_zeros, _unit, outside, run_units
+from .transformer import (_stack, _stacked_zeros, _unit, outside,
+                          positions_of, run_units)
 
 Params = Dict[str, Any]
 
@@ -86,19 +97,22 @@ def _enc_unit(p: Params, x, cfg: ModelConfig, positions, impl):
 
 
 def _dec_unit(p: Params, x, enc, cfg: ModelConfig, positions, enc_pos,
-              impl):
+              impl, src_split=None):
     """One decoder layer of the teacher-forced forward: causal
-    self-attention, cross-attention over the encoder states, the MLP."""
+    self-attention, cross-attention over the encoder states (those of
+    the whole source under its split, `attention.whole_sequence`), the
+    MLP."""
     from ..runtime.parallel import shard_batch
     x = shard_batch(x)
     h = rmsnorm(p["norm1"], x, cfg.norm_eps, impl)
     x = x + attention(p["self_attn"], h, cfg, positions, impl=impl)
     h = rmsnorm(p["norm_x"], x, cfg.norm_eps, impl)
-    ck, cv = _rope_kv_cross(p["cross_attn"], enc, cfg)
+    kv = whole_sequence(*_rope_kv_cross(p["cross_attn"], enc, cfg), enc_pos,
+                        src_split)
     # the query is rotated at the decoder positions (see the module
     # docstring: mirrored from the reference)
     x = x + attention(p["cross_attn"], h, cfg, positions, impl=impl,
-                      kv_override=(ck, cv, enc_pos), causal=False)
+                      kv_override=kv, causal=False)
     h = rmsnorm(p["norm2"], x, cfg.norm_eps, impl)
     return x + mlp(p["mlp"], h, cfg.activation, cfg.d_ff)
 
@@ -119,37 +133,51 @@ def _dec_step(p: Params, self_cache, cross_cache, x, cfg: ModelConfig,
 
 
 def encode(params: Params, src_embeds: torch.Tensor, cfg: ModelConfig,
-           impl: str = "auto", remat: bool = True) -> torch.Tensor:
-    """src_embeds: (B, S_src, d) -> encoder states (B, S_src, d)."""
+           impl: str = "auto", remat: bool = True, split=None
+           ) -> torch.Tensor:
+    """src_embeds: (B, S_src, d) -> encoder states (B, S_src, d).
+    `split`: the source's (`transformer.forward` says what it does)."""
+    from ..runtime.parallel import seq_split
     params = outside(params, STACKS)
     x = src_embeds.to(torch.bfloat16)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    positions = positions_of(x, split)
 
     def unit(x, p):
         return _enc_unit(p, x, cfg, positions, impl)
 
-    x = _run_units(unit, x, params["enc_units"], cfg.n_encoder_layers,
-                   "enc_units", remat)
+    with seq_split(split):
+        x = _run_units(unit, x, params["enc_units"], cfg.n_encoder_layers,
+                       "enc_units", remat)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps, impl)
 
 
 def forward(params: Params, src_embeds: torch.Tensor,
             dec_tokens: torch.Tensor, cfg: ModelConfig,
-            impl: str = "auto", remat: bool = True
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced forward. Returns (logits fp32 (B, S, V), aux=0)."""
-    from ..runtime.parallel import shard_batch
+            impl: str = "auto", remat: bool = True, src_split=None,
+            split=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced forward. Returns (logits fp32 (B, S, V), aux=0).
+
+    `src_split` and `split`: the source's and the target's sequence
+    splits (`sharding.SeqSplit`; each leaf takes its own `batch_spec`,
+    so one may split while the other is whole).  The encoder runs under
+    the source's, the decoder under the target's; the cross-attention
+    gathers the encoder states' keys and values over the source's axes,
+    at the source's global positions."""
+    from ..runtime.parallel import seq_split, shard_batch
     params = outside(params, STACKS)
-    enc = shard_batch(encode(params, src_embeds, cfg, impl, remat))
+    enc = shard_batch(encode(params, src_embeds, cfg, impl, remat,
+                             src_split))
     x = embed(params["embed"], dec_tokens, cfg)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    enc_pos = torch.arange(enc.shape[1], dtype=torch.int32, device=x.device)
+    positions = positions_of(x, split)
+    enc_pos = positions_of(enc, src_split)
 
     def unit(x, p):
-        return _dec_unit(p, x, enc, cfg, positions, enc_pos, impl)
+        return _dec_unit(p, x, enc, cfg, positions, enc_pos, impl,
+                         src_split)
 
-    x = _run_units(unit, x, params["dec_units"], cfg.n_layers, "dec_units",
-                   remat)
+    with seq_split(split):
+        x = _run_units(unit, x, params["dec_units"], cfg.n_layers,
+                       "dec_units", remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return unembed(params["embed"], x, cfg), aux

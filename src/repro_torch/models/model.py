@@ -8,7 +8,9 @@ SSM, hybrid) and the encoder-decoder.
     logits, cache = model.decode(params, cache, token, pos)
 
 `batch` is a dict: {"tokens"} or {"embeds"} (frontend stubs), plus
-{"src_embeds"} for enc-dec.
+{"src_embeds"} for enc-dec.  On a mesh, `apply` hands the forward the
+split of each input's sequence that the train step recorded
+(`runtime/parallel.py: leaf_split`; None for a rank's rows).
 """
 
 from __future__ import annotations
@@ -39,8 +41,11 @@ def build_model(cfg: ModelConfig, impl: str = "auto", remat: bool = True,
             return encdec.init_params(gen, cfg, device)
 
         def apply(params, batch):
+            from ..runtime.parallel import leaf_split
             return encdec.forward(params, batch["src_embeds"],
-                                  batch["tokens"], cfg, impl, remat)
+                                  batch["tokens"], cfg, impl, remat,
+                                  src_split=leaf_split("src_embeds"),
+                                  split=leaf_split("tokens"))
 
         def init_cache(batch_size, max_len, src_len=1024):
             return encdec.init_cache(cfg, batch_size, max_len, src_len,
@@ -53,8 +58,10 @@ def build_model(cfg: ModelConfig, impl: str = "auto", remat: bool = True,
             return transformer.init_params(gen, cfg, device)
 
         def apply(params, batch):
-            inputs = batch.get("embeds", batch.get("tokens"))
-            return transformer.forward(params, inputs, cfg, impl, remat)
+            from ..runtime.parallel import leaf_split
+            key = "embeds" if "embeds" in batch else "tokens"
+            return transformer.forward(params, batch[key], cfg, impl, remat,
+                                       split=leaf_split(key))
 
         def init_cache(batch_size, max_len, src_len=1024):
             return transformer.init_cache(cfg, batch_size, max_len, device)

@@ -21,13 +21,19 @@ rows sent to their expert's rank and back by all-to-all) or
 dim for every row; the partial outputs are summed).  Otherwise it takes
 the dropless `moe_block_gspmd`.  The reference runs the parallel paths
 in `shard_map`; here every rank runs them with the collectives of
-`runtime/parallel.py`.  On a mesh, x is this rank's rows of the global
-batch: its shard over ("pod", *data_axes), the whole batch when those
-axes have one rank.  The expert stacks reach the block as the unit's
-shards (`parallel.UnitShard`) and are gathered over the data axes at
-the shard the path computes with, as the reference's `shard_map`s take
-them: the expert-parallel path its E / n_e experts, the TP-ff path its
-slice of the hidden dim (`sharding.compute_spec(..., moe=path)`).  The
+`runtime/parallel.py`.  On a mesh, x is this rank's part of the global
+batch: its rows over ("pod", *data_axes), the whole batch when those
+axes have one rank; or, for a batch whose rows they do not divide, its
+part of the sequence, or the whole batch (`parallel.get_seq_split`).
+The explicit paths then compute on the reference's block of the
+global batch's flattened tokens (`_data_block`: where the rank's tokens
+are not that block, a gather over the data axes and a narrow, both
+ways), and the dropless path on the whole sequence.  The expert stacks
+reach the block as the unit's shards (`parallel.UnitShard`) and are
+gathered over the data axes at the shard the path computes with, as the
+reference's `shard_map`s take them: the expert-parallel path its E /
+n_e experts, the TP-ff path its slice of the hidden dim
+(`sharding.compute_spec(..., moe=path)`).  The
 dropless path takes the stacks as placed, experts on 'model' and d on
 the data axes, and sums the partial products across them, as GSPMD
 compiles the reference's `ragged_dot` on sharded stacks (PERF.md has
@@ -121,13 +127,60 @@ def _row_axes(mesh, ctx):
     return tuple(a for a in ("pod", *data) if a in mesh.shape)
 
 
+def _global_tokens(x: torch.Tensor, mesh, ctx) -> int:
+    """The global batch's token count, from x, this rank's part of it:
+    its rows over the data axes, or, under a `SeqSplit`, its part of
+    every row's sequence (or all of it)."""
+    from ..runtime.parallel import axis_size, get_seq_split
+    split = get_seq_split()
+    if split is None:
+        return x.shape[0] * x.shape[1] * axis_size(mesh, _row_axes(mesh,
+                                                                   ctx))
+    return x.shape[0] * split.length
+
+
+def _data_block(x: torch.Tensor, mesh, ctx):
+    """(the reference's block of tokens for this rank's place on the
+    data axes, (T / n_d, d), and a function that returns the block's
+    outputs, (T / n_d, d), to x's positions).
+
+    The reference's explicit paths split the global batch's flattened
+    tokens, (B * S, d), over the data axes, data-major (`tok_spec`).
+    Where the rank's tokens are that block (its rows of a row split, or
+    its part of a single row's sequence) nothing moves.  Otherwise (a
+    sequence split of several rows, or a replicated batch) the block is
+    cut from the whole batch, gathered over the split's axes on the
+    sequence (none when replicated), and the outputs come back by a
+    gather of the blocks over the data axes and a narrow to the rank's
+    positions: a gather and a narrow, whose adjoints sum the gradients
+    over the ranks and keep each rank's own."""
+    from ..runtime.parallel import (all_gather, axis_index, axis_size,
+                                    get_seq_split)
+    B, S, d = x.shape
+    split = get_seq_split()
+    if split is None or (split.axes and B == 1):
+        return x.reshape(B * S, d), lambda y: y.reshape(B, S, d)
+    rows = _row_axes(mesh, ctx)
+    whole = all_gather(x, mesh, split.axes, 1) if split.axes else x
+    n = whole.shape[0] * whole.shape[1] // axis_size(mesh, rows)
+    block = whole.reshape(-1, d).narrow(0, axis_index(mesh, rows) * n, n)
+
+    def back(y):
+        y = all_gather(y, mesh, rows).reshape(whole.shape)
+        return y.narrow(1, split.offset, S) if split.axes else y
+
+    return block, back
+
+
 def moe_path(cfg: ModelConfig, x: torch.Tensor) -> str:
-    """The path `moe_block` takes for x, this rank's rows (B, S, d):
-    "expert", "tp_ff" or "dropless" (the keys of `sharding.MOE_DIMS`).
+    """The path `moe_block` takes for x, this rank's part of the batch
+    (B, S, d): "expert", "tp_ff" or "dropless" (the keys of
+    `sharding.MOE_DIMS`).
 
     The reference's dispatcher, its conditions read on the global token
-    count T: the expert-parallel path when a ParallelContext is set, the
-    mesh has its expert axis (n_e ranks), n_e divides the experts and
+    count T (`_global_tokens`): the expert-parallel path when a
+    ParallelContext is set, the mesh has its expert axis (n_e ranks),
+    n_e divides the experts and
     n_d * n_e divides T (n_d: the ranks of ctx.data_axes); else the TP-ff
     path when there are at most n_e experts, n_e divides the expert
     hidden dim and n_d divides T; else the dropless path."""
@@ -138,7 +191,7 @@ def moe_path(cfg: ModelConfig, x: torch.Tensor) -> str:
         return "dropless"
     n_e = mesh.shape[ctx.expert_axis]
     n_d = axis_size(mesh, [a for a in ctx.data_axes if a in mesh.shape])
-    T = x.shape[0] * x.shape[1] * axis_size(mesh, _row_axes(mesh, ctx))
+    T = _global_tokens(x, mesh, ctx)
     if cfg.n_experts % n_e == 0 and T % (n_d * n_e) == 0:
         return "expert"
     if cfg.n_experts <= n_e and (cfg.moe_d_ff or cfg.d_ff) % n_e == 0 and \
@@ -196,14 +249,16 @@ def _path_stacks(params: Params, cfg: ModelConfig, path: str) -> Params:
 
 def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d), this rank's rows -> (y, aux_loss).
+    """x: (B, S, d), this rank's part of the batch -> (y, aux_loss).
 
     The path is `moe_path`'s; the expert stacks are taken as that path
     computes with them (`_path_stacks`).  The dropless path, on a mesh
-    whose data axes hold several ranks, gathers their rows, so that the
-    routing loss is the whole batch's as in the reference."""
+    whose data axes hold several ranks, gathers their rows (under a
+    sequence split, their parts of the sequence; a replicated batch is
+    whole already), so that the routing loss is the whole batch's as in
+    the reference."""
     from ..runtime.parallel import (all_gather, axis_index, axis_size,
-                                    get_context)
+                                    get_context, get_seq_split)
     path = moe_path(cfg, x)
     params = _path_stacks(params, cfg, path)
     if path == "expert":
@@ -212,11 +267,16 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig
         return moe_block_tp_ff(params, x, cfg, get_context())
     mesh = get_abstract_mesh()
     rows = _row_axes(mesh, get_context())
-    if axis_size(mesh, rows) > 1:
+    split = get_seq_split()
+    if split is None and axis_size(mesh, rows) > 1:
         B = x.shape[0]
         y, aux = moe_block_gspmd(params, all_gather(x, mesh, rows), cfg)
         i = axis_index(mesh, rows)
         return y[i * B:(i + 1) * B], aux
+    if split is not None and split.axes:
+        y, aux = moe_block_gspmd(params, all_gather(x, mesh, split.axes, 1),
+                                 cfg)
+        return y.narrow(1, split.offset, x.shape[1]), aux
     return moe_block_gspmd(params, x, cfg)
 
 
@@ -349,11 +409,14 @@ def moe_block_expert_parallel(params, x, cfg: ModelConfig, ctx):
     """Expert parallelism: E/n experts per rank of the expert axis; token
     rows travel to their expert's rank over all-to-all and return.
 
-    x: (B, S, d), this rank's rows, which the ranks of the expert axis
-    split in n_e equal parts (the reference's P((*data_axes, axis))
-    sharding of the tokens, data-major); each part's outputs are gathered
-    back over the expert axis.  The expert stacks are this rank's E / n_e
-    experts, (E / n_e, d, ff) and (E / n_e, ff, d).  Rows past a
+    x: (B, S, d), this rank's part of the batch; its data block of
+    tokens (`_data_block`: its rows, or under a sequence split the
+    reference's block) the ranks of the expert axis split in n_e equal
+    parts (the reference's P((*data_axes, axis)) sharding of the tokens,
+    data-major); each part's outputs are gathered back over the expert
+    axis, and the block's returned to x's positions.  The expert stacks
+    are this rank's E / n_e experts, (E / n_e, d, ff) and (E / n_e, ff,
+    d).  Rows past a
     destination's budget C, or past an expert's capacity, contribute
     zeros."""
     from ..runtime.parallel import all_gather, all_to_all, pmean
@@ -362,14 +425,15 @@ def moe_block_expert_parallel(params, x, cfg: ModelConfig, ctx):
     ax = ctx.expert_axis
     n_e = mesh.shape[ax]
     data_axes = _row_axes(mesh, ctx)
-    B, S, d = x.shape
+    block, back_to_x = _data_block(x, mesh, ctx)
+    d = x.shape[-1]
     K, E = cfg.experts_per_token, cfg.n_experts
     E_local = E // n_e
-    T_loc = B * S // n_e
+    T_loc = block.shape[0] // n_e
     N = T_loc * K                                   # local expanded rows
     C = max(1, int(-(-N // n_e) * ctx.capacity_factor))  # per-dest budget
     wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
-    x2 = x.reshape(B * S, d).narrow(0, mesh.index(ax) * T_loc, T_loc)
+    x2 = block.narrow(0, mesh.index(ax) * T_loc, T_loc)
 
     w, idx, aux = _local_route(params["router"], x2, cfg)
     flat_e = idx.reshape(-1)                         # (N,)
@@ -392,26 +456,25 @@ def moe_block_expert_parallel(params, x, cfg: ModelConfig, ctx):
     gathered = torch.where(valid[:, None], gathered, 0.0)
     y = torch.einsum("tkd,tk->td", gathered.reshape(T_loc, K, d), w)
     aux = pmean(aux, mesh, (*data_axes, ax))
-    return all_gather(y, mesh, (ax,)).reshape(B, S, d), aux
+    return back_to_x(all_gather(y, mesh, (ax,))), aux
 
 
 def moe_block_tp_ff(params, x, cfg: ModelConfig, ctx):
     """Tensor parallelism over the expert hidden dim (few-expert MoE like
     mixtral where E <= n_shards): rows stay put, every rank of the expert
-    axis computes its ff-slice for every one of this rank's rows, and the
-    partial results are summed over the axis.  The expert stacks are this
-    rank's slice of the hidden dim, (E, d, ff / n_e) and (E, ff / n_e,
-    d)."""
+    axis computes its ff-slice for every token of this rank's data block
+    (`_data_block`), and the partial results are summed over the axis.
+    The expert stacks are this rank's slice of the hidden dim, (E, d,
+    ff / n_e) and (E, ff / n_e, d)."""
     from ..runtime.parallel import pmean, psum
     moe_block_tp_ff.calls += 1
     mesh = get_abstract_mesh()
     ax = ctx.expert_axis
     data_axes = _row_axes(mesh, ctx)
-    B, S, d = x.shape
+    x2, back_to_x = _data_block(x, mesh, ctx)
+    T_loc, d = x2.shape
     K, E = cfg.experts_per_token, cfg.n_experts
-    T_loc = B * S
     wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
-    x2 = x.reshape(T_loc, d)
 
     w, idx, aux = _local_route(params["router"], x2, cfg)
     rows = x2.repeat_interleave(K, dim=0)
@@ -420,7 +483,7 @@ def moe_block_tp_ff(params, x, cfg: ModelConfig, ctx):
     out = psum(part, mesh, (ax,))                    # partial over ff slice
     y = torch.einsum("tkd,tk->td", out.reshape(T_loc, K, d), w)
     aux = pmean(aux, mesh, (*data_axes, ax))
-    return y.reshape(B, S, d), aux
+    return back_to_x(y), aux
 
 
 #: calls since the last reset (chip_smoke.py reads them)

@@ -36,6 +36,12 @@ of y.  A serving step hands `decode_mamba` the rank's slots of the
 conv window, whole width, and its shard of the state where the rules
 put 'model' on its heads or its head dim (`runtime/serve.py:
 cache_views`): the step updates that shard alone.
+
+Context parallelism (a train batch split on its sequence over the data
+axes): each rank runs its part of the sequence, its conv fed the
+previous rank's last rows, its scan's carried state made from the
+earlier ranks' final states, gathered over those axes (`mamba_block`);
+the split over 'model' above is independent of it.
 """
 
 from __future__ import annotations
@@ -164,14 +170,17 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
                                           device=x.device))
 
 
-def _causal_conv(xBC: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv1d. xBC: (B, L, C); w: (K, C).  The K shifted
-    products are added one by one in the input dtype, as the reference's
-    Python `sum` does (F.conv1d rounds differently, and on the card a
-    float32 convolution runs in TF32 by default)."""
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Depthwise causal conv1d. xBC: (B, L, C); w: (K, C); prev: (B, K -
+    1, C), the rows before xBC's first (under a sequence split, the
+    previous rank's last), zeros when None.  The K shifted products are
+    added one by one in the input dtype, as the reference's Python `sum`
+    does (F.conv1d rounds differently, and on the card a float32
+    convolution runs in TF32 by default)."""
     K, L = w.shape[0], xBC.shape[1]
-    pad = F.pad(xBC, (0, 0, K - 1, 0))
+    pad = F.pad(xBC, (0, 0, K - 1, 0)) if prev is None else \
+        torch.cat([prev, xBC], dim=1)
     out = sum(pad[:, i:i + L, :] * w[i] for i in range(K))
     return F.silu((out + b).float()).to(xBC.dtype)
 
@@ -219,9 +228,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y_diag = torch.einsum("bchqk,bckhp->bcqhp", gate, xdt)
 
     # chunk states
-    decay_end = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)      # (b,nc,Q,H)
-    states = torch.einsum("bcqn,bcqh,bcqhp->bchpn", Bc,
-                          decay_end.to(dtype) * dtc.to(dtype), xc)
+    states = _state_from_zero(Bc, dA_cum, dtc, xc)            # (b,nc,H,P,N)
 
     # inter-chunk recurrence: the state before each chunk
     chunk_decay = torch.exp(dA_cum[:, :, -1, :])              # (b, nc, H)
@@ -239,6 +246,76 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          prev_states.to(dtype), state_decay.to(dtype))
     y = (y_diag + y_off).reshape(b, L, H, P)
     return y, carry.to(dtype)
+
+
+def _state_from_zero(Bm, cum, dt, x) -> torch.Tensor:
+    """The state a stretch of positions leaves from a zero start: the sum
+    over its positions t of B_t exp(cum_end - cum_t) dt_t x_t, with the
+    positions on the dim before the last of cum and dt (..., q, H), of
+    Bm (..., q, N) and of x (..., q, H, P).  (..., H, P, N) in x's
+    dtype."""
+    dtype = x.dtype
+    return torch.einsum("...qn,...qh,...qhp->...hpn", Bm,
+                        torch.exp(cum[..., -1:, :] - cum).to(dtype)
+                        * dt.to(dtype), x)
+
+
+def _from_earlier_ranks(t: torch.Tensor, split):
+    """(every rank's t along the split's axes, stacked (n, ...), this
+    rank's index r there).  Every rank takes part and then uses the
+    whole result, the ranks after r with weight zero, so that every
+    rank's backward runs the gather's adjoint."""
+    from ..launch.mesh import get_abstract_mesh
+    from ..runtime.parallel import all_gather, axis_index
+    mesh = get_abstract_mesh()
+    return all_gather(t[None], mesh, split.axes), axis_index(mesh,
+                                                             split.axes)
+
+
+def _previous_rows(xBC: torch.Tensor, k: int, split) -> torch.Tensor:
+    """The previous rank's last k rows of xBC along the split (zeros on
+    the first rank): the rows the causal conv reads before this rank's
+    first."""
+    if xBC.shape[1] < k:
+        raise ValueError(f"a sequence split of {xBC.shape[1]} positions a "
+                         f"rank is shorter than the conv's {k} rows")
+    tails, r = _from_earlier_ranks(xBC[:, xBC.shape[1] - k:], split)
+    return tails[r - 1] * float(r > 0)
+
+
+def _carried_state(xh, dt, A, Bv, Cv, split,
+                   final: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The term of y that the state carried into this rank's part of the
+    sequence adds: y is linear in the initial state, so the scan from a
+    zero state plus this equals the scan of the whole sequence.  Each
+    rank's final state from a zero start (B, H, P, N) and its part's
+    total decay (B, H), both float32, are gathered over the split's
+    axes; the rank's initial state is the sum of the earlier ranks'
+    final states, each decayed over the parts between; its term at
+    position t is C_t . (decay to t) * state.  `final` is the scan's own
+    final state where the scan returns one (`ssd_scan`; the SSD
+    kernel's wrapper, like the reference's, returns none, and then it
+    is made here by the scan's chunk-state product over the whole part).
+    The casts sit where `ssd_scan` puts its chunk states' and
+    inter-chunk output's."""
+    b, L, H, P = xh.shape
+    N = Bv.shape[-1]
+    dtype = xh.dtype
+    cum = torch.cumsum(dt * A, dim=1)                        # (b, L, H)
+    if final is None:
+        final = _state_from_zero(Bv, cum, dt, xh)
+    every, r = _from_earlier_ranks(
+        torch.cat([final.float().reshape(b, -1), cum[:, -1]], dim=-1),
+        split)
+    finals = every[..., :H * P * N].reshape(-1, b, H, P, N)
+    totals = every[..., H * P * N:]                          # (n, b, H)
+    init = 0.0
+    for j in range(every.shape[0]):
+        w = torch.exp(totals[j + 1:r].sum(0)) if j < r else \
+            torch.zeros_like(totals[j])
+        init = init + w[..., None, None] * finals[j]
+    return torch.einsum("bln,bhpn,blh->blhp", Cv, init.to(dtype),
+                        torch.exp(cum).to(dtype))
 
 
 def _mixer_heads(params: Params, cfg: ModelConfig) -> slice:
@@ -265,25 +342,37 @@ def mamba_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
     (`_gated_norm`), and multiplies its rows of `out_proj`, summed over
     'model'.  Where the heads do not split (H not a multiple of 'model',
     or a head split by the rows), every rank runs all of them on the
-    fused output gathered whole (or held whole)."""
+    fused output gathered whole (or held whole).
+
+    Under a sequence split over the data axes (`parallel.get_seq_split`)
+    x is the rank's part of each row: the conv reads the previous rank's
+    last `d_conv - 1` rows (`_previous_rows`), and the scan runs from a
+    zero state, to which the state carried from the earlier ranks adds
+    its term (`_carried_state`, from the scan's final state where the
+    route returns one)."""
+    from ..runtime.parallel import get_seq_split
     B_, L, _ = x.shape
     dssm, N, H, P = (cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads,
                      cfg.ssm_head_dim)
     hs = _mixer_heads(params, cfg)
     Hl = hs.stop - hs.start
     cols = slice(hs.start * P, hs.stop * P) if Hl < H else None
+    split = get_seq_split()
+    if split is not None and not split.axes:
+        split = None                    # the whole sequence: nothing carried
     z, xBC, dt = _in_proj(params, x, cfg, None if cols is None else hs)
     conv_w, conv_b = params["conv_w"], params["conv_b"]
     if cols is not None:
         conv_w = torch.cat([conv_w[:, cols], conv_w[:, dssm:]], dim=-1)
         conv_b = torch.cat([conv_b[cols], conv_b[dssm:]], dim=-1)
-    xBC = _causal_conv(xBC, conv_w, conv_b)
+    xBC = _causal_conv(xBC, conv_w, conv_b, None if split is None else
+                       _previous_rows(xBC, cfg.d_conv - 1, split))
     xs, Bv, Cv = torch.split(xBC, [Hl * P, N, N], dim=-1)
     dt = _softplus(dt.float() + params["dt_bias"][hs])
     A = -torch.exp(params["A_log"][hs])
     xh = xs.reshape(B_, L, Hl, P)
     if impl in KERNEL_IMPLS:
-        y, _ = ssd(xh, dt, A, Bv, Cv, chunk=cfg.ssm_chunk)
+        y, final = ssd(xh, dt, A, Bv, Cv, chunk=cfg.ssm_chunk)
     else:
         # pad L to a chunk multiple for the scan
         Q = min(cfg.ssm_chunk, max(16, L))
@@ -294,8 +383,11 @@ def mamba_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
             dtp = F.pad(dt, (0, 0, 0, pad))
             Bp = F.pad(Bv, (0, 0, 0, pad))
             Cp = F.pad(Cv, (0, 0, 0, pad))
-        y, _ = ssd_scan(xp, dtp, A, Bp, Cp, Q)
+        # the padding's dt is 0: it leaves the final state as it was
+        y, final = ssd_scan(xp, dtp, A, Bp, Cp, Q)
         y = y[:, :L]
+    if split is not None:
+        y = y + _carried_state(xh, dt, A, Bv, Cv, split, final)
     y = y + params["D"][hs].to(y.dtype)[:, None] * xh
     y = y.reshape(B_, L, Hl * P)
     v = y * F.silu(z.float()).to(y.dtype)

@@ -13,6 +13,14 @@ stacked (u_outer, every, ...) with no `b{j}` key, and the shared block is
 reference's nested scans become nested loops.  Encoder-decoder models are
 `models/encdec.py`.
 
+A batch whose rows do not divide over the mesh's data axes reaches the
+forward as the rank's part of each row's sequence (or whole, on every
+rank), with its `SeqSplit`: the positions are the rank's own, the
+attention reads the keys of the whole sequence (`models/attention.py`),
+the Mamba2 mixer carries its state across the ranks (`models/ssm.py`)
+and the MoE blocks take the reference's blocks of tokens
+(`models/moe.py`).
+
 On a mesh the params are the DTensors the rules place: the leaves
 outside the unit loop are gathered once a call (`parallel.gather_params`)
 and each unit's inside the loop, one unit at a time, inside the function
@@ -173,16 +181,18 @@ def run_units(unit_fn, x, stacked, n: int, prefix: str, remat: bool):
     unit_fn(x, unit params) -> (x, aux), the aux summed.  Each unit's
     params are gathered inside the function that `checkpoint` wraps, so
     that the recompute gathers them again and no unit's gathered weights
-    outlive it (`parallel.gather_unit`)."""
+    outlive it (`parallel.gather_unit`); that function runs under the
+    caller's mesh, context and sequence split."""
     from ..launch.mesh import get_abstract_mesh, use_mesh
-    from ..runtime.parallel import (gather_unit, get_context,
-                                    parallel_context, unit_shards)
-    mesh, ctx = get_abstract_mesh(), get_context()
+    from ..runtime.parallel import (gather_unit, get_context, get_seq_split,
+                                    parallel_context, seq_split,
+                                    unit_shards)
+    mesh, ctx, split = get_abstract_mesh(), get_context(), get_seq_split()
 
     def body(x, shards):
         # the recompute runs in the backward, after the caller has left
-        # its mesh and context: it takes this forward's
-        with use_mesh(mesh), parallel_context(ctx):
+        # its mesh, context and sequence split: it takes this forward's
+        with use_mesh(mesh), parallel_context(ctx), seq_split(split):
             return unit_fn(x, gather_unit(shards))
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -195,17 +205,31 @@ def run_units(unit_fn, x, stacked, n: int, prefix: str, remat: bool):
     return x, aux
 
 
+def positions_of(x: torch.Tensor, split) -> torch.Tensor:
+    """(S,) int32: the positions of x's S tokens in the whole sequence,
+    those of the rank's part under a sequence split (`SeqSplit`)."""
+    start = 0 if split is None else split.offset
+    return torch.arange(start, start + x.shape[1], dtype=torch.int32,
+                        device=x.device)
+
+
 def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
-            impl: str = "auto", remat: bool = True
+            impl: str = "auto", remat: bool = True, split=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """inputs: (B, S) int tokens, or (B, S, d) embeddings for frontend
-    stubs.  Returns (logits fp32 (B, S, V), aux_loss scalar)."""
+    stubs.  Returns (logits fp32 (B, S, V), aux_loss scalar).
+
+    `split` (a `sharding.SeqSplit`): inputs are the rank's part of the
+    sequence, or the whole batch on every rank of a mesh whose data axes
+    divide neither its rows nor its sequence; the units compute under it
+    (`parallel.seq_split`)."""
+    from ..runtime.parallel import seq_split
     params = outside(params)
     if inputs.ndim == 2:
         x = embed(params["embed"], inputs, cfg)
     else:
         x = inputs.to(torch.bfloat16)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    positions = positions_of(x, split)
 
     if cfg.shared_attn_every:
         shared = params["shared"]
@@ -225,7 +249,9 @@ def forward(params: Params, inputs: torch.Tensor, cfg: ModelConfig,
             return x, aux
         n_outer = cfg.n_units
 
-    x, aux = run_units(unit_fn, x, params["units"], n_outer, "units", remat)
+    with seq_split(split):
+        x, aux = run_units(unit_fn, x, params["units"], n_outer, "units",
+                           remat)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps, impl)
     return unembed(params["embed"], x, cfg), aux
 

@@ -56,14 +56,15 @@ import dataclasses
 import functools
 import math
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from ..launch.mesh import Mesh, get_abstract_mesh
-from .sharding import (_map_named, cache_spec, compute_spec, is_moe_stack,
-                       shard_slices, spec_to_placements, tp_dim)
+from .sharding import (SeqSplit, _map_named, cache_spec, compute_spec,
+                       is_moe_stack, shard_slices, spec_to_placements,
+                       tp_dim)
 
 _state = threading.local()
 
@@ -80,13 +81,40 @@ def get_context() -> Optional[ParallelContext]:
 
 
 @contextlib.contextmanager
-def parallel_context(ctx: ParallelContext):
-    prev = get_context()
-    _state.ctx = ctx
+def _scoped(name: str, value):
+    prev = getattr(_state, name, None)
+    setattr(_state, name, value)
     try:
         yield
     finally:
-        _state.ctx = prev
+        setattr(_state, name, prev)
+
+
+def parallel_context(ctx: ParallelContext):
+    return _scoped("ctx", ctx)
+
+
+def get_seq_split() -> Optional[SeqSplit]:
+    """The split of the sequence the model computes on (`seq_split`):
+    None where the rank holds its rows of the batch, or off a mesh."""
+    return getattr(_state, "seq", None)
+
+
+def seq_split(split: Optional[SeqSplit]):
+    """Within: the model computes on `split` of its input's sequence (the
+    forwards enter it, `models/transformer.py`, `models/encdec.py`)."""
+    return _scoped("seq", split)
+
+
+def batch_splits(splits: Dict[str, Optional[SeqSplit]]):
+    """Within: each batch leaf's split, by name (`sharding.leaf_shard`;
+    `train.mesh_apply` enters it, the model facade reads it)."""
+    return _scoped("splits", dict(splits))
+
+
+def leaf_split(name: str) -> Optional[SeqSplit]:
+    """The split of batch leaf `name` (`batch_splits`), None if unset."""
+    return (getattr(_state, "splits", None) or {}).get(name)
 
 
 def shard_batch(x):

@@ -38,7 +38,7 @@ from ..configs.base import ModelConfig
 from ..launch.mesh import use_mesh
 from ..models import build_model
 from ..models.attention import SeqShard
-from .parallel import all_gather, gather_model, model_slice
+from .parallel import all_gather, gather_model, leaf_split, model_slice
 from .sharding import (P, _axes_of, _map_named, batch_spec, cache_spec,
                        shard_slices, slot_rows, spec_to_placements)
 from .train import mesh_apply
@@ -114,9 +114,17 @@ def _mesh_serve_fns(cfg: ModelConfig, scfg: ServeConfig, model, pick,
     @torch.no_grad()
     def prefill(params, batch) -> torch.Tensor:
         """This rank's rows of the last position's logits (its columns of
-        a vocab-parallel unembedding)."""
-        return mesh_apply(lambda p, b: model.apply(p, b)[0][:, -1],
-                          mesh)(params, batch)
+        a vocab-parallel unembedding); every row's, where the data axes
+        do not divide the rows, from the rank holding the last position
+        when they split the sequence."""
+        def last(p, b):
+            logits = model.apply(p, b)[0][:, -1]
+            split = leaf_split("embeds" if "embeds" in b else "tokens")
+            if split is None or not split.axes:
+                return logits
+            return all_gather(logits[None], mesh, split.axes)[-1]
+
+        return mesh_apply(last, mesh)(params, batch)
 
     @torch.no_grad()
     def decode_step(params, cache, token, pos):

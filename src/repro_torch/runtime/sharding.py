@@ -10,8 +10,9 @@ reference's, spec for spec (megatron-style TP x FSDP x DP on mesh axes
 - a dimension is only assigned to a mesh axis when the axis size divides
   it, else the rule falls down a preference list and finally to
   replication;
-- activations: batch on ("pod", "data"); batch=1 long-context shapes
-  shard the sequence axis instead;
+- activations: batch on ("pod", "data"); a batch whose rows those axes
+  do not divide shards its sequence there instead (context parallelism,
+  `leaf_shard`), or, where that does not divide either, is replicated;
 - KV caches: batch on ("pod", "data"), kv-heads on 'model' when
   divisible, else sequence on 'model'.
 
@@ -231,6 +232,34 @@ def slot_rows(mesh, x):
     spec = batch_spec(mesh, tuple(x.shape))
     return x if spec[0] is None else \
         x[shard_slices(mesh, spec, tuple(x.shape))[0]]
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """A batch leaf whose rows do not divide over the data axes, as a
+    rank holds it (`leaf_shard`): positions [offset, offset + length /
+    ranks) of each row's `length`, its part of the sequence over `axes`
+    (their ranks in order, the first major), or, with no `axes`, the
+    whole leaf, every rank the same."""
+    axes: Tuple[str, ...]
+    offset: int
+    length: int
+
+
+def leaf_shard(mesh, x) -> Tuple[Any, Optional[SeqSplit]]:
+    """(this rank's shard of a global batch leaf under its `batch_spec`,
+    the split it holds): its rows over the data axes (split None) where
+    they divide the rows; else its slice of dim 1, which they divide;
+    else the whole leaf (a `SeqSplit` over no axes)."""
+    shape = tuple(x.shape)
+    spec = batch_spec(mesh, shape)
+    cut = shard_slices(mesh, spec, shape)
+    if spec[0] is not None:
+        return x[cut[0]], None
+    if len(shape) < 2:
+        return x, SeqSplit((), 0, 1)
+    axes = _axes_of(spec[1])
+    return x[:, cut[1]], SeqSplit(axes, cut[1].start, shape[1])
 
 
 @dataclasses.dataclass(frozen=True)

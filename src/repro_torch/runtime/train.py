@@ -24,11 +24,15 @@ placed by `runtime/sharding.py: state_shardings`:
   tensor-parallel (`sharding.compute_spec`: column- and row-parallel
   projections, the Mamba2 mixer's projections, the vocab-parallel
   embedding, unembedding and cross entropy, the MoE expert stacks at
-  their path's shard); every other weight is gathered whole.  It runs its
-  `batch_spec` shard of the batch (its rows over the data axes; a batch
-  those axes do not divide raises, since the reference would shard the
-  sequence, GSPMD's context parallelism for training, which the port
-  does not have);
+  their path's shard); every other weight is gathered whole.  It runs
+  its `batch_spec` shard of the batch: its rows over the data axes;
+  where they do not divide the rows, its part of the sequence (context
+  parallelism: the positions are the rank's own, the attention gathers
+  the keys and values of the whole sequence over the data axes, the
+  Mamba2 mixer carries its conv window and its state across the ranks,
+  the MoE blocks take the reference's blocks of tokens); where they
+  divide neither, the whole batch on every rank, as GSPMD runs the
+  reference's step on a batch sharded so (`mesh_apply`);
 - each rank's loss is scaled by 1 / (number of ranks), so that the
   gradients' reduction back to the parameters' shards gives the mean
   over the global batch (`runtime/parallel.py`: the collectives'
@@ -57,9 +61,9 @@ from ..models import build_model
 from ..optim.optimizers import OptimizerConfig, build_optimizer
 from ..tree import leaves, tree_map
 from .compression import CompressionConfig, compress_decompress
-from .parallel import (axis_size, gather_model, model_slice, pmax, psum,
-                       psum_model)
-from .sharding import batch_spec, place, slot_rows, state_shardings
+from .parallel import (axis_size, batch_splits, gather_model, model_slice,
+                       pmax, psum, psum_model)
+from .sharding import leaf_shard, place, state_shardings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,7 +164,11 @@ def compute_grads(loss_fn, params, batch, microbatches: int = 1):
     k > 1 the batch's leading axis is split in k; each microbatch's
     gradients are cast to float32, divided by k and summed in float32,
     and the loss, ce and aux are averaged the same way, as the reference's
-    `lax.scan` does (same math, 1/k of the activation memory)."""
+    `lax.scan` does (same math, 1/k of the activation memory).  On a
+    mesh each microbatch takes its shard by its own `batch_spec`
+    (`mesh_apply`): one whose rows do not divide over the data axes
+    splits its sequence, or is replicated, as the reference's scan body
+    is sharded."""
     if microbatches <= 1:
         (loss, m), grads = value_and_grad(loss_fn, params, batch)
         return loss, m, grads
@@ -181,27 +189,18 @@ def compute_grads(loss_fn, params, batch, microbatches: int = 1):
     return loss_a, {"ce": ce_a, "aux": aux_a}, acc
 
 
-def rank_rows(mesh, x: torch.Tensor) -> torch.Tensor:
-    """This rank's rows of a global batch tensor under `batch_spec`."""
-    data = [a for a in ("pod", "data") if a in mesh.shape]
-    if batch_spec(mesh, tuple(x.shape))[0] is None and \
-            axis_size(mesh, data) > 1:
-        raise ValueError(
-            f"a batch of {x.shape[0]} rows does not divide over the data "
-            f"axes {mesh.shape}; the reference would shard its sequence "
-            f"(context parallelism), which the port does not")
-    return slot_rows(mesh, x)
-
-
 def mesh_apply(fn, mesh):
     """fn(params, batch) on a mesh, under `use_mesh(mesh)`: params the
     DTensors as placed, which the model gathers where it uses them
-    (`runtime/parallel.py`), batch global, this rank's rows taken
-    (`rank_rows`)."""
+    (`runtime/parallel.py`), batch global, each leaf's shard taken by its
+    own `batch_spec` (`sharding.leaf_shard`: its rows, else its part of
+    the sequence, else all of it) and its split recorded for the model
+    (`parallel.batch_splits`)."""
     def apply(params, batch):
-        with use_mesh(mesh):
-            return fn(params, {k: rank_rows(mesh, v)
-                               for k, v in batch.items()})
+        shards = {k: leaf_shard(mesh, v) for k, v in batch.items()}
+        with use_mesh(mesh), batch_splits(
+                {k: split for k, (_, split) in shards.items()}):
+            return fn(params, {k: x for k, (x, _) in shards.items()})
 
     return apply
 
@@ -209,7 +208,12 @@ def mesh_apply(fn, mesh):
 def mesh_loss_fn(loss_fn, mesh):
     """loss_fn(params, batch) on a mesh (`mesh_apply`), the loss and
     metrics scaled by 1 / ranks, so that they, and the gradients, add up
-    over the ranks to the global batch's."""
+    over the ranks to the global batch's.  Each rank's loss is the mean
+    over the tokens it holds, so the sum is the global mean in each of
+    `batch_spec`'s layouts: split over the rows or over the sequence,
+    every rank of the data axes holds an equal share of the tokens (and
+    the ranks of 'model' the same ones); replicated, every rank holds the
+    whole batch."""
     world = axis_size(mesh, mesh.shape)
     apply = mesh_apply(loss_fn, mesh)
 

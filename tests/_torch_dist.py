@@ -81,20 +81,21 @@ def finish(started, timeout):
             for r in range(len(procs))]
 
 
-def moe_results(got, name):
+def moe_results(got, name, dim=0):
     """The `moe` case's run `name` over all ranks: (y over both data
-    shards, aux, gradients summed over the ranks: the params over all of
-    them, x over the model ranks of each data shard), as numpy.  Each
+    shards, joined on `dim`: 0 for shards of the rows, 1 of the
+    sequence; aux; gradients summed over the ranks: the params over all
+    of them, x over the model ranks of each data shard), as numpy.  Each
     data shard's y must be the same on all of its model ranks."""
     by_data = {r["data_index"]: r[name] for r in got}
     for r in got:
         assert torch.equal(r[name]["y"], by_data[r["data_index"]]["y"])
-    y = torch.cat([by_data[i]["y"] for i in (0, 1)]).numpy()
+    y = torch.cat([by_data[i]["y"] for i in (0, 1)], dim).numpy()
     grads = {k: sum(r[name]["grads"][k] for r in got).numpy()
              for k in ("router", "w_gate", "w_up", "w_down")}
     grads["x"] = torch.cat([
         sum(r[name]["grads"]["x"] for r in got if r["data_index"] == i)
-        for i in (0, 1)]).numpy()
+        for i in (0, 1)], dim).numpy()
     return y, float(got[0][name]["aux"]), grads
 
 

@@ -9,9 +9,12 @@ Cases:
 - moe (8 ranks, or 4 on cards): on a (2, WORLD / 2) ("data", "model")
   mesh, the expert-parallel and TP-ff blocks at capacity factors 8.0 and
   1.25, and the dispatcher's dropless path with the mesh alone, on
-  WORKDIR/moe_in.npz (`moe_inputs`); each with its gradients; then, with
-  8 ranks, `spec_to_placements` on a (2, 2, 2) ("pod", "data", "model")
-  mesh: each rank's shard of an arange tensor.
+  WORKDIR/moe_in.npz (`moe_inputs`); both explicit paths at 1.25 on
+  inputs split on the sequence over 'data' (`CP_SHAPES`); each with its
+  gradients; then, with 8 ranks, the explicit paths at 1.25 on batches
+  the data axes replicate (`REP_CASES`, each on its own mesh), and
+  `spec_to_placements` on a (2, 2, 2) ("pod", "data", "model") mesh:
+  each rank's shard of an arange tensor.
 - train (4 ranks): on a (2, 2) mesh, the checkpoint in WORKDIR/ckpt
   restored with the mesh's state shardings, then two AdamW steps from
   it, whose state is saved from the mesh and restored again; and two
@@ -21,8 +24,9 @@ Cases:
   (`seeded_params`): train steps (two steps of each config from its
   params, by the optimizer its "opt" names, AdamW unless it says
   otherwise, the state placed for it; a run may name its "remat", its
-  attention "impl" and its MoE "capacity"; on cards each rank's
-  largest `max_memory_allocated` of a step, the state's gathers for the
+  attention "impl", its MoE "capacity" and its "microbatches"; on
+  cards each rank's kernel launches of each step and its largest
+  `max_memory_allocated` of a step, the state's gathers for the
   comparison left out), decode steps (a fed token a
   slot a step: the next tokens and the whole logits; at the run's MoE
   "capacity"), `serve_loop` runs and prefills (the run's "tokens" and
@@ -49,6 +53,21 @@ PLACE_SPECS = ((("pod", "data"), "model"), (None, ("pod", "data")),
                ("data", None), (None, "pod"))
 
 
+#: the `moe` case's inputs split on the sequence over 'data' (context
+#: parallelism): one row, and three rows (the reference's blocks of
+#: tokens then straddle the ranks' parts)
+CP_SHAPES = {"cp1": (1, 64), "cp3": (3, 32)}
+
+#: the `moe` case's replicated inputs on 8 ranks: (mesh ("data",
+#: "model"), (rows, sequence), paths), rows and sequence each indivisible
+#: by 'data', their token count divisible by what the path splits it
+#: over.  On (4, 2) no such batch reaches the expert-parallel path (its
+#: tokens would need a factor 8 from two factors short of 4), so it runs
+#: on (8, 1).
+REP_CASES = {"rep4": ((4, 2), (2, 6), ("tp",)),
+             "rep8": ((8, 1), (2, 12), ("ep", "tp"))}
+
+
 def moe_inputs(seed=0):
     """The block's weights, x and a cotangent c for sum(y * c), float32."""
     rng = np.random.default_rng(seed)
@@ -59,6 +78,10 @@ def moe_inputs(seed=0):
            "w_down": rng.standard_normal((E, ff, d)) / np.sqrt(ff),
            "x": rng.standard_normal((2, 16, d)),
            "c": rng.standard_normal((2, 16, d))}
+    shapes = [*CP_SHAPES.values(), *(s for _, s, _ in REP_CASES.values())]
+    for B, S in shapes:
+        out[f"x_{B}x{S}"] = rng.standard_normal((B, S, d))
+        out[f"c_{B}x{S}"] = rng.standard_normal((B, S, d))
     return {k: v.astype(np.float32) for k, v in out.items()}
 
 
@@ -73,7 +96,8 @@ def case_moe(workdir, device):
     from torch.distributed.tensor import distribute_tensor
 
     from repro_torch.models import moe
-    from repro_torch.runtime.sharding import P, spec_to_placements
+    from repro_torch.runtime.parallel import seq_split
+    from repro_torch.runtime.sharding import P, SeqSplit, spec_to_placements
 
     from _torch_dist import tp_local
 
@@ -92,16 +116,17 @@ def case_moe(workdir, device):
 
     cot = torch.from_numpy(data["c"][i:i + 1]).to(device)
 
-    def record(y, aux, params, x):
-        # this data shard's y is on each of its model ranks
-        grads = torch.autograd.grad((y * cot).sum() / n_model,
+    def record(y, aux, params, x, c=cot, holders=n_model):
+        # this data shard's y is on each of its model ranks (on every
+        # rank, where the batch is replicated)
+        grads = torch.autograd.grad((y * c).sum() / holders,
                                     [*params.values(), x])
         return {"y": y.detach().cpu(), "aux": aux.detach().cpu(),
                 "grads": {k: g.cpu() for k, g in
                           zip([*params, "x"], grads)}}
 
     out = {"data_index": i, "model_index": mesh.index("model")}
-    def shards(params, path):
+    def shards(params, path, mesh=mesh):
         # each path takes this rank's shard of the stacks (a view of the
         # whole leaf, whose gradient is zero off the shard)
         return dict(params, **tp_local(mesh, {"moe": {
@@ -122,7 +147,34 @@ def case_moe(workdir, device):
         y, aux = moe.moe_block(shards(params, "dropless"), x, cfg)
     out["gspmd"] = record(y, aux, params, x)
 
+    # each data rank's half of every row's sequence, under its split
+    ctx = ParallelContext(capacity_factor=1.25)
+    for key, (B, S) in CP_SHAPES.items():
+        part = slice(i * S // 2, (i + 1) * S // 2)
+        split = SeqSplit(("data",), part.start, S)
+        c = torch.from_numpy(data[f"c_{B}x{S}"][:, part]).to(device)
+        for name, (fn, path) in runs.items():
+            params, _ = tensors()
+            x = torch.from_numpy(data[f"x_{B}x{S}"][:, part]).to(
+                device).requires_grad_()
+            with use_mesh(mesh), parallel_context(ctx), seq_split(split):
+                y, aux = fn(shards(params, path), x, cfg, ctx)
+            out[f"{name}_{key}"] = record(y, aux, params, x, c)
+
     if world == 8:
+        # every rank the whole batch
+        for key, (shape, (B, S), names) in REP_CASES.items():
+            rmesh = make_auto_mesh(shape, ("data", "model"), device)
+            c = torch.from_numpy(data[f"c_{B}x{S}"]).to(device)
+            for name in names:
+                fn, path = runs[name]
+                params, _ = tensors()
+                x = torch.from_numpy(data[f"x_{B}x{S}"]).to(
+                    device).requires_grad_()
+                with use_mesh(rmesh), parallel_context(ctx), \
+                        seq_split(SeqSplit((), 0, S)):
+                    y, aux = fn(shards(params, path, rmesh), x, cfg, ctx)
+                out[f"{name}_{key}"] = record(y, aux, params, x, c, world)
         cube = make_auto_mesh((2, 2, 2), ("pod", "data", "model"), device)
         full = torch.arange(16 * 8, dtype=torch.float32).reshape(16, 8)
         out["coords"] = tuple(cube.index(a) for a in cube.shape)
@@ -216,6 +268,8 @@ def seeded_params(cfg, seed, device):
 
 
 def case_tp(workdir, device):
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.launch.serve import serve_loop
     from repro_torch.optim.optimizers import OptimizerConfig, build_optimizer
     from repro_torch.runtime.parallel import all_gather
@@ -248,7 +302,8 @@ def case_tp(workdir, device):
                 optimizer=opt, remat=run.get("remat", False),
                 attention_impl=run.get("impl", "auto"),
                 aux_loss_weight=run.get("aux", 0.01),
-                loss_impl=run.get("loss_impl", "onehot")), device, mesh=mesh)
+                loss_impl=run.get("loss_impl", "onehot"),
+                microbatches=run.get("microbatches", 1)), device, mesh=mesh)
             params = weights(run)
             state = {"params": params,
                      "opt": build_optimizer(opt).init(params),
@@ -259,13 +314,19 @@ def case_tp(workdir, device):
             # "states", and no other rank's (their whole states are the
             # same gathers); else each rank's after the last, in "state"
             every = run.get("every_step", False)
-            losses, states, peak = [], [], 0
+            losses, states, peak, launches = [], [], 0, []
             for batch in run["batches"]:
                 if device == "cuda":
                     torch.cuda.reset_peak_memory_stats()
+                    flash_attention.launches = rmsnorm.launches = 0
+                    rmsnorm.bwd_launches = 0
                 state, m = step_fn(state, dev(batch))
                 if device == "cuda":
                     peak = max(peak, torch.cuda.max_memory_allocated())
+                    launches.append({
+                        "flash_attention": flash_attention.launches,
+                        "rmsnorm": rmsnorm.launches,
+                        "rmsnorm.bwd": rmsnorm.bwd_launches})
                 losses.append(float(m["loss"]))
                 if every:
                     whole = full(state)
@@ -275,6 +336,7 @@ def case_tp(workdir, device):
             res = {"losses": losses}
             if device == "cuda":
                 res["max_memory_allocated"] = peak
+                res["launches"] = launches
             if every:
                 res["states"] = states
             else:
@@ -301,7 +363,6 @@ def case_tp(workdir, device):
         out["decode"][name] = {"tokens": torch.cat(toks, 1),
                                "logits": torch.cat(logits, 1)}
     for name, run in spec.get("prefill", {}).items():
-        from repro_torch.kernels.rmsnorm.ops import rmsnorm
         from repro_torch.kernels.ssd.ops import ssd
         cfg, tokens = run["cfg"], run["tokens"].to(device)
         with use_mesh(mesh), parallel_context(ParallelContext()):

@@ -782,6 +782,98 @@ def test_tensor_parallel_full_width_smollm_across_four_cards(tmp_path):
     assert dataclasses.asdict(cfg)["n_heads"] % 4      # heads split
 
 
+def test_context_parallel_full_width_smollm_across_four_cards(tmp_path):
+    """Full-width smollm-360m's train step at batch 2 x 1024 on a (4, 1)
+    mesh of four cards, one NCCL rank each: 'data' does not divide the 2
+    rows, so each rank trains on its 256 positions of both rows (context
+    parallelism: the keys and values of the whole sequence gathered
+    over 'data' after RoPE, the queries at the rank's positions).
+    float32 (TF32 off), the kernel routes (flash attention forward,
+    RMSNorm forward and backward), remat on.  Two AdamW steps equal one
+    card's (losses 1e-5 relative; rank 0's whole state after each step
+    as `_states_close`, the bounds of the tensor-parallel test above),
+    and each rank launches flash attention, RMSNorm and its backward as
+    often a step as one card.  Prints each leaf's readings, and each
+    rank's largest `max_memory_allocated` of a step beside one card's,
+    one JSON line each (run with -s).  Skips on fewer than four cards
+    (run it with four)."""
+    import json
+
+    from _torch_dist import finish, start_ranks
+    from _torch_dist_worker import seeded_params
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.optim.optimizers import (OptimizerConfig,
+                                              build_optimizer)
+    from repro_torch.runtime.train import TrainConfig, make_train_step
+    from repro_torch.tree import tree_map
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards (one NCCL rank each)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ARCHS["smollm-360m"]
+    opt = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+    batches = [{k: torch.from_numpy(v) for k, v in batch_for_model(
+        cfg, DataConfig(seq_len=1024, global_batch=2,
+                        vocab_size=cfg.vocab_size), i).items()}
+        for i in (0, 1)]
+    train = {"smollm": {"cfg": cfg, "opt": opt, "batches": batches,
+                        "params": 0, "every_step": True, "remat": True,
+                        "impl": "auto"}}
+    torch.save({"mesh": (4, 1), "train": train}, tmp_path / "tp_in.pt")
+    got = finish(start_ranks("tp", 4, tmp_path, "cuda"), 900)
+    dev = torch.device("cuda")
+    params = seeded_params(cfg, 0, dev)
+    ocfg = OptimizerConfig(**opt)
+    step, _ = make_train_step(cfg, TrainConfig(optimizer=ocfg, remat=True,
+                                               attention_impl="auto"), dev)
+    state = {"params": params, "opt": build_optimizer(ocfg).init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    del params
+    losses, states, launches, peak = [], [], [], 0
+    for b in batches:
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = rmsnorm.launches = 0
+        rmsnorm.bwd_launches = 0
+        state, m = step(state, {k: v.to(dev) for k, v in b.items()})
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        launches.append({"flash_attention": flash_attention.launches,
+                         "rmsnorm": rmsnorm.launches,
+                         "rmsnorm.bwd": rmsnorm.bwd_launches})
+        losses.append(float(m["loss"]))
+        states.append(tree_map(lambda t: t.cpu(), state))
+    del state
+    readings = [dict(where="(4, 1)", rank=r, max_memory_allocated=rank[
+        "train"]["smollm"]["max_memory_allocated"],
+        launches=rank["train"]["smollm"]["launches"])
+        for r, rank in enumerate(got)]
+    readings.append(dict(where="one card", max_memory_allocated=peak,
+                         launches=launches))
+    try:
+        for r, rank in enumerate(got):
+            res = rank["train"]["smollm"]
+            np.testing.assert_allclose(res["losses"], losses, rtol=1e-5)
+            assert res["launches"] == launches, r
+            assert len(res["states"]) == (2 if r == 0 else 0)
+        assert min(launches[0].values()) > 0
+        _states_close(got[0]["train"]["smollm"]["states"], states, ocfg,
+                      "(4, 1)", readings)
+    finally:
+        for line in readings:
+            print("readings:", json.dumps(line))
+
+
+def _tree(flat):
+    """A nested dict from {"a/b/c": leaf}."""
+    out = {}
+    for name, leaf in flat.items():
+        node, parts = out, name.split("/")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+    return out
+
+
 #: full-width float32 zamba2-2.7b's last-position logits on a (1, 4)
 #: mesh against one card: the row-parallel sums and the split norm's
 #: squares add over 'model' in another order, float32 rounding that 54
@@ -802,11 +894,16 @@ def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
     'model' rank that holds it, the rules reading its stack as an
     expert stack) on a (2, 2) mesh of four cards, one NCCL rank each:
     two float32 AdamW steps (remat on; TF32 off; zamba2 and smollm on
-    the plain routes, as the SSD kernel has no backward) equal the steps on one
-    card (losses
-    1e-5 relative, optimizer state 1e-3 of each leaf's largest, both
-    steps being ill-conditioned in float32 as the CPU test shows, params
-    within two steps), and
+    the plain routes, as the SSD kernel has no backward) equal the steps
+    on one card: the two chained steps' losses within 1e-5 relative and
+    params within two steps; and each step's optimizer state (rank 0's,
+    gathered whole) within 1e-3 of each leaf's largest of one card's
+    step from the same state (step 1 from the seed's, step 2 from the
+    mesh's step-1 state), since the float32 steps are ill-conditioned as
+    the CPU test shows, and chained steps would compound: AdamW's first
+    update moves a weight whose gradient is at rounding level by up to
+    0.29 lr, so step 2 would start from other params (ROADMAP, Queue 3,
+    item 4); and
     6 fed decode steps give the one card's tokens, logits within 1e-3
     (`tests/test_torch_unit_gather.py`'s bounds on the CPU).  MoE at
     capacity 8.0 with the aux loss off, against the dropless path.
@@ -821,9 +918,10 @@ def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
     FULL_ZAMBA2_ATOL, each rank launching SSD and RMSNorm as often as the
     one card, both more than 0.  In both prefills each rank's gated norms
     are the split-row pair, one a mixer (`rmsnorm.split_launches` equals
-    the config's layers, 12 and 54; the one card's is 0).  Prints, as `readings:` lines, each arch's
-    largest optimizer-state error over its leaf's largest beside the
-    1e-3 bound, and each prefill's error.  Skips on fewer than four cards
+    the config's layers, 12 and 54; the one card's is 0).  Prints, as
+    `readings:` lines, each arch's largest optimizer-state error of each
+    step over its leaf's largest beside the 1e-3 bound, and each
+    prefill's error.  Skips on fewer than four cards
     (run it with four)."""
     import json
 
@@ -851,7 +949,8 @@ def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
         train[name] = {"cfg": cfg, "opt": opt, "batches": batches,
                        "params": 0, "capacity": 8.0 if moe else 1.25,
                        "aux": 0.0 if moe else 0.01, "remat": True,
-                       "impl": "auto" if moe else "naive"}
+                       "impl": "auto" if moe else "naive",
+                       "every_step": True}
         decode[name] = {"cfg": cfg, "params": 1, "max_len": 16,
                         "capacity": 8.0, "feed": torch.from_numpy(
                             rng.integers(0, cfg.vocab_size, (4, 6)).astype(
@@ -874,29 +973,43 @@ def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
         params = seeded_params(cfg, 0, dev)
         state = {"params": params, "opt": build_optimizer(ocfg).init(params),
                  "step": torch.zeros((), dtype=torch.int32, device=dev)}
-        losses = []
+        losses, chained = [], []
         for b in run["batches"]:
             state, m = step(state, {k: v.to(dev) for k, v in b.items()})
             losses.append(float(m["loss"]))
-        want = {"/".join(p): t.cpu() for p, t in named_leaves(state)}
-        worst = max((float((rank["train"][name]["state"][leaf] - w).abs()
-                           .max()) / max(float(w.abs().max()), 1e-30), leaf)
-                    for rank in got for leaf, w in want.items()
-                    if leaf.startswith("opt/"))
-        print("readings:", json.dumps(dict(
-            arch=name, mesh=[2, 2], worst_opt_leaf=worst[1],
-            max_abs_err_over_leaf_max=worst[0], bound=1e-3)))
-        for rank in got:
-            res = rank["train"][name]
-            np.testing.assert_allclose(res["losses"], losses, rtol=1e-5)
-            for leaf, w in want.items():
-                g = res["state"][leaf]
+            chained.append({"/".join(p): t.cpu()
+                            for p, t in named_leaves(state)})
+        # each step from the state the mesh's step started from: step 1
+        # from the seed's, step 2 from the mesh's step-1 state, gathered
+        # whole (rank 0's), so that no step's difference compounds
+        mesh_states = got[0]["train"][name]["states"]
+        start = _tree({k: v.to(dev) for k, v in mesh_states[0].items()})
+        state, _ = step(start, {k: v.to(dev) for k, v in
+                                run["batches"][1].items()})
+        want = [chained[0], {"/".join(p): t.cpu()
+                             for p, t in named_leaves(state)}]
+        del start
+        for t, (g_state, w_state) in enumerate(zip(mesh_states, want), 1):
+            worst = max((float((g_state[leaf] - w).abs().max())
+                         / max(float(w.abs().max()), 1e-30), leaf)
+                        for leaf, w in w_state.items()
+                        if leaf.startswith("opt/"))
+            print("readings:", json.dumps(dict(
+                arch=name, mesh=[2, 2], step=t, worst_opt_leaf=worst[1],
+                max_abs_err_over_leaf_max=worst[0], bound=1e-3)))
+            for leaf, w in w_state.items():
                 if leaf.startswith("opt/") or leaf == "step":
                     atol = 1e-3 * float(w.abs().max())
-                    torch.testing.assert_close(g, w, rtol=0, atol=atol,
-                                               msg=f"{name} {leaf}")
-                else:
-                    assert float((g - w).abs().max()) <= 2.2e-3, leaf
+                    torch.testing.assert_close(g_state[leaf], w, rtol=0,
+                                               atol=atol,
+                                               msg=f"{name} step {t} {leaf}")
+        for rank in got:
+            np.testing.assert_allclose(rank["train"][name]["losses"], losses,
+                                       rtol=1e-5)
+        for leaf, w in chained[-1].items():
+            if leaf.startswith("params/"):
+                assert float((mesh_states[-1][leaf] - w).abs().max()) \
+                    <= 2.2e-3, leaf
         run = decode[name]
         _, dstep, init_cache = make_serve_fns(
             cfg, ServeConfig(max_len=run["max_len"]), dev)

@@ -14,6 +14,9 @@ checkpoint's elastic restore across meshes.
   either sign when the shards add in another order; the reasons are in
   `test_torch_train.py`).  Each rank runs its data shard (2 of the 4
   rows), and the gradients come back to the shards summed.
+- Each batch leaf's rank shard (`sharding.leaf_shard`): its rows where
+  the data axes divide them, else its slice of the sequence (pod-major
+  over ("pod", "data")), else the whole leaf, with the split recorded.
 """
 
 import numpy as np
@@ -22,8 +25,8 @@ import torch
 
 from repro_torch.checkpoint.checkpointer import save
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.runtime.sharding import place, state_shardings
-from repro_torch.runtime.train import rank_rows
+from repro_torch.runtime.sharding import (SeqSplit, leaf_shard, place,
+                                         state_shardings)
 from repro_torch.tree import named_leaves
 
 from _torch_dist import finish, local_group, start_ranks
@@ -116,20 +119,37 @@ def test_steps_on_2x2_mesh_match_one_process(runs, opt):
 
 
 class _Mesh:
-    """A mesh as the rules see it: axis sizes, this rank at 0."""
+    """A mesh as the rules see it: axis sizes, this rank's indices (0
+    unless given)."""
 
-    def __init__(self, **shape):
-        self.shape = shape
+    def __init__(self, index=None, **shape):
+        self.shape, self._index = shape, index or {}
 
     def index(self, axis):
-        return 0
+        return self._index.get(axis, 0)
 
 
-def test_a_batch_that_does_not_divide_over_the_data_axes_raises():
-    with pytest.raises(ValueError, match="context parallelism"):
-        rank_rows(_Mesh(data=2, model=2), torch.zeros(3, 8))
-    x = torch.zeros(3, 8)
-    assert torch.equal(rank_rows(_Mesh(data=1, model=4), x), x)
+def test_each_leaf_takes_its_rank_shard_by_its_batch_spec():
+    x = torch.arange(3 * 8 * 2).reshape(3, 8, 2)
+    # rows that divide the data axes: the rank's rows, no split
+    got, split = leaf_shard(_Mesh({"data": 1}, data=2, model=2),
+                            torch.arange(4 * 8).reshape(4, 8))
+    assert split is None and torch.equal(got, torch.arange(16, 32).reshape(
+        2, 8))
+    # 3 rows on 2 ranks of 'data': the rank's slice of the sequence
+    got, split = leaf_shard(_Mesh({"data": 1}, data=2, model=2), x)
+    assert split == SeqSplit(("data",), 4, 8)
+    assert torch.equal(got, x[:, 4:8])
+    # over ("pod", "data"): pod-major, as the reference orders them
+    got, split = leaf_shard(_Mesh({"pod": 1, "data": 0}, pod=2, data=2), x)
+    assert split == SeqSplit(("pod", "data"), 4, 8)
+    assert torch.equal(got, x[:, 4:6])
+    # neither the rows nor the sequence divide: the whole leaf
+    got, split = leaf_shard(_Mesh(data=2, model=2), x[:, :7])
+    assert split == SeqSplit((), 0, 7) and torch.equal(got, x[:, :7])
+    # one rank on the data axes: every row
+    got, split = leaf_shard(_Mesh(data=1, model=4), x)
+    assert split is None and torch.equal(got, x)
 
 
 def test_kernel_wrappers_reject_dtensors():

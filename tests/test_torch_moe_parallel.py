@@ -18,6 +18,16 @@
   order), gradients of sum(y * c) for the router, the expert stacks and
   x within 1e-5 of the largest (float32 sums of a few dozen terms); the
   dropless path with the mesh alone (rows gathered over 'data') too.
+- Both parallel paths on inputs split on the sequence over 'data'
+  (context parallelism; `_torch_dist_worker.CP_SHAPES`: one row of 64
+  tokens, whose halves are the reference's blocks of tokens, and three
+  rows of 32, whose blocks straddle the ranks' halves) at capacity 1.25,
+  rows dropping, against the reference's paths on the whole input,
+  under the bounds above; and on batches the data axes replicate
+  (`_torch_dist_worker.REP_CASES`: rows and sequence each indivisible by
+  'data', so every rank holds the whole batch and computes the
+  reference's block of its tokens), TP-ff on (4, 2) at (2, 6) and both
+  paths on (8, 1) at (2, 12), the same way.
 - `spec_to_placements` on a (2, 2, 2) ("pod", "data", "model") mesh:
   every rank holds the block that the device at its mesh coordinates
   holds under the reference's NamedSharding (composite entries
@@ -48,7 +58,8 @@ from repro_torch.runtime.parallel import ParallelContext, parallel_context
 from repro_torch.runtime.sharding import P, spec_to_placements
 
 from _torch_dist import finish, local_group, moe_results, start_ranks
-from _torch_dist_worker import PLACE_SPECS, moe_inputs
+from _torch_dist_worker import (CP_SHAPES, PLACE_SPECS, REP_CASES,
+                                moe_inputs)
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 FWD_ATOL = 1e-5
@@ -69,6 +80,7 @@ from repro.runtime.parallel import ParallelContext
 from repro.launch.mesh import make_auto_mesh, use_mesh
 
 out_path, in_path, specs = sys.argv[1], sys.argv[2], eval(sys.argv[3])
+cp_shapes, rep_cases = eval(sys.argv[4]), eval(sys.argv[5])
 d = np.load(in_path)
 cfg = dataclasses.replace(reduced(ARCHS["kimi-k2-1t-a32b"]), n_experts=8,
                           experts_per_token=2, moe_d_ff=32, d_model=64,
@@ -78,12 +90,12 @@ params = {k: jnp.asarray(d[k]) for k in ("router", "w_gate", "w_up",
 x, c = jnp.asarray(d["x"]), jnp.asarray(d["c"])
 res = {}
 
-def run(name, f):
+def run(name, f, x=x, c=c, **jit):
     def loss(p, x):
         y, aux = f(p, x)
         return (y * c).sum(), (y, aux)
     (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
-        loss, argnums=(0, 1), has_aux=True))(params, x)
+        loss, argnums=(0, 1), has_aux=True), **jit)(params, x)
     res[name + "/y"], res[name + "/aux"] = y, aux
     for k, v in gp.items():
         res[name + "/grad/" + k] = v
@@ -96,6 +108,26 @@ with use_mesh(mesh):
         ctx = ParallelContext(capacity_factor=cf)
         run(f"ep_{cf}", lambda p, x: moe_block_expert_parallel(p, x, cfg, ctx))
         run(f"tp_{cf}", lambda p, x: moe_block_tp_ff(p, x, cfg, ctx))
+    ctx = ParallelContext(capacity_factor=1.25)
+    for key, (B, S) in cp_shapes.items():
+        xs, cs = (jnp.asarray(d[f"{n}_{B}x{S}"]) for n in ("x", "c"))
+        run(f"ep_{key}", lambda p, x: moe_block_expert_parallel(p, x, cfg,
+                                                                ctx), xs, cs)
+        run(f"tp_{key}", lambda p, x: moe_block_tp_ff(p, x, cfg, ctx), xs,
+            cs)
+        run(f"gspmd_{key}", lambda p, x: moe_block_gspmd(p, x, cfg), xs, cs)
+paths = {"ep": moe_block_expert_parallel, "tp": moe_block_tp_ff}
+for key, (shape, (B, S), names) in rep_cases.items():
+    xs, cs = (jnp.asarray(d[f"{n}_{B}x{S}"]) for n in ("x", "c"))
+    rmesh = make_auto_mesh(shape, ("data", "model"))
+    with use_mesh(rmesh):
+        # replicated results: x's gradient, whose rows are split over
+        # 'data' (4) in blocks of 3 tokens, has no named sharding
+        for name in names:
+            run(f"{name}_{key}", lambda p, x: paths[name](p, x, cfg, ctx),
+                xs, cs, out_shardings=NamedSharding(rmesh, P()))
+    with use_mesh(mesh):    # the dropless block shards the rows on 'data'
+        run(f"gspmd_{key}", lambda p, x: moe_block_gspmd(p, x, cfg), xs, cs)
 cube = make_auto_mesh((2, 2, 2), ("pod", "data", "model"))
 for i, spec in enumerate(specs):
     for dev, idx in NamedSharding(cube, P(*spec)).devices_indices_map(
@@ -117,7 +149,8 @@ def mesh_runs(tmp_path_factory):
     try:
         ref = subprocess.run(
             [sys.executable, "-c", SCRIPT, str(work / "ref.npz"),
-             str(work / "moe_in.npz"), repr(PLACE_SPECS)],
+             str(work / "moe_in.npz"), repr(PLACE_SPECS),
+             repr(CP_SHAPES), repr(REP_CASES)],
             env=dict(os.environ, PYTHONPATH="src"), capture_output=True,
             text=True, timeout=TIMEOUT_S, cwd=REPO)
     finally:
@@ -126,8 +159,8 @@ def mesh_runs(tmp_path_factory):
     return got, dict(np.load(work / "ref.npz"))
 
 
-def _check(got, ref, name, ref_name, atol):
-    y, aux, grads = moe_results(got, name)
+def _check(got, ref, name, ref_name, atol, dim=0):
+    y, aux, grads = moe_results(got, name, dim)
     np.testing.assert_allclose(y, ref[ref_name + "/y"], rtol=0, atol=atol)
     np.testing.assert_allclose(aux, ref[ref_name + "/aux"], rtol=1e-6)
     for k, g in grads.items():
@@ -154,6 +187,45 @@ def test_parallel_paths_with_drops_match_reference(mesh_runs, path):
                FWD_ATOL if path == "ep" else TP_ATOL)
     # capacity 1.25 drops rows: the output leaves the dropless one
     assert np.abs(y - ref["gspmd/y"]).max() > 1e-2
+
+
+@pytest.mark.parametrize("shape", list(CP_SHAPES))
+@pytest.mark.parametrize("path", ["ep", "tp"])
+def test_parallel_paths_on_a_sequence_split_match_reference(mesh_runs, path,
+                                                            shape):
+    got, ref = mesh_runs
+    name = f"{path}_{shape}"
+    y = _check(got, ref, name, name, FWD_ATOL if path == "ep" else TP_ATOL,
+               dim=1)
+    # capacity 1.25 drops rows: the output leaves the dropless one
+    assert y.shape[:2] == CP_SHAPES[shape]
+    assert np.abs(y - ref[f"gspmd_{shape}/y"]).max() > 1e-2
+
+
+@pytest.mark.parametrize("key, path", [
+    (key, path) for key, (_, _, paths) in REP_CASES.items()
+    for path in paths])
+def test_parallel_paths_on_a_replicated_batch_match_reference(mesh_runs, key,
+                                                              path):
+    """Every rank holds the whole batch: its y is the whole output, the
+    gradients sum over all the ranks."""
+    got, ref = mesh_runs
+    name = f"{path}_{key}"
+    for r in got:
+        assert torch.equal(r[name]["y"], got[0][name]["y"])
+    y = got[0][name]["y"].numpy()
+    np.testing.assert_allclose(y, ref[name + "/y"], rtol=0,
+                               atol=FWD_ATOL if path == "ep" else TP_ATOL)
+    np.testing.assert_allclose(float(got[0][name]["aux"]),
+                               ref[name + "/aux"], rtol=1e-6)
+    for k in ("router", "w_gate", "w_up", "w_down", "x"):
+        want = ref[f"{name}/grad/{k}"]
+        np.testing.assert_allclose(
+            sum(r[name]["grads"][k] for r in got).numpy(), want, rtol=0,
+            atol=GRAD_RTOL * float(np.abs(want).max()), err_msg=k)
+    # capacity 1.25 drops rows: the output leaves the dropless one
+    assert y.shape[:2] == REP_CASES[key][1]
+    assert np.abs(y - ref[f"gspmd_{key}/y"]).max() > 1e-2
 
 
 def test_dropless_path_on_the_mesh_gathers_the_data_shards(mesh_runs):
