@@ -21,7 +21,13 @@ Phases, each of which fails the run (exit code 1, no result line):
    causal and with an 8-token window, float32 and bf16) against its
    plain version, timed beside `scaled_dot_product_attention` given the
    same mask (the four-card `gpu` test in `tests/test_torch_cuda.py`
-   runs the context-parallel train step itself);
+   runs the context-parallel train step itself); the SSD backward kernel
+   (`ssd_bwd`) against autograd through `ssd_plain` on the same dy, at
+   mamba2-130m's and zamba2-2.7b's train shapes, the small, ragged and
+   steep cases and the models' strided layout, float32 and bf16, then
+   timed at both train shapes beside that autograd backward and its
+   bound (`ssd_bwd_cost`); and the split-row RMSNorm's backward pair
+   against autograd through `rmsnorm_split_ref` over simulated ranks;
    2c. the MoE grouped GEMM, a library call (`torch._grouped_mm`), against
    its per-expert loop at mixtral's and kimi's prefill shapes, timed
    beside its bound;
@@ -126,7 +132,23 @@ Phases, each of which fails the run (exit code 1, no result line):
    meshless functions on the same weights under the same mesh and
    context, logits and tokens bit-equal, the kernels' launches equal
    (zamba2's SSD launched, mixtral's expert-parallel block a layer),
-   and `max_memory_allocated` of each beside the other.
+   and `max_memory_allocated` of each beside the other;
+10. training the SSM models on the card (bf16 weights from seed 0,
+   AdamW, remat, tokens from the data pipeline, through
+   `make_train_step` and the launcher's `train_loop`), the SSD scan
+   differentiated by its backward kernel: full-width mamba2-130m (8 x
+   1024) and zamba2-2.7b (2 x 1024), each with the exact launch counts of
+   one step (the SSD forward twice and `ssd_bwd` once a mixer, every
+   bf16 forward on a tensor-core kernel, the norms' forward and backward,
+   zamba2's shared attention), one step against the plain routes in bf16
+   (phase 5b's checks; the kernels' new weights held on the host) and in
+   float32 (the loss and every leaf's gradient; mamba2's also against
+   the plain routes in float64, and phase 5b's whole AdamW steps, as two
+   float32 AdamW states of zamba2's 2.7e9 parameters do not fit one
+   card), then steps through `train_loop`
+   (mamba2 20, its CE falling; zamba2 5), each printed with its step
+   time, tokens/s, peak `max_memory_allocated` and MFU (mamba2's from
+   the count of the step, as phase 5).
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
@@ -134,6 +156,7 @@ last is {"ok": true, "device": {...}}.
 
 import contextlib
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -155,6 +178,12 @@ RN_TOL = {"float32": (1e-5, 0.0), "bfloat16": (2e-2, 2.0 ** -7)}
 # against the plain version's chunks, outputs up to ~40; bfloat16, both
 # round an fp32 result once, so one output ulp (2^-7 relative) apart
 SSD_TOL = {"float32": (5e-4, 1e-5), "bfloat16": (2e-2, 2.0 ** -7)}
+# SSD backward kernel vs autograd through ssd_plain, the same dy: float32
+# as a share of each gradient's largest (fp32 sums in another order, dA
+# and ddt over whole chunks: 8.3e-6 seen on an H100 80GB HBM3 at
+# mamba2-130m's train shape); bfloat16 absolute plus relative, both round
+# an fp32 result once (tests/test_torch_ssd.py's KERNEL_TOL)
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": (2e-2, 2.0 ** -7)}
 # Full-width prefill, kernels vs plain attention and norms, both bf16:
 # the plain path rounds scores and probabilities to bf16 where the kernel
 # keeps fp32, a difference of about one bf16 ulp per layer that 32 layers
@@ -192,11 +221,25 @@ TRAIN_FP32_LOSS_RTOL = 1e-5
 # the leaf's largest: 1.7e-6 on the same card (2 reduced layers: 1.5e-5 on
 # the CPU, JAX vs port)
 TRAIN_FP32_GRAD_TOL = 1e-4
+# The same for the SSM models (phase 10): their float32 gradient at full
+# width is ill-conditioned, so that fp32 arithmetic in another order moves
+# it by parts in a thousand.  Held against the plain routes in float64
+# (`float64_loss_and_grad`), full-width mamba2-130m's float32 gradient
+# reads 2.57e-3 of a leaf's largest on the kernel routes and 2.92e-3 on
+# the plain routes, the loss 5.5e-8 and 2.9e-8 (on an H100 80GB HBM3 at
+# 700 W); two plain routes that differ only in the scan's chunk (64, 256)
+# are 3.56e-3 apart, the kernel and plain routes 4.24e-3 (zamba2-2.7b:
+# 2.47e-3 and 2.95e-3).  The bound is about 1.4 times the larger reading;
+# two float32 routes are held to twice it.
+SSM_TRAIN_FP32_GRAD_TOL = 4e-3
 # float32 updated weights where the first moment's sign is settled: AdamW's
 # first step moves each by about lr0 * sign(g) (5e-4 here), so gradients
 # 1e-6 apart move the weights by ~1e-10 apart, plus fp32 rounding (~1e-7)
 TRAIN_FP32_PARAM_TOL = 1e-6
 TRAIN_STEPS = 20
+# zamba2-2.7b's steps through the launcher's loop (phase 10): enough for a
+# median step time; its CE is only held finite
+ZAMBA_TRAIN_STEPS = 5
 # the CE of random-init smollm-360m on the pipeline's Zipf-bigram tokens
 # starts near log(49152) = 10.8, is 9.6 after one step and about 6.5 after
 # 20 on an H100 80GB HBM3
@@ -274,6 +317,24 @@ def ssd_cost(b, L, H, P, N, chunk=256):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ssd_bwd_cost(b, L, H, P, N, chunk=64):
+    """(flops, bytes, bound ms, what bounds it) of the SSD backward on bf16
+    x, B, C and dy.  Bytes: each input read once (x, dy, B, C bf16; dt, A
+    fp32), each output written once (dx, dB, dC bf16; ddt, dA fp32).
+    Operations by the backward's formulas at the kernel's chunk Q, full
+    Q x Q blocks: per (batch row, chunk) C.B^T; per head the two state
+    products (the state before the chunk, dy's state gradient), dy.x^T,
+    G^T dy, B dS^T, W B, dy S, W^T C and x dS."""
+    nc = -(-L // chunk)
+    per_head = 2 * (chunk * chunk * (2 * P + 2 * N) + 5 * chunk * P * N)
+    flops = b * nc * (2 * chunk * chunk * N + H * per_head)
+    nbytes = (2 * 3 * b * L * H * P + 4 * 2 * b * L * H + 4 * 2 * H
+              + 2 * 4 * b * L * N)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def rn_cost(rows, d):
     """(flops, bytes, bound ms, what bounds it) of bf16 RMSNorm: x read
     once, the output written once, the scale read once; 4 flops an
@@ -346,6 +407,70 @@ def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
+def float64_mode(torch):
+    """A TorchFunctionMode under which the plain routes compute in
+    float64 throughout, the gradient's reference: every cast to float32
+    (`.float()`, `.to(torch.float32)`) and every float32 dtype asked of a
+    call gives float64 instead.  `kept` counts those casts and dtypes;
+    `leaks` names each call that still returned another floating dtype
+    (there must be none)."""
+    from torch.overrides import TorchFunctionMode
+    f32, f64 = torch.float32, torch.float64
+
+    class Float64(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.kept, self.leaks = 0, set()
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = dict(kwargs or {})
+            if kwargs.get("dtype") is f32:
+                kwargs["dtype"] = f64
+                self.kept += 1
+            if func is torch.Tensor.float:
+                func, args = torch.Tensor.to, (args[0], f64)
+                self.kept += 1
+            elif func is torch.Tensor.to and f32 in args[1:]:
+                args = tuple(f64 if a is f32 else a for a in args)
+                self.kept += 1
+            out = func(*args, **kwargs)
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.is_floating_point() \
+                        and t.dtype != f64:
+                    self.leaks.add(getattr(func, "__name__", repr(func)))
+            return out
+
+    return Float64()
+
+
+def float64_loss_and_grad(torch, cfg, params, batch, dev):
+    """(loss, gradient) of the plain routes at `params` in float64, under
+    `float64_mode`: a row of the batch at a time, averaged (the loss is a
+    mean over tokens, every row as long), without remat, whose recompute
+    runs outside the mode."""
+    from repro_torch.runtime.train import (TrainConfig, make_loss_fn,
+                                           value_and_grad)
+    from repro_torch.tree import tree_map
+    loss_fn = make_loss_fn(cfg, TrainConfig(attention_impl="naive",
+                                            remat=False), dev)
+    p64 = tree_map(lambda t: t.double(), params)
+    rows = batch["labels"].shape[0]
+    mode = float64_mode(torch)
+    loss, grads = 0.0, None
+    with mode:
+        for r in range(rows):
+            (l, _), g = value_and_grad(
+                loss_fn, p64, {k: v[r:r + 1] for k, v in batch.items()})
+            loss += float(l) / rows
+            grads = g if grads is None else tree_map(torch.add, grads, g)
+            del g
+    check(mode.kept > 0 and not mode.leaks,
+          f"float64 reference: {mode.kept} float32 casts and dtypes kept "
+          f"in float64; calls that gave another floating dtype: "
+          f"{sorted(mode.leaks) or 'none'}")
+    return loss, tree_map(lambda t: t / rows, grads)
+
+
 def close(torch, got, want, atol, rtol):
     return bool(torch.allclose(got.float(), want.float(), atol=atol,
                                rtol=rtol))
@@ -358,11 +483,13 @@ def phase_kernels(torch, dev):
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.flash_attention.ops import _ref_call
     from repro_torch.kernels.rmsnorm.ops import (rmsnorm, rmsnorm_bwd,
-                                                 rmsnorm_split)
+                                                 rmsnorm_split,
+                                                 rmsnorm_split_bwd)
     from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_ref,
                                                  rmsnorm_ref,
+                                                 rmsnorm_split_bwd_ref,
                                                  rmsnorm_split_ref)
-    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.kernels.ssd.ops import _launch_bwd, ssd
     from repro_torch.kernels.ssd.ref import ssd_plain, ssd_ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -526,6 +653,65 @@ def phase_kernels(torch, dev):
             if dname == "bfloat16" and (rows, d) == (2048, 320):
                 rs_err = err
 
+    # its backward pair, against autograd through every simulated rank's
+    # rmsnorm_split_ref on float32 copies (one loss over all ranks'
+    # outputs, each rank's squares summed with the others') and against
+    # rmsnorm_split_bwd_ref; the rank at the case's columns runs the
+    # kernels, `sum_rows` adding the other ranks' dots.  dscale to the
+    # whole-row backward's bound (dscale_ok's: 1e-5 of the terms'
+    # magnitudes plus, in bf16, one ulp)
+    rs_bwd_err = None
+    for dname, dtype in dts.items():
+        atol, rtol = RN_TOL[dname]
+        for rows, d, whole, c0 in rs_cases:
+            xw, gw = randn((rows, whole), dtype), randn((rows, whole), dtype)
+            sw = torch.linspace(0.5, 1.5, whole, device=dev).to(dtype)
+            cols = [slice(k, k + d) for k in range(0, whole, d)]
+            me = c0 // d
+            xs = [xw[:, c].float().requires_grad_() for c in cols]
+            ss = [sw[c].float().requires_grad_() for c in cols]
+            with torch.enable_grad():
+                loss = sum((rmsnorm_split_ref(
+                    xs[r], ss[r], whole, lambda v, r=r: v + sum(
+                        (xs[k] * xs[k]).sum(-1) for k in range(len(cols))
+                        if k != r)) * gw[:, c].float()).sum()
+                    for r, c in enumerate(cols))
+                want_dx, want_ds = torch.autograd.grad(loss, (xs[me], ss[me]))
+            del xs, ss, loss
+            sq = (xw.float() ** 2).sum(-1)
+            others = sum((gw[:, c].float() * sw[c].float()
+                          * xw[:, c].float()).sum(-1)
+                         for r, c in enumerate(cols) if r != me)
+
+            def sum_dots(v, others=others):
+                return v + others
+
+            xl, gl, sl = (xw[:, c0:c0 + d], gw[:, c0:c0 + d].contiguous(),
+                          sw[c0:c0 + d].contiguous())
+            dx, ds = rmsnorm_split_bwd(xl, gl, sl, sq, whole, sum_dots)
+            rdx, rds = rmsnorm_split_bwd_ref(xl, gl, sl, sq, whole, sum_dots)
+            torch.cuda.synchronize()
+            again = rmsnorm_split_bwd(xl, gl, sl, sq, whole, sum_dots)
+            xf, gf = xl.float(), gl.float()
+            mag = (gf * xf * torch.rsqrt(sq / whole + 1e-6)[:, None]).abs(
+            ).sum(0)
+            ds_ok = all(bool(((ds.float() - w.float()).abs()
+                              <= 1e-5 * mag + (rtol * w.float().abs())).all())
+                        for w in (want_ds, rds))
+            err = max(max_err(dx, want_dx), max_err(dx, rdx))
+            check(close(torch, dx, want_dx, atol, rtol)
+                  and close(torch, dx, rdx, atol, rtol) and ds_ok
+                  and torch.equal(again[0], dx) and torch.equal(again[1], ds),
+                  f"rmsnorm_split backward {dname} columns {c0}:{c0 + d} of "
+                  f"{rows} rows x {whole} ({len(cols)} simulated ranks): dx "
+                  f"max err {err:.3g} against autograd and its plain "
+                  f"version (atol {atol}, rtol {rtol}), dscale max err "
+                  f"{max(max_err(ds, want_ds), max_err(ds, rds)):.3g} (1e-5 "
+                  f"of the terms' magnitudes + {rtol} relative); same bits "
+                  f"when repeated")
+            if dname == "bfloat16" and (rows, d) == (2048, 320):
+                rs_bwd_err = err
+
     def ssd_inputs(b, L, H, P, N, dtype, steep=False):
         x = (0.5 * randn((b, L, H, P), torch.float32)).to(dtype)
         dt = F.softplus(randn((b, L, H), torch.float32))
@@ -596,6 +782,59 @@ def phase_kernels(torch, dev):
     check(err <= 1e-3, f"ssd float32 against the sequential ssd_ref "
           f"(b=2, L=130): max err {err:.3g} (tol 1e-3, as "
           f"tests/test_kernels.py)")
+
+    # the SSD backward kernel against autograd through ssd_plain (its
+    # chunk of 64), the same dy: mamba2-130m's and zamba2-2.7b's train
+    # shapes, the forward's small, ragged and steep cases, then the
+    # models' split views; every gradient finite, the same bits when
+    # repeated (no atomics)
+    def ssd_grads(x, dt, A, B, C, dy):
+        ins = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C)]
+        with torch.enable_grad():
+            return torch.autograd.grad(ssd_plain(*ins, 64), ins, dy)
+
+    def bwd_errs(got, want, dname):
+        """(every gradient within SSD_BWD_TOL and finite, its errors)"""
+        ok, errs = True, []
+        for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+            e, big = max_err(g, w), float(w.float().abs().max())
+            if dname == "float32":
+                good = e <= SSD_BWD_TOL["float32"] * big
+            else:
+                good = close(torch, g, w, *SSD_BWD_TOL["bfloat16"])
+            ok &= good and g.dtype == w.dtype and bool(
+                torch.isfinite(g).all())
+            errs.append(f"{name} {e:.3g} of {big:.3g}")
+        return ok, ", ".join(errs)
+
+    bwd_cases = [(8, 1024, 24, 64, 128, False),   # mamba2-130m train
+                 (2, 1024, 80, 64, 64, False)]    # zamba2-2.7b train
+    bwd_cases += [(b, L, H, P, N, steep) for b, L, H, P, N, _, steep
+                  in ssd_cases[2:]]
+    ssd_bwd_err = None
+    for dname, dtype in dts.items():
+        for b, L, H, P, N, steep in bwd_cases:
+            x, dt, A, B, C = ssd_inputs(b, L, H, P, N, dtype, steep)
+            dy = randn((b, L, H, P), dtype)
+            got = _launch_bwd(x, dt, A, B, C, dy)
+            want = ssd_grads(x, dt, A, B, C, dy)
+            torch.cuda.synchronize()
+            again = _launch_bwd(x, dt, A, B, C, dy)
+            ok, errs = bwd_errs(got, want, dname)
+            check(ok and all(torch.equal(a, g) for a, g in zip(again, got)),
+                  f"ssd backward {dname} b={b} L={L} H={H} P={P} N={N} "
+                  f"steep={steep} against autograd through ssd_plain: "
+                  f"{errs} (tolerance {SSD_BWD_TOL[dname]}); finite, the "
+                  f"same bits when repeated")
+            if dname == "bfloat16" and (b, H) == (8, 24):
+                ssd_bwd_err = max_err(got[0], want[0])
+    for b, H, N in ((8, 24, 128), (2, 80, 64)):   # the models' split views
+        x, dt, A, B, C = ssd_model_layout(b, H, N)
+        dy = randn(x.shape, torch.bfloat16)
+        ok, errs = bwd_errs(_launch_bwd(x, dt, A, B, C, dy),
+                            ssd_grads(x, dt, A, B, C, dy), "bfloat16")
+        check(ok, f"ssd backward bfloat16 b={b} L=1024 H={H} P=64 N={N} in "
+              f"the model's strided layout: {errs}")
 
     print("phase 2b: timing at the main path's shapes (CUDA events, warm "
           "L2, after 3 warm-up calls; host us = launch cost per call)",
@@ -746,6 +985,66 @@ def phase_kernels(torch, dev):
     ssd_strided_ms, _ = cuda_ms(torch, lambda: ssd(*mv, chunk=256), 20)
     zv = ssd_model_layout(2, 80, 64)
     ssd_zamba_strided_ms, _ = cuda_ms(torch, lambda: ssd(*zv, chunk=256), 20)
+    del mv, zv
+    # the SSD backward at the train shapes (bf16, dy from the seed), beside
+    # autograd's backward through ssd_plain (the graph kept, the backward
+    # alone timed) and its bound
+    ssd_bwd_rows = []
+    for name, (b, L, H, P, N) in (("mamba2-130m", (8, 1024, 24, 64, 128)),
+                                  ("zamba2-2.7b", (2, 1024, 80, 64, 64))):
+        bv = ssd_inputs(b, L, H, P, N, torch.bfloat16)
+        bdy = randn((b, L, H, P), torch.bfloat16)
+        k_ms, host_us = cuda_ms(torch, lambda: _launch_bwd(*bv, bdy), 10)
+        ins = [t.detach().clone().requires_grad_() for t in bv]
+        with torch.enable_grad():
+            by = ssd_plain(*ins, 64)
+        p_ms, _ = cuda_ms(torch, lambda: torch.autograd.grad(
+            by, ins, bdy, retain_graph=True), 3)
+        flops, nbytes, bnd, bby = ssd_bwd_cost(b, L, H, P, N)
+        ssd_bwd_rows.append({"name": name, "shape": [b, L, H, P, N],
+                             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bnd,
+                             "bound_by": bby, "flops": flops,
+                             "bytes": nbytes, "host_us": host_us})
+        print(f"  ssd backward at {name}'s train shape (b={b} L={L} H={H} "
+              f"P={P} N={N}, bf16): {k_ms:.4f} ms (autograd through "
+              f"ssd_plain {p_ms:.4f}, no library call, bound {bnd:.4f} by "
+              f"{bby}: {flops:.4g} FLOP, {nbytes:.4g} B; host us "
+              f"{host_us:.1f})", flush=True)
+        del bv, bdy, ins, by
+    # the split-row backward pair at the forward's shapes (the sum over
+    # ranks left out), its plain version, and the whole row's fused
+    # backward (2048 x 5120), the nearest library call
+    rs_bwd_shapes = []
+    for rows, d in ((2048, 320), (2048, 1280)):
+        xr, gr = randn((rows, d), torch.bfloat16), randn((rows, d),
+                                                         torch.bfloat16)
+        sr = torch.linspace(0.5, 1.5, d, device=dev).to(torch.bfloat16)
+        sq = (xr.float() ** 2).sum(-1) * (5120 / d)
+        k_ms, host_us = cuda_ms(torch, lambda: rmsnorm_split_bwd(
+            xr, gr, sr, sq, 5120, lambda v: v), 200)
+        p_ms, _ = cuda_ms(torch, lambda: rmsnorm_split_bwd_ref(
+            xr, gr, sr, sq, 5120, lambda v: v), 200)
+        flops, nbytes, bnd, by = rn_bwd_cost(rows, d)
+        rs_bwd_shapes.append({"shape": [rows, d], "whole": 5120, "ms": k_ms,
+                              "plain_ms": p_ms, "bound_ms": bnd,
+                              "bound_by": by, "flops": flops,
+                              "bytes": nbytes, "host_us": host_us})
+    rs_bwd_lib_ms = None
+    if hasattr(torch.ops.aten, "_fused_rms_norm_backward"):
+        xw, gw = randn((2048, 5120), torch.bfloat16), randn((2048, 5120),
+                                                            torch.bfloat16)
+        sw = torch.linspace(0.5, 1.5, 5120, device=dev).to(torch.bfloat16)
+        _, rstd = torch.ops.aten._fused_rms_norm(xw, [5120], sw, 1e-6)
+        rs_bwd_lib_ms, _ = cuda_ms(
+            torch, lambda: torch.ops.aten._fused_rms_norm_backward(
+                gw, xw, [5120], rstd, sw, [True, True]), 200)
+    for r in rs_bwd_shapes:
+        r["library_ms"] = rs_bwd_lib_ms
+        print(f"  rmsnorm_split backward {r['shape'][0]} x {r['shape'][1]} "
+              f"of 5120: {r['ms']:.5f} ms (plain {r['plain_ms']:.5f}, the "
+              f"whole row's fused backward {rs_bwd_lib_ms}, bound "
+              f"{r['bound_ms']:.5f} by {r['bound_by']}; host us "
+              f"{r['host_us']:.1f})", flush=True)
     rn_flops, rn_bytes, rn_bound, rn_by = rn_cost(4096, 960)
     print(f"  flash_attention {fa_ms:.4f} ms (plain {fa_plain_ms:.4f}, sdpa "
           f"{fa_lib_ms:.4f}, bound {fa_bound:.4f} by {fa_by}), at the "
@@ -838,7 +1137,16 @@ def phase_kernels(torch, dev):
                 "bound_by": rs_shapes[0]["bound_by"],
                 "library_ms": rs_shapes[0]["library_ms"],
                 "library": "F.rms_norm over the whole row (2048,5120)",
-                "model_shapes": rs_shapes}},
+                "model_shapes": rs_shapes,
+                "bwd_max_abs_err": rs_bwd_err,
+                "bwd_ms": rs_bwd_shapes[0]["ms"],
+                "bwd_plain_ms": rs_bwd_shapes[0]["plain_ms"],
+                "bwd_bound_ms": rs_bwd_shapes[0]["bound_ms"],
+                "bwd_bound_by": rs_bwd_shapes[0]["bound_by"],
+                "bwd_library_ms": rs_bwd_lib_ms,
+                "bwd_library": "the whole row's fused RMSNorm backward "
+                               "(2048,5120), where this torch has it",
+                "bwd_model_shapes": rs_bwd_shapes}},
         "ssd": {
             "name": "ssd", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd.cu",
@@ -853,6 +1161,25 @@ def phase_kernels(torch, dev):
             "zamba2_shape_strided_ms": ssd_zamba_strided_ms,
             "zamba2_shape_bound_ms": ssd_zamba_bound, "host_us": ssd_host_us,
             "flops": ssd_flops, "bytes": ssd_bytes},
+        # the SSD backward (training; the reference differentiates the
+        # scan, and this kernel is that gradient of the TPU kernel's
+        # function)
+        "ssd_bwd": {
+            "name": "ssd_bwd", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/ssd.py:80",
+            "shape": "x, dy (8,1024,24,64) N=128 bf16, dt/A fp32 "
+                     "(mamba2-130m's train step)",
+            "max_abs_err": ssd_bwd_err, "tolerance": SSD_BWD_TOL["bfloat16"],
+            "ms": ssd_bwd_rows[0]["ms"],
+            "plain_ms": ssd_bwd_rows[0]["plain_ms"],
+            "bound_ms": ssd_bwd_rows[0]["bound_ms"],
+            "bound_by": ssd_bwd_rows[0]["bound_by"], "library_ms": None,
+            "library": "none: no PyTorch call computes the SSD scan",
+            "zamba2_shape_ms": ssd_bwd_rows[1]["ms"],
+            "zamba2_shape_plain_ms": ssd_bwd_rows[1]["plain_ms"],
+            "zamba2_shape_bound_ms": ssd_bwd_rows[1]["bound_ms"],
+            "model_shapes": ssd_bwd_rows},
     }
 
 
@@ -1461,6 +1788,343 @@ def tree_equal(torch, a, b):
                for x, y in zip(leaves(a), leaves(b)))
 
 
+def excess_over_two_steps(torch, a, b, p, lr0):
+    """The largest of |a - b| - 2.2 lr0 - one bf16 ulp of p over a leaf,
+    taken in slices of 2^26 elements (a may lie on the host)."""
+    rows = 1 << 26
+    a, b, p = a.reshape(-1), b.reshape(-1), p.reshape(-1)
+    worst = float("-inf")
+    for i in range(0, b.numel(), rows):
+        sa = a[i:i + rows].to(b.device).float()
+        sb, sp = b[i:i + rows].float(), p[i:i + rows].float()
+        worst = max(worst, float(((sa - sb).abs() - 2.2 * lr0
+                                  - 2.0 ** -7 * sp.abs()).max()))
+    return worst
+
+
+def check_bf16_step(torch, arch, new, metrics, plain_new, plain_metrics,
+                    old, lr0, n_params):
+    """Phase 5b's bf16 check: one step with the kernels (`new` params,
+    on the card or the host) against the same step on the plain routes
+    (`plain_new`) from `old`: the losses within TRAIN_LOSS_TOL, each
+    updated weight within two steps (a gradient near zero may change
+    sign) plus one bf16 ulp.  Returns (loss diff, weights that differ)."""
+    from repro_torch.tree import leaves, named_leaves
+    loss_err = abs(float(metrics["loss"]) - float(plain_metrics["loss"]))
+    worst, differ = 0.0, 0
+    for (_, a), b, p in zip(named_leaves(new), leaves(plain_new),
+                            leaves(old)):
+        worst = max(worst, excess_over_two_steps(torch, a, b, p, lr0))
+        differ += int((a.to(b.device) != b).sum())
+    check(loss_err <= TRAIN_LOSS_TOL and worst <= 0.0,
+          f"{arch} bf16 step, kernels vs plain path: loss "
+          f"{float(metrics['loss']):.5f} vs {float(plain_metrics['loss']):.5f}"
+          f" (diff {loss_err:.3g}, tol {TRAIN_LOSS_TOL}); updated params "
+          f"within two steps (2 lr = {2 * lr0:.3g}) plus one bf16 ulp; "
+          f"{differ} of {n_params} weights differ")
+    return loss_err, differ
+
+
+def check_fp32_step(torch, arch, k1, km, q1, qm, lr0,
+                    grad_tol=TRAIN_FP32_GRAD_TOL, settle_tol=None):
+    """Phase 5b's float32 check: the step with the kernels (`k1`) and on
+    the plain routes (`q1`) from the same float32 state: the loss within
+    TRAIN_FP32_LOSS_RTOL; the first moments (0.1 x the clipped gradient)
+    per leaf within `grad_tol` of the leaf's largest; where the
+    first moment is clear of zero (twice `settle_tol`, by default
+    `grad_tol`) the step's sign is settled and the updated weights agree
+    to TRAIN_FP32_PARAM_TOL, elsewhere within two steps.  Returns (loss
+    relative diff, first moments' error, settled weights' error)."""
+    from repro_torch.tree import leaves
+    fp32_rel = abs(float(km["loss"]) - float(qm["loss"])) / abs(
+        float(qm["loss"]))
+    mu_err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
+                 for a, b in zip(leaves(k1["opt"]["mu"]),
+                                 leaves(q1["opt"]["mu"])))
+    p_err, unsettled, within_two = 0.0, 0, True
+    for a, b, mu in zip(leaves(k1["params"]), leaves(q1["params"]),
+                        leaves(q1["opt"]["mu"])):
+        settled = mu.abs() > 2 * (settle_tol or grad_tol) * mu.abs().max()
+        d = (a - b).abs()
+        p_err = max(p_err, float(d[settled].max()) if settled.any() else 0.0)
+        unsettled += int((~settled).sum())
+        within_two &= float(d.max()) <= 2.2 * lr0 + 2.0 ** -22 * float(
+            b.abs().max())
+    check(fp32_rel <= TRAIN_FP32_LOSS_RTOL and mu_err <= grad_tol
+          and p_err <= TRAIN_FP32_PARAM_TOL and within_two,
+          f"{arch} float32 step, kernels vs plain path: loss relative diff "
+          f"{fp32_rel:.3g} (tol {TRAIN_FP32_LOSS_RTOL}); first moments "
+          f"(0.1 x clipped gradient) per leaf {mu_err:.3g} of the leaf's "
+          f"largest (tol {grad_tol}); updated weights {p_err:.3g} "
+          f"apart where the step's sign is settled (tol "
+          f"{TRAIN_FP32_PARAM_TOL}; {unsettled} weights with a first moment "
+          f"within {2 * (settle_tol or grad_tol):.3g} of the leaf's largest "
+          f"held to two steps: "
+          f"{within_two})")
+    return fp32_rel, mu_err, p_err
+
+
+def ssm_train_launches(cfg):
+    """Launches of one train step with remat of an SSM arch: every
+    Mamba2 block's pre-norm and gated norm, and each shared block's two
+    norms, in the forward and again in remat's recompute, the final norm
+    once; one norm backward a norm; the SSD forward twice and its
+    backward once a mixer; the shared blocks' attention twice."""
+    mixers = cfg.n_layers
+    shared = cfg.n_layers // cfg.shared_attn_every if \
+        cfg.shared_attn_every else 0
+    norms = 2 * mixers + 2 * shared
+    return {"flash_attention": 2 * shared, "rmsnorm": 2 * norms + 1,
+            "rmsnorm.bwd": norms + 1, "ssd": 2 * mixers, "ssd_bwd": mixers}
+
+
+def phase_ssm_train(torch, dev):
+    """Full-width mamba2-130m (8 x 1024) and zamba2-2.7b (2 x 1024)
+    trained on the card through `make_train_step` (bf16 weights from
+    seed 0, AdamW, remat on, tokens from the data pipeline), the SSD
+    scan differentiated by its backward kernel."""
+    import dataclasses
+    import shutil
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.checkpoint.checkpointer import AsyncCheckpointer
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssd.ops import ssd
+    from repro_torch.launch.train import device_batch, train_loop
+    from repro_torch.models import param_count
+    from repro_torch.optim.optimizers import OptimizerConfig
+    from repro_torch.runtime.train import (TrainConfig, make_loss_fn,
+                                           make_train_step, value_and_grad)
+    from repro_torch.tree import leaves, tree_map
+
+    wrappers = {"flash_attention": flash_attention, "rmsnorm": rmsnorm,
+                "ssd": ssd}
+
+    def reset():
+        for w in wrappers.values():
+            w.launches = 0
+        rmsnorm.bwd_launches = ssd.bwd_launches = 0
+        flash_attention.tc_launches = ssd.tc_launches = 0
+
+    def read():
+        c = {k: w.launches for k, w in wrappers.items()}
+        c.update({"rmsnorm.bwd": rmsnorm.bwd_launches,
+                  "ssd_bwd": ssd.bwd_launches})
+        return c, {"flash_attention": flash_attention.tc_launches,
+                   "ssd": ssd.tc_launches}
+
+    print("phase 10: training the SSM models on the card", flush=True)
+    torch.cuda.empty_cache()
+    metrics, counts = {}, {}
+    for arch, B, S in (("mamba2-130m", 8, 1024), ("zamba2-2.7b", 2, 1024)):
+        t_arch = time.perf_counter()
+        full_check = arch == "mamba2-130m"
+        cfg = ARCHS[arch]
+        dcfg = DataConfig(seq_len=S, global_batch=B,
+                          vocab_size=cfg.vocab_size)
+        opt = OptimizerConfig(lr=1e-3, warmup_steps=2,
+                              total_steps=TRAIN_STEPS)
+        lr0 = float(opt.lr) / opt.warmup_steps
+
+        def tcfg(impl):
+            return TrainConfig(optimizer=opt, attention_impl=impl,
+                               remat=True)
+
+        step_fn, init_fn = make_train_step(cfg, tcfg("auto"), dev)
+        plain_fn, _ = make_train_step(cfg, tcfg("naive"), dev)
+
+        def batch_fn(step):
+            return device_batch(cfg, dcfg, step, dev)
+
+        def initial_state():
+            return init_fn(torch.Generator(device=dev).manual_seed(0))
+
+        state0 = initial_state()
+        n_params = param_count(state0["params"])
+        b0 = batch_fn(0)
+
+        # launches of one step, derived from the model; every forward
+        # launch of the bf16 step on a tensor-core kernel
+        expected = ssm_train_launches(cfg)
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state1, m1 = step_fn(state0, b0)
+        torch.cuda.synchronize()
+        first_step_s = time.perf_counter() - t0
+        got, tc = read()
+        check(got == expected and tc == {"flash_attention":
+                                         expected["flash_attention"],
+                                         "ssd": expected["ssd"]},
+              f"{arch} train step launched {got} (expected {expected}: "
+              f"{cfg.n_layers} Mamba2 mixers, remat's recompute included; "
+              f"tensor-core launches {tc})")
+        check(all(bool(torch.isfinite(t).all()) for t in leaves(state1))
+              and int(state1["step"]) == 1,
+              f"{arch} one step: loss {float(m1['loss']):.5f}, every leaf "
+              f"of the new state finite")
+        counts[f"{arch}-train"] = got
+
+        # the same step on the plain routes (ssd_scan, plain attention and
+        # norms); the kernels' new params wait on the host, so that three
+        # states of zamba2 never share the card
+        new_params = tree_map(lambda t: t.cpu(), state1["params"])
+        del state1
+        p1, pm1 = plain_fn(state0, b0)
+        loss_err, differ = check_bf16_step(
+            torch, arch, new_params, m1, p1["params"], pm1,
+            state0["params"], lr0, n_params)
+        del p1, new_params
+        m = {"params": n_params, "first_step_s": first_step_s,
+             "loss_kernels_vs_plain_bf16": loss_err,
+             "weights_differing_bf16": differ,
+             "first_step_peak_memory_bytes":
+                 torch.cuda.max_memory_allocated()}
+        # float32 weights: the loss and each leaf's gradient (what the
+        # first moments hold, before the factor 0.1 and the clip) on the
+        # kernel routes, the plain routes, and the plain routes with the
+        # scan at chunk 64 (the config's: 256); for mamba2 also the plain
+        # routes in float64, the reference each float32 route's error is
+        # read against.  For zamba2 the float32 gradients are the whole
+        # float32 check: two float32 AdamW states of its 2.7e9
+        # parameters, or its float64 gradient, besides the weights do not
+        # fit one card
+        params32 = tree_map(lambda t: t.float(), state0["params"])
+        if not full_check:
+            state0 = None
+        torch.cuda.empty_cache()
+        grads = {}
+        for route, rcfg, impl in (
+                ("kernels", cfg, "auto"), ("plain", cfg, "naive"),
+                ("plain-64", dataclasses.replace(cfg, ssm_chunk=64),
+                 "naive")):
+            loss_fn = make_loss_fn(rcfg, TrainConfig(
+                attention_impl=impl, remat=True), dev)
+            (loss, _), g = value_and_grad(loss_fn, params32, b0)
+            grads[route] = (float(loss), g if route == "plain" else
+                            tree_map(lambda t: t.cpu(), g))
+            del g
+        if full_check:
+            grads["float64"] = float64_loss_and_grad(torch, cfg, params32,
+                                                     b0, dev)
+
+        def rel(a, b):
+            """(loss, worst leaf's gradient) of route a against route b,
+            each relative to b's (the gradient's to the leaf's largest)"""
+            (la, ga), (lb, gb) = grads[a], grads[b]
+            return abs(la - lb) / abs(lb), max(
+                float((x.to(dev).double() - y.to(dev).double()).abs().max())
+                / max(float(y.abs().max()), 1e-30)
+                for x, y in zip(leaves(ga), leaves(gb)))
+
+        fp32_rel, g_err = rel("kernels", "plain")
+        spread_rel, spread = rel("plain-64", "plain")
+        m.update(loss_rel_kernels_vs_plain_fp32_grads=fp32_rel,
+                 grad_rel_kernels_vs_plain_fp32=g_err,
+                 grad_rel_plain_chunk_64_vs_256_fp32=spread)
+        if full_check:
+            k_rel, k_err = rel("kernels", "float64")
+            p_rel, p_err = rel("plain", "float64")
+            check(max(k_rel, p_rel) <= TRAIN_FP32_LOSS_RTOL
+                  and max(k_err, p_err) <= SSM_TRAIN_FP32_GRAD_TOL,
+                  f"{arch} float32 loss and gradients against the plain "
+                  f"routes' float64: kernel routes {k_rel:.3g} (loss, "
+                  f"relative) and {k_err:.3g} (gradients per leaf, of the "
+                  f"leaf's largest), plain routes {p_rel:.3g} and "
+                  f"{p_err:.3g} (tol {TRAIN_FP32_LOSS_RTOL} and "
+                  f"{SSM_TRAIN_FP32_GRAD_TOL})")
+            m.update(loss_rel_kernels_vs_float64=k_rel,
+                     grad_rel_kernels_vs_float64=k_err,
+                     loss_rel_plain_vs_float64=p_rel,
+                     grad_rel_plain_vs_float64=p_err)
+        # two float32 routes, each within the bound of float64, are within
+        # twice it of each other
+        check(fp32_rel <= TRAIN_FP32_LOSS_RTOL
+              and g_err <= 2 * SSM_TRAIN_FP32_GRAD_TOL,
+              f"{arch} float32 loss and gradients, kernels vs plain path: "
+              f"loss relative diff {fp32_rel:.3g} (tol "
+              f"{TRAIN_FP32_LOSS_RTOL}); gradients per leaf {g_err:.3g} of "
+              f"the leaf's largest (tol {2 * SSM_TRAIN_FP32_GRAD_TOL}); two "
+              f"plain routes (the scan at chunk 64 and 256) {spread:.3g} "
+              f"apart, loss {spread_rel:.3g}")
+        del grads, params32
+        if full_check:
+            # float32 weights, whole AdamW steps (phase 5b's checks): the
+            # first moments within twice the bound; a weight's step sign
+            # is settled where its first moment is clear of zero by twice
+            # what this run read the two routes' gradients off float64
+            state0_f32 = dict(state0, params=tree_map(lambda t: t.float(),
+                                                      state0["params"]))
+            k1, km = step_fn(state0_f32, b0)
+            q1, qm = plain_fn(state0_f32, b0)
+            m["loss_rel_kernels_vs_plain_fp32"], \
+                m["first_moment_rel_kernels_vs_plain_fp32"], \
+                m["params_max_diff_settled_fp32"] = check_fp32_step(
+                    torch, arch, k1, km, q1, qm, lr0,
+                    2 * SSM_TRAIN_FP32_GRAD_TOL, k_err + p_err)
+            del k1, q1, state0_f32
+        del state0
+        torch.cuda.empty_cache()
+
+        # steps through the launcher's loop, from the seed's state again
+        # (zamba2: a step holds two AdamW states of 27 GB; AdamW walks its
+        # largest leaves in slices, `optim.ADAMW_SLICE`, so that chained
+        # steps fit the card)
+        n_steps = TRAIN_STEPS if full_check else ZAMBA_TRAIN_STEPS
+        ckdir = ROOT / "build" / "chip_smoke_ssm_ckpt"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        ck = AsyncCheckpointer(str(ckdir), keep=1)
+        torch.cuda.reset_peak_memory_stats()
+        state, stats = train_loop(step_fn, initial_state(), batch_fn,
+                                  n_steps, ck, ckpt_every=n_steps + 1,
+                                  log_every=n_steps,
+                                  restart_fn=initial_state)
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated()
+        ce = [stats["ce"][i] for i in range(n_steps)]
+        warm = sorted(stats["step_s"][i] for i in range(2, n_steps))
+        step_s = warm[len(warm) // 2]
+        ok = stats["recoveries"] == 0 and stats["steps_run"] == n_steps
+        if full_check:
+            ce_end = sum(ce[-3:]) / 3
+            check(ok and ce_end < ce[0] - TRAIN_CE_DROP,
+                  f"{arch}: {n_steps} steps, ce {ce[0]:.4f} -> {ce[-1]:.4f} "
+                  f"(the last 3 average {ce_end:.4f}, must be more than "
+                  f"{TRAIN_CE_DROP} below the first), {stats['recoveries']} "
+                  f"recoveries")
+        else:
+            check(ok and all(math.isfinite(c) for c in ce),
+                  f"{arch}: {n_steps} steps through train_loop, ce "
+                  f"{ce[0]:.4f} -> {ce[-1]:.4f}, finite, "
+                  f"{stats['recoveries']} recoveries")
+        m.update(ce=ce, recoveries=stats["recoveries"], steps=n_steps)
+        del state
+        shutil.rmtree(ckdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        tokens = B * S
+        mfu = 6 * n_params * tokens / step_s / PEAK_BF16_FLOPS
+        m.update(step_ms=step_s * 1e3, tokens_per_s=tokens / step_s,
+                 peak_memory_bytes=peak_bytes, mfu_6nt=mfu, launches=got)
+        counted = ""
+        if full_check:
+            # the same step counted (plain routes, fake tensors): remat's
+            # replay and the scan's chunked products included
+            flops = count_train_step(torch, cfg, tcfg("naive"), B, S)[0].flops
+            m.update(mfu_count=flops / step_s / PEAK_BF16_FLOPS,
+                     count_flops_per_step=flops)
+            counted = (f"MFU {m['mfu_count']:.4f} from the count ({flops:.4g}"
+                       f" FLOPs a step over 989 TFLOP/s), ")
+        print(f"  {arch} train step {step_s * 1e3:.2f} ms (median of steps "
+              f"3-{n_steps} through train_loop; first {first_step_s:.2f} s), "
+              f"{tokens / step_s:,.0f} tokens/s, peak memory {peak_bytes} B, "
+              f"{counted}MFU {mfu:.4f} from 6 N T ({n_params} parameters); "
+              f"phase {time.perf_counter() - t_arch:.1f} s", flush=True)
+        metrics[f"{arch}-train"] = m
+    return metrics, counts
+
+
 def phase_train(torch, dev):
     """Full-width smollm-360m training (bf16 weights from seed 0, AdamW,
     remat on, 8 x 1024 tokens a step from the data pipeline)."""
@@ -1478,7 +2142,7 @@ def phase_train(torch, dev):
     from repro_torch.models import param_count
     from repro_torch.optim.optimizers import OptimizerConfig
     from repro_torch.runtime.train import TrainConfig, make_train_step
-    from repro_torch.tree import leaves, named_leaves, tree_map
+    from repro_torch.tree import leaves, tree_map
 
     print("phase 5: training, full-width smollm-360m", flush=True)
     arch, B, S = "smollm-360m", 8, 1024
@@ -1528,24 +2192,10 @@ def phase_train(torch, dev):
 
     # 5b: the same step on the plain path (plain attention and norms)
     p1, pm1 = plain_fn(state0, b0)
-    loss_err = abs(float(m1["loss"]) - float(pm1["loss"]))
     lr0 = float(opt.lr) / opt.warmup_steps
-    worst = 0.0
-    for (_, a), b, p in zip(named_leaves(state1["params"]),
-                            leaves(p1["params"]), leaves(state0["params"])):
-        # at most two steps apart (a gradient near zero may change sign)
-        # plus one bf16 ulp of the weight
-        excess = ((a.float() - b.float()).abs() - 2.2 * lr0
-                  - 2.0 ** -7 * p.float().abs()).max()
-        worst = max(worst, float(excess))
-    differ = sum(int((a != b).sum()) for a, b in zip(
-        leaves(state1["params"]), leaves(p1["params"])))
-    check(loss_err <= TRAIN_LOSS_TOL and worst <= 0.0,
-          f"{arch} bf16 step, kernels vs plain path: loss "
-          f"{float(m1['loss']):.5f} vs {float(pm1['loss']):.5f} (diff "
-          f"{loss_err:.3g}, tol {TRAIN_LOSS_TOL}); updated params within "
-          f"two steps (2 lr = {2 * lr0:.3g}) plus one bf16 ulp; "
-          f"{differ} of {n_params} weights differ")
+    loss_err, differ = check_bf16_step(
+        torch, arch, state1["params"], m1, p1["params"], pm1,
+        state0["params"], lr0, n_params)
     del p1
     # ... and with float32 weights: the first moments (0.1 x the clipped
     # gradient) agree per leaf; the loss to TRAIN_FP32_LOSS_RTOL
@@ -1553,33 +2203,8 @@ def phase_train(torch, dev):
                                               state0["params"]))
     k1, km = step_fn(state0_f32, b0)
     q1, qm = plain_fn(state0_f32, b0)
-    fp32_rel = abs(float(km["loss"]) - float(qm["loss"])) / abs(
-        float(qm["loss"]))
-    mu_err = max(max_err(a, b) / max(float(b.abs().max()), 1e-30)
-                 for a, b in zip(leaves(k1["opt"]["mu"]),
-                                 leaves(q1["opt"]["mu"])))
-    # updated weights: where the first moment is clear of zero (twice its
-    # tolerance) the step's sign is settled and the two agree to
-    # TRAIN_FP32_PARAM_TOL; elsewhere within two steps
-    p_err, unsettled, within_two = 0.0, 0, True
-    for a, b, mu in zip(leaves(k1["params"]), leaves(q1["params"]),
-                        leaves(q1["opt"]["mu"])):
-        settled = mu.abs() > 2 * TRAIN_FP32_GRAD_TOL * mu.abs().max()
-        d = (a - b).abs()
-        p_err = max(p_err, float(d[settled].max()) if settled.any() else 0.0)
-        unsettled += int((~settled).sum())
-        within_two &= float(d.max()) <= 2.2 * lr0 + 2.0 ** -22 * float(
-            b.abs().max())
-    check(fp32_rel <= TRAIN_FP32_LOSS_RTOL and mu_err <= TRAIN_FP32_GRAD_TOL
-          and p_err <= TRAIN_FP32_PARAM_TOL and within_two,
-          f"{arch} float32 step, kernels vs plain path: loss relative diff "
-          f"{fp32_rel:.3g} (tol {TRAIN_FP32_LOSS_RTOL}); first moments "
-          f"(0.1 x clipped gradient) per leaf {mu_err:.3g} of the leaf's "
-          f"largest (tol {TRAIN_FP32_GRAD_TOL}); updated weights {p_err:.3g} "
-          f"apart where the step's sign is settled (tol "
-          f"{TRAIN_FP32_PARAM_TOL}; {unsettled} weights with a first moment "
-          f"within twice its tolerance of zero held to two steps: "
-          f"{within_two})")
+    fp32_rel, mu_err, p_err = check_fp32_step(torch, arch, k1, km, q1, qm,
+                                              lr0)
     del k1, q1, state0_f32, state1, state0
     torch.cuda.empty_cache()
 
@@ -2565,7 +3190,7 @@ def main():
 
     kernels = phase_kernels(torch, dev)
     # the split-row entry's launches over every main path below (phases
-    # 3-9; none of them splits heads over 'model' on one card)
+    # 3-10; none of them splits heads over 'model' on one card)
     rmsnorm.split_launches = 0
     grouped_mm = phase_grouped_mm(torch, dev)
     metrics, counts = phase_main_paths(torch, dev)
@@ -2586,25 +3211,36 @@ def main():
     counts.update(tp_counts)
     metrics["unit-gather"], gather_counts = phase_unit_gather(torch, dev)
     counts.update(gather_counts)
+    ssm_metrics, ssm_counts = phase_ssm_train(torch, dev)
+    metrics.update(ssm_metrics)
+    counts.update(ssm_counts)
 
+    # every path counts the forward kernels; only SSM training launches
+    # the SSD backward
+    ssd_bwd_paths = ("mamba2-130m-train", "zamba2-2.7b-train")
     for name, entry in kernels.items():
-        by_path = {arch: c[name] for arch, c in counts.items()}
+        by_path = {path: counts[path][name] for path in (
+            ssd_bwd_paths if name == "ssd_bwd" else counts)}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
     kernels["rmsnorm"]["split"]["launches"] = rmsnorm.split_launches
     kernels["rmsnorm"]["bwd_launches"] = sum(
         counts[path]["rmsnorm.bwd"]
         for path in ("smollm-360m-train", "smollm-360m-train-mesh",
-                     "smollm-360m-tp-train"))
+                     "smollm-360m-tp-train", "mamba2-130m-train",
+                     "zamba2-2.7b-train"))
     serve = [m for m in metrics.values() if "flash_attention_tc_launches" in m]
     kernels["flash_attention"]["tc_launches"] = sum(
         m["flash_attention_tc_launches"] for m in serve) + sum(
         counts[path]["flash_attention"] for path in (
             "smollm-360m-train", "mixtral-8x22b-mesh",
             "smollm-360m-train-mesh", "smollm-360m-tp-train",
-            "mixtral-8x22b-unit-gather", "zamba2-2.7b-unit-gather"))
+            "mixtral-8x22b-unit-gather", "zamba2-2.7b-unit-gather",
+            "zamba2-2.7b-train"))
     kernels["ssd"]["tc_launches"] = sum(m["ssd_tc_launches"] for m in serve) \
-        + counts["zamba2-2.7b-unit-gather"]["ssd"]
+        + sum(counts[path]["ssd"] for path in (
+            "zamba2-2.7b-unit-gather", "mamba2-130m-train",
+            "zamba2-2.7b-train"))
     metrics.update(card=card, build_s=build_s, process_group=backend)
     print(json.dumps({"metrics": metrics}))
     print(card)

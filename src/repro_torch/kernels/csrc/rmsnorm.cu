@@ -58,6 +58,19 @@
 // same bit for bit from run to run.  Rows the vector path cannot take
 // (as in the forward) go to `rmsnorm_bwd_scalar`: one block a row, the
 // row read twice, the partial sums kept in the block's partial row.
+//
+// The split row's backward (`rmsnorm_split_dot`, `rmsnorm_split_bwd`),
+// for training the split-heads mixer.  With r = rsqrt(psum(sum_local x^2)
+// / d_total + eps) per row, the forward's summed squares kept, and
+// gs = g * scale:
+//   dx     = r * gs - x * r^3 / d_total * psum(sum_local gs * x);
+//   dscale = sum over rows of g * x * r, over the rank's columns.
+// Two launches around the caller's all-reduce of one fp32 a row, as the
+// forward: pass 1 stores each row's local sum of gs * x; pass 2, with the
+// summed squares and the summed dot, writes dx and the per-block dscale
+// partials that `rmsnorm_dscale_sum` adds in a fixed order.  Both are the
+// whole-row backward kernel above with its row sums taken from the
+// caller (`BwdMode`): pass 2 reads x and g again.  Bound: memory.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -282,12 +295,21 @@ int launch(const void* x, const void* scale, void* out, long long rows, int d,
 // Backward
 // ---------------------------------------------------------------------------
 
-template <typename T, typename S, int VPL>
+// What a backward launch does with a row.
+enum BwdMode {
+  kWholeBwd = 0,  // whole row: both row sums, then dx and dscale partials
+  kDotBwd = 1,    // split row, pass 1: store the local sum of gs * x only
+  kSplitBwd = 2,  // split row, pass 2: row sums from the caller (summed)
+};
+
+template <typename T, typename S, int VPL, int MODE>
 __global__ void __launch_bounds__(kThreads, 2)
 rmsnorm_bwd_vec(const T* __restrict__ x, const T* __restrict__ g,
                 const S* __restrict__ scale, T* __restrict__ dx,
                 float* __restrict__ part, long long rows, int d,
-                long long x_stride, long long g_stride, float eps, int tpr) {
+                long long x_stride, long long g_stride, float eps, int tpr,
+                const float* __restrict__ ss_in, float* __restrict__ dot_io,
+                int d_norm) {
   constexpr int kV = 16 / sizeof(T);
   constexpr int kE = VPL * kV;  // columns a thread owns
   typedef Vec<kV * sizeof(S)> SV;
@@ -325,37 +347,48 @@ rmsnorm_bwd_vec(const T* __restrict__ x, const T* __restrict__ g,
                  : make_uint4(0u, 0u, 0u, 0u);
     }
     float ss = 0.f, sd = 0.f;  // sum of x^2, sum of gs * x
+    if (MODE == kSplitBwd) {
+      if (live) {
+        ss = ss_in[row];
+        sd = dot_io[row];
+      }
+    } else {
 #pragma unroll
-    for (int k = 0; k < VPL; ++k) {
-      const T* ex = reinterpret_cast<const T*>(&xv[k]);
-      const T* eg = reinterpret_cast<const T*>(&gv[k]);
-      const S* es = reinterpret_cast<const S*>(&sv[k]);
+      for (int k = 0; k < VPL; ++k) {
+        const T* ex = reinterpret_cast<const T*>(&xv[k]);
+        const T* eg = reinterpret_cast<const T*>(&gv[k]);
+        const S* es = reinterpret_cast<const S*>(&sv[k]);
 #pragma unroll
-      for (int j = 0; j < kV; ++j) {
-        const float xf = to_f(ex[j]);
-        ss += xf * xf;
-        sd += to_f(eg[j]) * to_f(es[j]) * xf;
+        for (int j = 0; j < kV; ++j) {
+          const float xf = to_f(ex[j]);
+          if (MODE == kWholeBwd) ss += xf * xf;
+          sd += to_f(eg[j]) * to_f(es[j]) * xf;
+        }
+      }
+      ss = warp_sum(ss);
+      sd = warp_sum(sd);
+      if (tpr > 32) {
+        if ((threadIdx.x & 31) == 0) {
+          red[0][threadIdx.x >> 5] = ss;
+          red[1][threadIdx.x >> 5] = sd;
+        }
+        __syncthreads();
+        const int w0 = (sub * tpr) >> 5;
+        ss = 0.f;
+        sd = 0.f;
+        for (int w = 0; w < (tpr >> 5); ++w) {
+          ss += red[0][w0 + w];
+          sd += red[1][w0 + w];
+        }
+        __syncthreads();  // red is written again for the next rows
       }
     }
-    ss = warp_sum(ss);
-    sd = warp_sum(sd);
-    if (tpr > 32) {
-      if ((threadIdx.x & 31) == 0) {
-        red[0][threadIdx.x >> 5] = ss;
-        red[1][threadIdx.x >> 5] = sd;
-      }
-      __syncthreads();
-      const int w0 = (sub * tpr) >> 5;
-      ss = 0.f;
-      sd = 0.f;
-      for (int w = 0; w < (tpr >> 5); ++w) {
-        ss += red[0][w0 + w];
-        sd += red[1][w0 + w];
-      }
-      __syncthreads();  // red is written again for the next rows
+    if (MODE == kDotBwd) {
+      if (live && lane == 0) dot_io[row] = sd;
+      continue;  // uniform over the block
     }
-    const float r = rsqrtf(ss / (float)d + eps);
-    const float c = r * r * r * (sd / (float)d);
+    const float r = rsqrtf(ss / (float)d_norm + eps);
+    const float c = r * r * r * (sd / (float)d_norm);
 #pragma unroll
     for (int k = 0; k < VPL; ++k) {
       const int i = lane + k * tpr;
@@ -375,6 +408,7 @@ rmsnorm_bwd_vec(const T* __restrict__ x, const T* __restrict__ g,
     }
   }
 
+  if (MODE == kDotBwd) return;
   // add the row slots' sums: slot s += slot s + h, h = slots/2, ..., 1
   const int t = threadIdx.x;
   for (int h = slots >> 1; h >= 1; h >>= 1) {
@@ -408,40 +442,52 @@ rmsnorm_bwd_vec(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-template <typename T, typename S>
+template <typename T, typename S, int MODE>
 __global__ void __launch_bounds__(kThreads)
 rmsnorm_bwd_scalar(const T* __restrict__ x, const T* __restrict__ g,
                    const S* __restrict__ scale, T* __restrict__ dx,
                    float* __restrict__ part, long long rows, int d,
-                   long long x_stride, long long g_stride, float eps) {
+                   long long x_stride, long long g_stride, float eps,
+                   const float* __restrict__ ss_in, float* __restrict__ dot_io,
+                   int d_norm) {
   __shared__ float red[2][kThreads / 32];
   float* prow = part + (long long)blockIdx.x * d;
-  for (int i = threadIdx.x; i < d; i += kThreads) prow[i] = 0.f;
+  if (MODE != kDotBwd)
+    for (int i = threadIdx.x; i < d; i += kThreads) prow[i] = 0.f;
   for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
     const T* xr = x + row * x_stride;
     const T* gr = g + row * g_stride;
     float ss = 0.f, sd = 0.f;
-    for (int i = threadIdx.x; i < d; i += kThreads) {
-      const float xf = to_f(xr[i]);
-      ss += xf * xf;
-      sd += to_f(gr[i]) * to_f(scale[i]) * xf;
+    if (MODE == kSplitBwd) {
+      ss = ss_in[row];
+      sd = dot_io[row];
+    } else {
+      for (int i = threadIdx.x; i < d; i += kThreads) {
+        const float xf = to_f(xr[i]);
+        if (MODE == kWholeBwd) ss += xf * xf;
+        sd += to_f(gr[i]) * to_f(scale[i]) * xf;
+      }
+      ss = warp_sum(ss);
+      sd = warp_sum(sd);
+      if ((threadIdx.x & 31) == 0) {
+        red[0][threadIdx.x >> 5] = ss;
+        red[1][threadIdx.x >> 5] = sd;
+      }
+      __syncthreads();
+      ss = 0.f;
+      sd = 0.f;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        ss += red[0][w];
+        sd += red[1][w];
+      }
+      __syncthreads();
     }
-    ss = warp_sum(ss);
-    sd = warp_sum(sd);
-    if ((threadIdx.x & 31) == 0) {
-      red[0][threadIdx.x >> 5] = ss;
-      red[1][threadIdx.x >> 5] = sd;
+    if (MODE == kDotBwd) {
+      if (threadIdx.x == 0) dot_io[row] = sd;
+      continue;
     }
-    __syncthreads();
-    ss = 0.f;
-    sd = 0.f;
-    for (int w = 0; w < kThreads / 32; ++w) {
-      ss += red[0][w];
-      sd += red[1][w];
-    }
-    __syncthreads();
-    const float r = rsqrtf(ss / (float)d + eps);
-    const float c = r * r * r * (sd / (float)d);
+    const float r = rsqrtf(ss / (float)d_norm + eps);
+    const float c = r * r * r * (sd / (float)d_norm);
     T* drow = dx + row * (long long)d;
     for (int i = threadIdx.x; i < d; i += kThreads) {  // a thread's own columns
       const float xf = to_f(xr[i]), gf = to_f(gr[i]);
@@ -474,20 +520,30 @@ rmsnorm_dscale_sum(const float* __restrict__ part, S* __restrict__ dscale,
   }
 }
 
-template <typename T, typename S, int VPL>
+// The row sums a backward launch in `MODE` takes from the caller or hands
+// back: `ss` the split row's summed squares (kSplitBwd), `dot` its local
+// (kDotBwd, written) or summed (kSplitBwd, read) sum of gs * x, `d_norm`
+// the width the sums are divided by (d for a whole row).
+struct RowSums {
+  const float* ss;
+  float* dot;
+  int d_norm;
+};
+
+template <typename T, typename S, int VPL, int MODE>
 void launch_bwd_vec(const void* x, const void* g, const void* scale, void* dx,
                     float* part, int parts, long long rows, int d,
                     long long x_stride, long long g_stride, float eps, int tpr,
-                    cudaStream_t stream) {
-  rmsnorm_bwd_vec<T, S, VPL><<<parts, kThreads, 0, stream>>>(
+                    RowSums rs, cudaStream_t stream) {
+  rmsnorm_bwd_vec<T, S, VPL, MODE><<<parts, kThreads, 0, stream>>>(
       (const T*)x, (const T*)g, (const S*)scale, (T*)dx, part, rows, d,
-      x_stride, g_stride, eps, tpr);
+      x_stride, g_stride, eps, tpr, rs.ss, rs.dot, rs.d_norm);
 }
 
-template <typename T, typename S>
+template <typename T, typename S, int MODE>
 int launch_bwd(const void* x, const void* g, const void* scale, void* dx,
                void* dscale, float* part, int max_parts, long long rows, int d,
-               long long x_stride, long long g_stride, float eps,
+               long long x_stride, long long g_stride, float eps, RowSums rs,
                cudaStream_t st) {
   constexpr int kV = 16 / sizeof(T);
   const int nv = d / kV;
@@ -501,9 +557,9 @@ int launch_bwd(const void* x, const void* g, const void* scale, void* dx,
   int parts;
   if (!vec) {
     parts = (int)(rows < max_parts ? rows : max_parts);
-    rmsnorm_bwd_scalar<T, S><<<parts, kThreads, 0, st>>>(
+    rmsnorm_bwd_scalar<T, S, MODE><<<parts, kThreads, 0, st>>>(
         (const T*)x, (const T*)g, (const S*)scale, (T*)dx, part, rows, d,
-        x_stride, g_stride, eps);
+        x_stride, g_stride, eps, rs.ss, rs.dot, rs.d_norm);
   } else {
     int tpr = 32;
     while (nv > kTargetVpl * tpr && tpr < kThreads) tpr *= 2;
@@ -512,21 +568,38 @@ int launch_bwd(const void* x, const void* g, const void* scale, void* dx,
     const long long need = (rows + slots - 1) / slots;
     parts = (int)(need < max_parts ? need : max_parts);
     switch (vpl) {
-      case 1: launch_bwd_vec<T, S, 1>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, st); break;
-      case 2: launch_bwd_vec<T, S, 2>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, st); break;
-      case 3: launch_bwd_vec<T, S, 3>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, st); break;
-      case 4: launch_bwd_vec<T, S, 4>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, st); break;
-      case 5: launch_bwd_vec<T, S, 5>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, st); break;
-      case 6: launch_bwd_vec<T, S, 6>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, st); break;
-      case 7: launch_bwd_vec<T, S, 7>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, st); break;
-      default: launch_bwd_vec<T, S, 8>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, st); break;
+      case 1: launch_bwd_vec<T, S, 1, MODE>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, rs, st); break;
+      case 2: launch_bwd_vec<T, S, 2, MODE>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, rs, st); break;
+      case 3: launch_bwd_vec<T, S, 3, MODE>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, rs, st); break;
+      case 4: launch_bwd_vec<T, S, 4, MODE>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, rs, st); break;
+      case 5: launch_bwd_vec<T, S, 5, MODE>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, rs, st); break;
+      case 6: launch_bwd_vec<T, S, 6, MODE>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, rs, st); break;
+      case 7: launch_bwd_vec<T, S, 7, MODE>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, rs, st); break;
+      default: launch_bwd_vec<T, S, 8, MODE>(x, g, scale, dx, part, parts, rows, d, x_stride, g_stride, eps, tpr, rs, st); break;
     }
   }
   int code = (int)cudaGetLastError();
-  if (code != 0) return code;
+  if (code != 0 || MODE == kDotBwd) return code;
   rmsnorm_dscale_sum<S><<<(d + kSumCols - 1) / kSumCols, kThreads, 0, st>>>(
       part, (S*)dscale, parts, d);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int dispatch_bwd(const void* x, const void* g, const void* scale, void* dx,
+                 void* dscale, float* part, int max_parts, long long rows,
+                 int d, long long x_stride, long long g_stride, float eps,
+                 RowSums rs, int x_dtype, int scale_dtype, cudaStream_t s) {
+  typedef __nv_bfloat16 bf;
+  if (x_dtype == 0 && scale_dtype == 0)
+    return launch_bwd<float, float, MODE>(x, g, scale, dx, dscale, part, max_parts, rows, d, x_stride, g_stride, eps, rs, s);
+  if (x_dtype == 0 && scale_dtype == 1)
+    return launch_bwd<float, bf, MODE>(x, g, scale, dx, dscale, part, max_parts, rows, d, x_stride, g_stride, eps, rs, s);
+  if (x_dtype == 1 && scale_dtype == 0)
+    return launch_bwd<bf, float, MODE>(x, g, scale, dx, dscale, part, max_parts, rows, d, x_stride, g_stride, eps, rs, s);
+  if (x_dtype == 1 && scale_dtype == 1)
+    return launch_bwd<bf, bf, MODE>(x, g, scale, dx, dscale, part, max_parts, rows, d, x_stride, g_stride, eps, rs, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -595,16 +668,38 @@ int rmsnorm_bwd(const void* x, const void* g, const void* scale, void* dx,
                 int scale_dtype, void* stream) {
   if (rows == 0 || d == 0 || max_parts < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  float* p = (float*)part;
-  if (x_dtype == 0 && scale_dtype == 0)
-    return launch_bwd<float, float>(x, g, scale, dx, dscale, p, max_parts, rows, d, x_stride, g_stride, eps, s);
-  if (x_dtype == 0 && scale_dtype == 1)
-    return launch_bwd<float, __nv_bfloat16>(x, g, scale, dx, dscale, p, max_parts, rows, d, x_stride, g_stride, eps, s);
-  if (x_dtype == 1 && scale_dtype == 0)
-    return launch_bwd<__nv_bfloat16, float>(x, g, scale, dx, dscale, p, max_parts, rows, d, x_stride, g_stride, eps, s);
-  if (x_dtype == 1 && scale_dtype == 1)
-    return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, g, scale, dx, dscale, p, max_parts, rows, d, x_stride, g_stride, eps, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch_bwd<kWholeBwd>(x, g, scale, dx, dscale, (float*)part, max_parts, rows, d,
+                                 x_stride, g_stride, eps, RowSums{nullptr, nullptr, d},
+                                 x_dtype, scale_dtype, s);
+}
+
+// The split row's backward, pass 1: dot[i] = the fp32 sum over this rank's
+// d columns of row i of g * scale * x (dot: rows floats; `part` and
+// `max_parts` as for rmsnorm_bwd, the scratch unused).
+int rmsnorm_split_dot(const void* x, const void* g, const void* scale,
+                      float* dot, int max_parts, long long rows, int d,
+                      long long x_stride, long long g_stride, int x_dtype,
+                      int scale_dtype, void* stream) {
+  if (rows == 0 || d == 0 || max_parts < 1) return (int)cudaErrorInvalidValue;
+  return dispatch_bwd<kDotBwd>(x, g, scale, nullptr, nullptr, nullptr, max_parts, rows,
+                               d, x_stride, g_stride, 0.f, RowSums{nullptr, dot, d},
+                               x_dtype, scale_dtype, (cudaStream_t)stream);
+}
+
+// Pass 2, after the caller has summed dot over the ranks: dx and dscale
+// (this rank's d entries) as rmsnorm_bwd writes them, with the row sums
+// ss (the forward's squares, summed) and dot over rows d_total wide.
+int rmsnorm_split_bwd(const void* x, const void* g, const void* scale,
+                      const float* ss, const float* dot, void* dx,
+                      void* dscale, void* part, int max_parts, long long rows,
+                      int d, long long x_stride, long long g_stride,
+                      int d_total, float eps, int x_dtype, int scale_dtype,
+                      void* stream) {
+  if (rows == 0 || d == 0 || max_parts < 1) return (int)cudaErrorInvalidValue;
+  return dispatch_bwd<kSplitBwd>(x, g, scale, dx, dscale, (float*)part, max_parts, rows,
+                                 d, x_stride, g_stride, eps,
+                                 RowSums{ss, const_cast<float*>(dot), d_total},
+                                 x_dtype, scale_dtype, (cudaStream_t)stream);
 }
 
 const char* error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -71,6 +71,37 @@
 // float32 (parity checks only): `scalar::`, the port's first SSD kernel.
 // One block per (head, batch row) loops over 64-row tiles in order with its
 // (P, N) fp32 state in shared memory; scalar FMAs in 4x4 register tiles.
+//
+// Backward (`ssd_bwd`, training): the VJP of the scan above.  The TPU
+// kernel has none; the reference trains through `ssd_scan`
+// (src/repro/models/ssm.py), and this is the gradient of the same function.
+// One design for both dtypes: all arithmetic and sums in fp32, bf16 inputs
+// converted on load, dx, dB and dC cast at the end.  Chunks of 64 rows.
+// Seven launches from one C call:
+//   1. own_states (rev 0): each chunk's own state and total decay (as the
+//      forward's pass 1); own_states (rev 1): each chunk's own state
+//      gradient sum_i exp(cum_i) dy_i C_i^T.
+//   2. scan_states, forward then reverse, elementwise and in place: the
+//      state before each chunk, and the gradient of the state after it.
+//   3. chunk_grads, one block per (head, chunk, batch row), 256 threads,
+//      everything of the chunk in shared memory (B, C, x, dy, S, dS, and
+//      the (Q, Q) gate G and weight W; 223 KB at P = 64, N = 128): dx,
+//      ddt, this head's terms of dB and dC (fp32 scratch), and the
+//      chunk's part of dA.  The formulas are at the kernel.  The
+//      gradient through the decay's cumsum leaves the diagonal out of
+//      both of its sums, where the two terms cancel: a steep decay then
+//      gives exactly 0, as autograd does, not rounding noise times A.
+//   4. sum_heads: dB and dC summed over the heads in head order; sum_da:
+//      dA summed over (batch, chunk) in order.  No atomics: the same bits
+//      from run to run.
+// Bound on an H100: operations (~3e10 FLOP at mamba2-130m's train shape,
+// b=8, L=1024, H=24, P=64, N=128) against ~85 MB of inputs and outputs.
+// This first design runs the products as scalar fp32 FMAs from shared
+// memory (4x4 register tiles), one block an SM, and round-trips the
+// states and the per-head dB, dC terms (~400 MB at that shape) through
+// device memory: simple and right first.  Left on the table: tensor
+// cores (the forward's hi + lo split), the bf16 forward's saved states,
+// heads grouped per block so dB and dC stay on chip.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -965,6 +996,503 @@ int launch_n(int N, const bf16* x, const float* dt, const float* A,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// Backward: the VJP of the scan, fp32 arithmetic for both dtypes.
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+using scalar::from_f;
+using scalar::ld4;
+using scalar::to_f;
+
+constexpr int kQ = 64;          // rows of a chunk, in every pass
+constexpr int kQS = kQ + 4;     // padded stride of the (Q, Q) tiles
+constexpr int kThreads = 256;   // (kQ/4)^2 4x4 micro-tiles of a (Q, Q) tile
+
+__host__ __device__ inline long long wide4(int P) { return (kQ > P ? kQ : P) / 4; }
+
+// chunk_grads: B, C (Q x N+4), x, dy (Q x P+4), S, dS (P x N+4), G, W
+// (Q x Q+4), 9 row vectors, the row partials of two (Q, Q or P) reductions
+// and of one (Q, N) reduction, one float a warp
+__host__ __device__ inline long long main_floats(int N, int P) {
+  return 2LL * kQ * (N + 4) + 2LL * kQ * (P + 4) + 2LL * P * (N + 4) +
+         2LL * kQ * kQS + 9LL * kQ + 2LL * kQ * wide4(P) + (long long)kQ * (N / 4) +
+         kThreads / 32;
+}
+// own_states: v (Q x P+4), w (Q x N+4), 3 row vectors
+__host__ __device__ inline long long own_floats(int N, int P) {
+  return (long long)kQ * (P + 4) + (long long)kQ * (N + 4) + 4LL * kQ;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Warp 0: dts[r] = dt of the chunk's row r (0 past q), cum[r] = the
+// inclusive cumsum of dt A over the chunk (flat past q), two rows a lane.
+__device__ __forceinline__ void chunk_cum(const float* dtb, long long dt_sl,
+                                          int t0, int q, float a, float* cum,
+                                          float* dts) {
+  const int lane = threadIdx.x;
+  const int r0 = 2 * lane, r1 = r0 + 1;
+  const float d0 = r0 < q ? dtb[(long long)(t0 + r0) * dt_sl] : 0.f;
+  const float d1 = r1 < q ? dtb[(long long)(t0 + r1) * dt_sl] : 0.f;
+  const float a0 = d0 * a, a1 = d1 * a;
+  float incl = a0 + a1;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.f;
+  dts[r0] = d0;
+  dts[r1] = d1;
+  cum[r0] = excl + a0;
+  cum[r1] = cum[r0] + a1;
+}
+
+// v[r][kk] = op(m0 + r cs, k + kk) of a shared fp32 operand: KC, op(m, k)
+// = p[m ld + k] (k contiguous); else op(m, k) = p[k ld + m], cs = 1.
+template <bool KC>
+__device__ __forceinline__ void frag(const float* p, int ld, int m0, int cs,
+                                     int k, float v[4][4]) {
+  if (KC) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 t = ld4(p + (m0 + r * cs) * ld + k);
+      v[r][0] = t.x; v[r][1] = t.y; v[r][2] = t.z; v[r][3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 t = ld4(p + (k + kk) * ld + m0);
+      v[0][kk] = t.x; v[1][kk] = t.y; v[2][kk] = t.z; v[3][kk] = t.w;
+    }
+  }
+}
+
+// acc[r][c] += sum_{k0 <= k < k1} a(m0 + r, k) b(k, n0 + c cs), k0 and k1
+// multiples of 4; a's rows are contiguous, b's columns are strided by cs
+// where BK (cs = 1 otherwise).
+template <bool AK, bool BK>
+__device__ __forceinline__ void mm(float acc[4][4], const float* a, int lda,
+                                   int m0, const float* b, int ldb, int n0,
+                                   int cs, int k0, int k1) {
+  for (int k = k0; k < k1; k += 4) {
+    float av[4][4], bv[4][4];
+    frag<AK>(a, lda, m0, 1, k, av);
+    frag<BK>(b, ldb, n0, cs, k, bv);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(av[r][kk], bv[c][kk], acc[r][c]);
+  }
+}
+
+// Pass 1 (rev = 0): each chunk's own state sum_j exp(cum_last - cum_j) dt_j
+// x_j B_j^T, and its total decay cum_last.  Pass 2 (rev = 1): each chunk's
+// own state gradient sum_i exp(cum_i) dy_i C_i^T.  v is x or dy, w is B or
+// C; out[b][c][h] is (P, N) fp32.  Grid (H, chunks, batch).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+own_states(const T* __restrict__ v, const float* __restrict__ dt,
+           const float* __restrict__ A, const T* __restrict__ w,
+           float* __restrict__ out, float* __restrict__ cumlast, int L, int H,
+           int P, int N, int nc, long long v_sb, long long v_sl, long long v_sh,
+           long long dt_sb, long long dt_sl, long long dt_sh, long long w_sb,
+           long long w_sl, int rev) {
+  extern __shared__ float4 smem4[];
+  const int PS = P + 4, NS = N + 4;
+  float* vs = reinterpret_cast<float*>(smem4);  // vs[j PS + p] = coef_j v[j][p]
+  float* ws = vs + kQ * PS;                     // ws[j NS + n] = w[j][n]
+  float* cum = ws + kQ * NS;
+  float* dts = cum + kQ;
+  float* coef = dts + kQ;
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int t0 = c * kQ, q = min(kQ, L - t0);
+  if (tid < 32) chunk_cum(dt + b * dt_sb + h * dt_sh, dt_sl, t0, q, A[h], cum, dts);
+  __syncthreads();
+  const float last = cum[kQ - 1];
+  if (tid < kQ) coef[tid] = rev ? expf(cum[tid]) : expf(last - cum[tid]) * dts[tid];
+  if (!rev && tid == 0) cumlast[((long long)b * nc + c) * H + h] = last;
+  __syncthreads();
+  const T* vb = v + b * v_sb + h * v_sh + (long long)t0 * v_sl;
+  const T* wb = w + b * w_sb + (long long)t0 * w_sl;
+  for (int idx = tid; idx < kQ * P; idx += kThreads) {
+    const int j = idx / P, p = idx - j * P;
+    vs[j * PS + p] = j < q ? to_f(vb[(long long)j * v_sl + p]) * coef[j] : 0.f;
+  }
+  for (int idx = tid; idx < kQ * N; idx += kThreads) {
+    const int j = idx / N, n = idx - j * N;
+    ws[j * NS + n] = j < q ? to_f(wb[(long long)j * w_sl + n]) : 0.f;
+  }
+  __syncthreads();
+  float* ob = out + (((long long)b * nc + c) * H + h) * P * N;
+  const int qr = (q + 3) & ~3, N4 = N / 4;
+  for (int mt = tid; mt < (P / 4) * N4; mt += kThreads) {
+    const int p0 = 4 * (mt / N4), n0 = 4 * (mt % N4);
+    float acc[4][4] = {};
+    mm<false, false>(acc, vs, PS, p0, ws, NS, n0, 1, 0, qr);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<float4*>(ob + (p0 + r) * N + n0) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+}
+
+// In place over the chunks, elementwise: slot c (a chunk's own term)
+// becomes the carry before it, carry <- exp(cum_last[c]) carry + own[c];
+// forward order gives the state before each chunk, reverse order the
+// gradient of the state after it.  Grid (P.N / 256, H, batch).
+__global__ void __launch_bounds__(kThreads)
+scan_states(float* __restrict__ st, const float* __restrict__ cumlast, int H,
+            int nc, int pn, int rev) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (e >= pn) return;
+  float carry = 0.f;
+  for (int s = 0; s < nc; ++s) {
+    const int c = rev ? nc - 1 - s : s;
+    const long long slot = ((long long)b * nc + c) * H + h;
+    float* ptr = st + slot * pn + e;
+    const float own = *ptr;
+    *ptr = carry;
+    carry = fmaf(expf(cumlast[slot]), carry, own);
+  }
+}
+
+// Pass 3, one block per (head, chunk, batch row): with S the state before
+// the chunk and dS the gradient of the state after it,
+//   G_ij = (C_i.B_j) e^{cum_i - cum_j}, W_ij = e^{cum_i - cum_j} dt_j (dy_i.x_j)
+//   (j <= i, masked before exp), M_ij = W_ij (C_i.B_j);
+//   u_j = sum_i G_ij dy_i + e^{cum_last - cum_j} dS B_j, dx_j = dt_j u_j;
+//   dC_i = sum_j W_ij B_j + e^{cum_i} S^T dy_i, dB_j = sum_i W_ij C_i +
+//   e^{cum_last - cum_j} dt_j dS^T x_j (this head's terms, fp32, to scratch);
+//   dcum_i = sum_{j<i} M_ij - sum_{k>i} M_ki + C_i.(e^{cum_i} S^T dy_i)
+//   - e^{cum_last - cum_i} dt_i x_i.(dS B_i), plus <dS, S after> on the last
+//   row; R = the reverse cumsum of dcum, ddt_t = A R_t + x_t.u_t, and this
+//   chunk's part of dA, sum_t dt_t R_t.  Products in 4x4 register tiles
+//   from shared memory; sums over a row's threads through shared partials,
+//   added in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+chunk_grads(const T* __restrict__ x, const float* __restrict__ dt,
+            const float* __restrict__ A, const T* __restrict__ Bm,
+            const T* __restrict__ Cm, const T* __restrict__ dy,
+            const float* __restrict__ states, const float* __restrict__ dstates,
+            T* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dBp,
+            float* __restrict__ dCp, float* __restrict__ dAp, int L, int H,
+            int P, int N, int nc, long long x_sb, long long x_sl, long long x_sh,
+            long long dt_sb, long long dt_sl, long long dt_sh, long long b_sb,
+            long long b_sl, long long c_sb, long long c_sl, long long dy_sb,
+            long long dy_sl, long long dy_sh) {
+  extern __shared__ float4 smem4[];
+  const int NS = N + 4, PS = P + 4, P4 = P / 4, N4 = N / 4, Q4 = kQ / 4;
+  float* Bs = reinterpret_cast<float*>(smem4);  // Bs[j NS + n] = B[j][n]
+  float* Cs = Bs + kQ * NS;                     // Cs[i NS + n] = C[i][n]
+  float* xs = Cs + kQ * NS;                     // xs[j PS + p] = x[j][p]
+  float* dys = xs + kQ * PS;                    // dys[i PS + p] = dy[i][p]
+  float* Ss = dys + kQ * PS;                    // Ss[p NS + n] = S[p][n]
+  float* dSs = Ss + P * NS;                     // dSs[p NS + n] = dS[p][n]
+  float* Gs = dSs + P * NS;                     // Gs[i kQS + j] = G_ij
+  float* Ws = Gs + kQ * kQS;                    // Ws[i kQS + j] = W_ij
+  float* cum = Ws + kQ * kQS;
+  float* dts = cum + kQ;
+  float* wend = dts + kQ;                       // e^{cum_last - cum_j}
+  float* ecum = wend + kQ;                      // e^{cum_i}
+  float* rowm = ecum + kQ;                      // sum_{j<i} M_ij
+  float* colm = rowm + kQ;                      // sum_{k>j} M_kj
+  float* xu = colm + kQ;                        // x_j.u_j
+  float* xk = xu + kQ;                          // x_j.(dS B_j)
+  float* off = xk + kQ;                         // C_i.(e^{cum_i} S^T dy_i)
+  float* partA = off + kQ;                      // 2 kQ wide4(P)
+  float* partO = partA + 2 * kQ * wide4(P);     // kQ N4
+  float* red = partO + kQ * N4;                 // kThreads / 32
+
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
+  const int t0 = c * kQ, q = min(kQ, L - t0), qr = (q + 3) & ~3;
+  const float a = A[h];
+  const long long slot = ((long long)b * nc + c) * H + h;
+
+  if (tid < 32) chunk_cum(dt + b * dt_sb + h * dt_sh, dt_sl, t0, q, a, cum, dts);
+  __syncthreads();
+  if (tid < kQ) {
+    wend[tid] = expf(cum[kQ - 1] - cum[tid]);
+    ecum[tid] = expf(cum[tid]);
+  }
+  {
+    const T* Bb = Bm + b * b_sb + (long long)t0 * b_sl;
+    const T* Cb = Cm + b * c_sb + (long long)t0 * c_sl;
+    for (int idx = tid; idx < kQ * N; idx += kThreads) {
+      const int j = idx / N, n = idx - j * N;
+      const bool in = j < q;
+      Bs[j * NS + n] = in ? to_f(Bb[(long long)j * b_sl + n]) : 0.f;
+      Cs[j * NS + n] = in ? to_f(Cb[(long long)j * c_sl + n]) : 0.f;
+    }
+    const T* xb = x + b * x_sb + h * x_sh + (long long)t0 * x_sl;
+    const T* dyb = dy + b * dy_sb + h * dy_sh + (long long)t0 * dy_sl;
+    for (int idx = tid; idx < kQ * P; idx += kThreads) {
+      const int j = idx / P, p = idx - j * P;
+      const bool in = j < q;
+      xs[j * PS + p] = in ? to_f(xb[(long long)j * x_sl + p]) : 0.f;
+      dys[j * PS + p] = in ? to_f(dyb[(long long)j * dy_sl + p]) : 0.f;
+    }
+    const float* Sg = states + slot * P * N;
+    const float* dSg = dstates + slot * P * N;
+    for (int idx = tid; idx < P * N; idx += kThreads) {
+      const int p = idx / N, n = idx - p * N;
+      Ss[p * NS + n] = Sg[idx];
+      dSs[p * NS + n] = dSg[idx];
+    }
+  }
+  __syncthreads();
+
+  // (a) C.B^T and dy.x^T, thread tile rows i0..i0+3 x columns g + Q4 cc;
+  //     G, W, and M's strict row and column sums
+  {
+    const int i0 = 4 * (tid / Q4), g = tid % Q4;
+    float cb[4][4] = {}, dx4[4][4] = {};
+    mm<true, true>(cb, Cs, NS, i0, Bs, NS, g, Q4, 0, N);
+    mm<true, true>(dx4, dys, PS, i0, xs, PS, g, Q4, 0, P);
+    float rs[4] = {}, cs[4] = {};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = i0 + r;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int j = g + Q4 * cc;
+        float gv = 0.f, wv = 0.f;
+        if (j <= i) {
+          const float dec = expf(cum[i] - cum[j]);
+          gv = cb[r][cc] * dec;
+          wv = dx4[r][cc] * dec * dts[j];
+          if (j < i) {
+            const float m = wv * cb[r][cc];
+            rs[r] += m;
+            cs[cc] += m;
+          }
+        }
+        Gs[i * kQS + j] = gv;
+        Ws[i * kQS + j] = wv;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) partA[(i0 + r) * Q4 + g] = rs[r];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) partA[kQ * Q4 + (g + Q4 * cc) * Q4 + i0 / 4] = cs[cc];
+  }
+  __syncthreads();
+  if (tid < kQ) {
+    float s = 0.f;
+    for (int k = 0; k < Q4; ++k) s += partA[tid * Q4 + k];
+    rowm[tid] = s;
+  } else if (tid < 2 * kQ) {
+    const int j = tid - kQ;
+    float s = 0.f;
+    for (int k = 0; k < Q4; ++k) s += partA[kQ * Q4 + j * Q4 + k];
+    colm[j] = s;
+  }
+  __syncthreads();
+
+  // (b) u = G^T dy + diag(wend) B dS^T over (j, p) tiles; dx = dt u
+  for (int mt = tid; mt < Q4 * P4; mt += kThreads) {
+    const int j0 = 4 * (mt / P4), p0 = 4 * (mt % P4);
+    float t1[4][4] = {}, t2[4][4] = {};
+    mm<false, false>(t1, Gs, kQS, j0, dys, PS, p0, 1, j0, qr);
+    mm<true, true>(t2, Bs, NS, j0, dSs, NS, p0, 1, 0, N);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = j0 + r;
+      const float* xr = xs + j * PS + p0;
+      float pu = 0.f, pk = 0.f, o[4];
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float u = fmaf(wend[j], t2[r][cc], t1[r][cc]);
+        o[cc] = dts[j] * u;
+        pu = fmaf(xr[cc], u, pu);
+        pk = fmaf(xr[cc], t2[r][cc], pk);
+      }
+      if (j < q) {
+        T* dr = dx + (((long long)b * L + t0 + j) * H + h) * P + p0;
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) dr[cc] = from_f<T>(o[cc]);
+      }
+      partA[j * P4 + p0 / 4] = pu;
+      partA[kQ * P4 + j * P4 + p0 / 4] = pk;
+    }
+  }
+
+  // (c) dC = W B + diag(ecum) dy S and dB = W^T C + diag(wend dt) x dS over
+  //     (row, n) tiles, this head's terms, to the fp32 scratch
+  for (int mt = tid; mt < Q4 * N4; mt += kThreads) {
+    const int r0 = 4 * (mt / N4), n0 = 4 * (mt % N4);
+    float c1[4][4] = {}, c2[4][4] = {}, b1[4][4] = {}, b2[4][4] = {};
+    mm<true, false>(c1, Ws, kQS, r0, Bs, NS, n0, 1, 0, min(r0 + 4, qr));
+    mm<true, false>(c2, dys, PS, r0, Ss, NS, n0, 1, 0, P);
+    mm<false, false>(b1, Ws, kQS, r0, Cs, NS, n0, 1, r0, qr);
+    mm<true, false>(b2, xs, PS, r0, dSs, NS, n0, 1, 0, P);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = r0 + r;
+      const float* cr = Cs + i * NS + n0;
+      const float wd = wend[i] * dts[i];
+      float po = 0.f, dc[4], db[4];
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const float o = ecum[i] * c2[r][cc];
+        dc[cc] = c1[r][cc] + o;
+        po = fmaf(cr[cc], o, po);
+        db[cc] = fmaf(wd, b2[r][cc], b1[r][cc]);
+      }
+      if (i < q) {
+        const long long at = (((long long)b * H + h) * L + t0 + i) * N + n0;
+        *reinterpret_cast<float4*>(dCp + at) = make_float4(dc[0], dc[1], dc[2], dc[3]);
+        *reinterpret_cast<float4*>(dBp + at) = make_float4(db[0], db[1], db[2], db[3]);
+      }
+      partO[i * N4 + n0 / 4] = po;
+    }
+  }
+
+  // <dS, S after the chunk> (0 after the last chunk, whose dS is 0)
+  float sd = 0.f;
+  if (c + 1 < nc) {
+    const float* Sn = states + (slot + H) * P * N;  // chunk c + 1, same b, h
+    for (int idx = tid; idx < P * N; idx += kThreads) {
+      const int p = idx / N, n = idx - p * N;
+      sd = fmaf(dSs[p * NS + n], Sn[idx], sd);
+    }
+  }
+  sd = warp_sum(sd);
+  if ((tid & 31) == 0) red[tid >> 5] = sd;
+  __syncthreads();
+  if (tid < kQ) {
+    float s = 0.f;
+    for (int k = 0; k < P4; ++k) s += partA[tid * P4 + k];
+    xu[tid] = s;
+    s = 0.f;
+    for (int k = 0; k < P4; ++k) s += partA[kQ * P4 + tid * P4 + k];
+    xk[tid] = s;
+    s = 0.f;
+    for (int k = 0; k < N4; ++k) s += partO[tid * N4 + k];
+    off[tid] = s;
+  }
+  __syncthreads();
+
+  // (d) dcum, its reverse cumsum R, ddt and this chunk's part of dA (warp 0)
+  if (tid < 32) {
+    float last = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) last += red[w];
+    float d[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 2 * tid + e;
+      d[e] = rowm[i] - colm[i] + off[i] - wend[i] * dts[i] * xk[i] +
+             (i == q - 1 ? last : 0.f);
+    }
+    const float v = d[0] + d[1];
+    float incl = v;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_down_sync(0xffffffffu, incl, o);
+      if (tid + o < 32) incl += t;
+    }
+    float later = __shfl_down_sync(0xffffffffu, incl, 1);
+    if (tid == 31) later = 0.f;
+    float R[2];
+    R[1] = later + d[1];
+    R[0] = R[1] + d[0];
+    float pa = 0.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int i = 2 * tid + e;
+      if (i < q) ddt[((long long)b * L + t0 + i) * H + h] = fmaf(a, R[e], xu[i]);
+      pa = fmaf(dts[i], R[e], pa);
+    }
+    pa = warp_sum(pa);
+    if (tid == 0) dAp[slot] = pa;
+  }
+}
+
+// dB, dC (batch, L, N) = the sums over heads of the fp32 per-head terms
+// (batch, H, L, N), in head order, cast to the inputs' type.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sum_heads(const float* __restrict__ dBp, const float* __restrict__ dCp,
+          T* __restrict__ dB, T* __restrict__ dC, int batch, int H,
+          long long LN) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= batch * LN) return;
+  const long long b = idx / LN, r = idx - b * LN;
+  const float* pb = dBp + b * H * LN + r;
+  const float* pc = dCp + b * H * LN + r;
+  float sb = 0.f, sc = 0.f;
+  for (int h = 0; h < H; ++h) {
+    sb += pb[h * LN];
+    sc += pc[h * LN];
+  }
+  dB[idx] = from_f<T>(sb);
+  dC[idx] = from_f<T>(sc);
+}
+
+// dA[h] = the sum of the chunks' parts (rows = batch x chunks), in order.
+__global__ void __launch_bounds__(kThreads)
+sum_da(const float* __restrict__ dAp, float* __restrict__ dA, int rows, int H) {
+  const int h = blockIdx.x * kThreads + threadIdx.x;
+  if (h >= H) return;
+  float s = 0.f;
+  for (int r = 0; r < rows; ++r) s += dAp[(long long)r * H + h];
+  dA[h] = s;
+}
+
+template <typename T>
+int launch(const T* x, const float* dt, const float* A, const T* Bm,
+           const T* Cm, const T* dy, T* dx, float* ddt, float* dA, T* dB,
+           T* dC, int batch, int L, int H, int P, int N, const long long* s,
+           float* states, float* dstates, float* cumlast, float* dBp,
+           float* dCp, float* dAp, cudaStream_t st) {
+  const int nc = (L + kQ - 1) / kQ;
+  const dim3 blocks(H, nc, batch);
+  const int own_bytes = (int)(own_floats(N, P) * sizeof(float));
+  const int main_bytes = (int)(main_floats(N, P) * sizeof(float));
+  cudaError_t e = cudaFuncSetAttribute(
+      own_states<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, own_bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(chunk_grads<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, main_bytes);
+  if (e != cudaSuccess) return (int)e;
+  own_states<T><<<blocks, kThreads, own_bytes, st>>>(
+      x, dt, A, Bm, states, cumlast, L, H, P, N, nc, s[0], s[1], s[2], s[3],
+      s[4], s[5], s[6], s[7], 0);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  own_states<T><<<blocks, kThreads, own_bytes, st>>>(
+      dy, dt, A, Cm, dstates, cumlast, L, H, P, N, nc, s[10], s[11], s[12],
+      s[3], s[4], s[5], s[8], s[9], 1);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const int pn = P * N;
+  const dim3 sgrid((pn + kThreads - 1) / kThreads, H, batch);
+  scan_states<<<sgrid, kThreads, 0, st>>>(states, cumlast, H, nc, pn, 0);
+  scan_states<<<sgrid, kThreads, 0, st>>>(dstates, cumlast, H, nc, pn, 1);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  chunk_grads<T><<<blocks, kThreads, main_bytes, st>>>(
+      x, dt, A, Bm, Cm, dy, states, dstates, dx, ddt, dBp, dCp, dAp, L, H, P,
+      N, nc, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9],
+      s[10], s[11], s[12]);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const long long LN = (long long)L * N;
+  sum_heads<T><<<(unsigned)((batch * LN + kThreads - 1) / kThreads), kThreads,
+                 0, st>>>(dBp, dCp, dB, dC, batch, H, LN);
+  sum_da<<<(H + kThreads - 1) / kThreads, kThreads, 0, st>>>(dAp, dA,
+                                                             batch * nc, H);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd
+
 extern "C" {
 
 // Shared memory one block of the float32 kernel needs, in bytes.
@@ -1004,6 +1532,51 @@ int ssd_fwd(const void* x, const void* dt, const void* A, const void* Bm,
     case 16: return tc::launch_n<16>(N, xb, dtf, Af, Bb, Cb, yb, batch, L, H, s, sf, cl, st);
     case 32: return tc::launch_n<32>(N, xb, dtf, Af, Bb, Cb, yb, batch, L, H, s, sf, cl, st);
     case 64: return tc::launch_n<64>(N, xb, dtf, Af, Bb, Cb, yb, batch, L, H, s, sf, cl, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Shared memory the backward's largest block needs, in bytes.
+long long ssd_bwd_smem_bytes(int N, int P) {
+  const long long a = bwd::main_floats(N, P), b = bwd::own_floats(N, P);
+  return (a > b ? a : b) * (long long)sizeof(float);
+}
+
+// The backward.  dtype codes as above (x, B, C, dy, dx, dB and dC share
+// it; dt, ddt, A and dA are float32); P and N multiples of 4.  Element
+// strides: x and dy (batch, L, H) with P contiguous; dt (batch, L, H); B
+// and C (batch, L) with N contiguous.  dx (batch, L, H, P), ddt (batch, L,
+// H) and dB, dC (batch, L, N) contiguous.  fp32 scratch, with nc =
+// ceil(L / 64): `states` and `dstates` (batch, nc, H, P, N), `cumlast` and
+// `dAp` (batch, nc, H), `dBp` and `dCp` (batch, H, L, N).
+int ssd_bwd(const void* x, const void* dt, const void* A, const void* Bm,
+            const void* Cm, const void* dy, void* dx, void* ddt, void* dA,
+            void* dB, void* dC, int batch, int L, int H, int P, int N,
+            long long x_sb, long long x_sl, long long x_sh, long long dt_sb,
+            long long dt_sl, long long dt_sh, long long b_sb, long long b_sl,
+            long long c_sb, long long c_sl, long long dy_sb, long long dy_sl,
+            long long dy_sh, int dtype, void* states, void* dstates,
+            void* cumlast, void* dBp, void* dCp, void* dAp, void* stream) {
+  if (batch == 0 || L == 0 || H == 0) return 0;
+  if (P % 4 || N % 4 || P <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const long long s[13] = {x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb,
+                           b_sl, c_sb, c_sl, dy_sb, dy_sl, dy_sh};
+  cudaStream_t st = (cudaStream_t)stream;
+  float *f0 = (float*)states, *f1 = (float*)dstates, *f2 = (float*)cumlast,
+        *f3 = (float*)dBp, *f4 = (float*)dCp, *f5 = (float*)dAp;
+  if (dtype == 0) {
+    typedef float T;
+    return bwd::launch<T>((const T*)x, (const float*)dt, (const float*)A,
+                          (const T*)Bm, (const T*)Cm, (const T*)dy, (T*)dx,
+                          (float*)ddt, (float*)dA, (T*)dB, (T*)dC, batch, L, H,
+                          P, N, s, f0, f1, f2, f3, f4, f5, st);
+  }
+  if (dtype == 1) {
+    typedef __nv_bfloat16 T;
+    return bwd::launch<T>((const T*)x, (const float*)dt, (const float*)A,
+                          (const T*)Bm, (const T*)Cm, (const T*)dy, (T*)dx,
+                          (float*)ddt, (float*)dA, (T*)dB, (T*)dC, batch, L, H,
+                          P, N, s, f0, f1, f2, f3, f4, f5, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -16,7 +16,11 @@ the backward written out, which the card's kernel is held to.
 Mamba2 mixer's gated norm where 'model' splits its heads): one kernel
 writes each row's fp32 sum of squares over the local columns, the
 caller's `sum_rows` adds them over the ranks (an all-reduce of one
-float a row), and a second kernel scales the rank's columns.
+float a row), and a second kernel scales the rank's columns.  Its
+backward is the same shape: a kernel writes each row's local sum of
+g * scale * x, `sum_rows` adds it over the ranks, and a second kernel
+writes dx and the rank's dscale (`rmsnorm_split_bwd`; counted in
+`rmsnorm.bwd_launches`); `rmsnorm_split_bwd_ref` is it written out.
 """
 
 from __future__ import annotations
@@ -68,7 +72,20 @@ def _bind_split():
                       + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_int, ctypes.c_float, ctypes.c_int,
                          ctypes.c_int, ctypes.c_void_p])
-    return lib, sumsq, apply
+    dot = lib.rmsnorm_split_dot
+    dot.restype = ctypes.c_int
+    dot.argtypes = ([ctypes.c_void_p] * 4
+                    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p])
+    bwd = lib.rmsnorm_split_bwd
+    bwd.restype = ctypes.c_int
+    bwd.argtypes = ([ctypes.c_void_p] * 8
+                    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p])
+    return lib, sumsq, apply, dot, bwd
 
 
 @functools.cache
@@ -169,35 +186,18 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
     return _RMSNorm.apply(x, scale, eps)
 
 
-def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, d_total: int,
-                  sum_rows: Callable[[torch.Tensor], torch.Tensor],
-                  eps: float = 1e-6) -> torch.Tensor:
-    """The norm of rows `d_total` wide split by columns over ranks.  x:
-    (..., d), this rank's d columns of each row; scale: (d,), its slice
-    of the weight; `sum_rows` sums a (rows,) fp32 vector over the ranks
-    that hold the rest of each row (`parallel.psum` over 'model').  Same
-    dtype out as in.
+def _summed(ss: torch.Tensor, rows: int, device) -> torch.Tensor:
+    """`sum_rows`'s result, checked: (rows,) fp32 on the kernels' card."""
+    if ss.shape != (rows,) or ss.dtype != torch.float32 or \
+            ss.device != device:
+        raise ValueError(f"rmsnorm_split: sum_rows gave {tuple(ss.shape)} "
+                         f"{ss.dtype} on {ss.device} for {rows} rows")
+    return ss.contiguous()
 
-    A CPU tensor takes `rmsnorm_split_ref` (autograd runs through
-    `sum_rows`, whose adjoint, a psum's, is the same sum).  A CUDA
-    tensor launches the sum-of-squares kernel, sums, then launches the
-    scaling kernel (counted together as one `rmsnorm.launches`, as the
-    whole-row norm they stand for, and in `rmsnorm.split_launches`), or
-    raises.  The pair has no backward, so a CUDA input that needs a
-    gradient raises: its only caller on the card is the split-heads
-    Mamba2 mixer, which cannot train there before the SSD kernel has a
-    backward.
-    """
-    reject_dtensor("rmsnorm_split", x, scale)
-    if x.device.type == "cpu":
-        return rmsnorm_split_ref(x, scale, d_total, sum_rows, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"rmsnorm_split: no kernel for {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-        raise NotImplementedError(
-            "the split-row rmsnorm kernels have no backward; their only "
-            "caller on the card, the split-heads Mamba2 mixer, cannot train "
-            "there before the ssd kernel has one (ROADMAP.md, Queue 2)")
+
+def _split_fwd(x, scale, d_total, sum_rows, eps):
+    """(out, the rows' summed squares) of the split row's norm, by the
+    sum-of-squares kernel, `sum_rows` and the scaling kernel."""
     d = _check(x, scale)
     if d_total < d:
         raise ValueError(f"rmsnorm_split: {d} local columns of rows "
@@ -205,17 +205,12 @@ def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, d_total: int,
     x2 = _rows(x, d)
     rows = x2.shape[0]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib, sumsq, apply = _bind_split()
+    lib, sumsq, apply, _, _ = _bind_split()
     ss = torch.empty((rows,), dtype=torch.float32, device=x.device)
     _build.check(lib, "rmsnorm_sumsq", sumsq(
         x2.data_ptr(), ss.data_ptr(), rows, d, x2.stride(0),
         _DTYPES[x.dtype], stream))
-    ss = sum_rows(ss)
-    if ss.shape != (rows,) or ss.dtype != torch.float32 or \
-            ss.device != x.device:
-        raise ValueError(f"rmsnorm_split: sum_rows gave {tuple(ss.shape)} "
-                         f"{ss.dtype} on {ss.device} for {rows} rows")
-    ss = ss.contiguous()
+    ss = _summed(sum_rows(ss), rows, x.device)
     out = torch.empty(x2.shape, dtype=x.dtype, device=x.device)
     _build.check(lib, "rmsnorm_apply", apply(
         x2.data_ptr(), scale.data_ptr(), ss.data_ptr(), out.data_ptr(), rows,
@@ -223,13 +218,101 @@ def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, d_total: int,
         _DTYPES[scale.dtype], stream))
     rmsnorm.launches += 1
     rmsnorm.split_launches += 1
-    return out.reshape(x.shape)
+    return out.reshape(x.shape), ss
+
+
+def rmsnorm_split_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                      ss: torch.Tensor, d_total: int,
+                      sum_rows: Callable[[torch.Tensor], torch.Tensor],
+                      eps: float = 1e-6):
+    """(dx, dscale) of the split row's norm at x for the output gradient
+    g, by the backward kernels (CUDA tensors only): ss is the forward's
+    (rows,) fp32 squares summed over the ranks, `sum_rows` sums the rows'
+    local dots over them between the two launches; dx in x's dtype,
+    dscale (this rank's entries) in the scale's, as
+    `rmsnorm_split_bwd_ref` computes them."""
+    d = _check(x, scale)
+    if g.shape != x.shape or g.device != x.device or g.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_split_bwd: g {tuple(g.shape)} {g.dtype} "
+                         f"for x {tuple(x.shape)} {x.dtype}")
+    x2, g2 = _rows(x, d), _rows(g, d)
+    rows = x2.shape[0]
+    ss = _summed(ss, rows, x.device)
+    dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    max_parts = _max_parts(x.device.index
+                           if x.device.index is not None
+                           else torch.cuda.current_device())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib, _, _, dot_fn, bwd_fn = _bind_split()
+    dot = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    if rows:
+        _build.check(lib, "rmsnorm_split_dot", dot_fn(
+            x2.data_ptr(), g2.data_ptr(), scale.data_ptr(), dot.data_ptr(),
+            max_parts, rows, d, x2.stride(0), g2.stride(0),
+            _DTYPES[x.dtype], _DTYPES[scale.dtype], stream))
+    dot = _summed(sum_rows(dot), rows, x.device)
+    if rows == 0:
+        return dx.reshape(x.shape), torch.zeros_like(scale)
+    dscale = torch.empty_like(scale)
+    part = torch.empty((max_parts, d), dtype=torch.float32, device=x.device)
+    _build.check(lib, "rmsnorm_split_bwd", bwd_fn(
+        x2.data_ptr(), g2.data_ptr(), scale.data_ptr(), ss.data_ptr(),
+        dot.data_ptr(), dx.data_ptr(), dscale.data_ptr(), part.data_ptr(),
+        max_parts, rows, d, x2.stride(0), g2.stride(0), d_total, eps,
+        _DTYPES[x.dtype], _DTYPES[scale.dtype], stream))
+    rmsnorm.bwd_launches += 1
+    return dx.reshape(x.shape), dscale
+
+
+class _RMSNormSplit(torch.autograd.Function):
+    """The split row's kernel pair, differentiated by its backward pair;
+    `sum_rows` runs again in the backward, so it must carry its group
+    with it rather than find it in ambient state."""
+
+    @staticmethod
+    def forward(ctx, x, scale, d_total, sum_rows, eps):
+        out, ss = _split_fwd(x, scale, d_total, sum_rows, eps)
+        ctx.save_for_backward(x, scale, ss)
+        ctx.d_total, ctx.sum_rows, ctx.eps = d_total, sum_rows, eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, ss = ctx.saved_tensors
+        dx, dscale = rmsnorm_split_bwd(x, g.contiguous(), scale, ss,
+                                       ctx.d_total, ctx.sum_rows, ctx.eps)
+        return dx, dscale, None, None, None
+
+
+def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, d_total: int,
+                  sum_rows: Callable[[torch.Tensor], torch.Tensor],
+                  eps: float = 1e-6) -> torch.Tensor:
+    """The norm of rows `d_total` wide split by columns over ranks.  x:
+    (..., d), this rank's d columns of each row; scale: (d,), its slice
+    of the weight; `sum_rows` sums a (rows,) fp32 vector over the ranks
+    that hold the rest of each row (a psum over 'model', bound to its
+    group: the backward calls it again).  Same dtype out as in.
+
+    A CPU tensor takes `rmsnorm_split_ref` (autograd runs through
+    `sum_rows`, whose adjoint, a psum's, is the same sum).  A CUDA
+    tensor launches the sum-of-squares kernel, sums, then launches the
+    scaling kernel (counted together as one `rmsnorm.launches`, as the
+    whole-row norm they stand for, and in `rmsnorm.split_launches`), or
+    raises; its gradient launches the backward pair (`_RMSNormSplit`).
+    """
+    reject_dtensor("rmsnorm_split", x, scale)
+    if x.device.type == "cpu":
+        return rmsnorm_split_ref(x, scale, d_total, sum_rows, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_split: no kernel for {x.device}")
+    return _RMSNormSplit.apply(x, scale, d_total, sum_rows, eps)
 
 
 #: forward kernel launches since the last reset (plain-version calls not
 #: counted; under remat a recomputed forward counts again)
 rmsnorm.launches = 0
-#: backward kernel launches (`rmsnorm_bwd`) since the last reset
+#: backward kernel launches since the last reset (`rmsnorm_bwd`, and
+#: `rmsnorm_split_bwd`'s pair counted once)
 rmsnorm.bwd_launches = 0
 #: `rmsnorm_split` calls on the card (each also one of `launches`)
 rmsnorm.split_launches = 0

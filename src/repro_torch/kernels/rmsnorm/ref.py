@@ -40,3 +40,25 @@ def rmsnorm_bwd_ref(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     dx = r * gs - xf * (r * r * r * mean_gsx)
     dscale = (gf * (xf * r)).reshape(-1, x.shape[-1]).sum(0)
     return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+def rmsnorm_split_bwd_ref(x: torch.Tensor, g: torch.Tensor,
+                          scale: torch.Tensor, ss: torch.Tensor, d_total: int,
+                          sum_rows: Callable[[torch.Tensor], torch.Tensor],
+                          eps: float = 1e-6
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gradients of `rmsnorm_split_ref` for the output gradient g, written
+    out: x, g this rank's columns, scale its slice, ss the (rows,) fp32
+    squares summed over the ranks (the forward's), `sum_rows` the same sum
+    over the ranks.  With r = rsqrt(ss / d_total + eps) and gs = g * scale,
+    in fp32, dx = r * gs - x * r^3 / d_total * sum_rows(sum_local gs * x)
+    in x's dtype and dscale = sum over rows of g * x * r in the scale's
+    dtype (this rank's entries)."""
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt(ss.reshape(x.shape[:-1] + (1,)) / d_total + eps)
+    gs = gf * scale.float()
+    dot = sum_rows(torch.sum(gs * xf, dim=-1).reshape(-1))
+    dot = dot.reshape(x.shape[:-1] + (1,))
+    dx = r * gs - xf * (r * r * r * dot / d_total)
+    dscale = (gf * (xf * r)).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)

@@ -18,6 +18,12 @@ The bf16 route loads rows with 16-byte copies, so a view whose base is
 not 16-byte aligned or whose strides are not multiples of 8 elements is
 copied first (the same kernel runs on the copy); the wrapper allocates
 the kernel's fp32 state scratch.
+
+On a CUDA tensor the forward runs inside a `torch.autograd.Function`
+(`_SSD`) whose backward launches the backward kernel (`ssd_bwd` in the
+same source: fp32 arithmetic for both dtypes, its own 64-row chunks);
+`ssd.bwd_launches` counts it.  `ref.ssd_bwd_plain` is that backward
+written out, which the card's kernel is held to.
 """
 
 from __future__ import annotations
@@ -48,6 +54,19 @@ def _bind():
                    + [ctypes.c_int] + [ctypes.c_void_p] * 3)
     lib.ssd_smem_bytes.restype = ctypes.c_longlong
     lib.ssd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    return lib, fn
+
+
+@functools.cache
+def _bind_bwd():
+    lib = _build.load("ssd")
+    fn = lib.ssd_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 13
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+    lib.ssd_bwd_smem_bytes.restype = ctypes.c_longlong
+    lib.ssd_bwd_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib, fn
 
 
@@ -121,6 +140,80 @@ def _launch(x, dt, A, B, C):
     return y
 
 
+#: rows of a chunk of the backward kernel (`bwd::kQ` in ssd.cu)
+BWD_CHUNK = 64
+
+
+def _launch_bwd(x, dt, A, B, C, dy):
+    """(dx, ddt, dA, dB, dC) of the scan at (x, dt, A, B, C) for the
+    output gradient dy, by the backward kernel: dx, dB, dC in x's dtype,
+    ddt and dA float32."""
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    dev = x.device
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
+        raise ValueError(f"ssd backward: dy {tuple(dy.shape)} {dy.dtype} "
+                         f"for x {tuple(x.shape)} {x.dtype}")
+    if P % 4 or N % 4 or P == 0 or N == 0:
+        raise ValueError(f"ssd backward kernel takes P and N multiples of "
+                         f"4; got P={P} N={N}")
+    lib, fn = _bind_bwd()
+    smem = lib.ssd_bwd_smem_bytes(N, P)
+    budget = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    if smem > budget:
+        raise ValueError(f"ssd backward kernel: P={P}, N={N} need {smem} "
+                         f"bytes of shared memory per block, over the "
+                         f"card's {budget}")
+    x, B, C, dy = (t if t.stride(-1) == 1 else t.contiguous()
+                   for t in (x, B, C, dy))
+    dt = dt.to(torch.float32)
+    A = A.to(torch.float32).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, L, H, P), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, L, H), **f32)
+    dA = torch.zeros((H,), **f32)
+    dB = torch.empty((b, L, N), dtype=x.dtype, device=dev)
+    dC = torch.empty((b, L, N), dtype=x.dtype, device=dev)
+    if b * L * H == 0:
+        return dx, ddt, dA, dB.zero_(), dC.zero_()
+    nc = -(-L // BWD_CHUNK)
+    states = torch.empty((b, nc, H, P, N), **f32)
+    dstates = torch.empty((b, nc, H, P, N), **f32)
+    cumlast = torch.empty((b, nc, H), **f32)
+    dA_part = torch.empty((b, nc, H), **f32)
+    dB_part = torch.empty((b, H, L, N), **f32)
+    dC_part = torch.empty((b, H, L, N), **f32)
+    code = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+              C.data_ptr(), dy.data_ptr(), dx.data_ptr(), ddt.data_ptr(),
+              dA.data_ptr(), dB.data_ptr(), dC.data_ptr(), b, L, H, P, N,
+              x.stride(0), x.stride(1), x.stride(2),
+              dt.stride(0), dt.stride(1), dt.stride(2),
+              B.stride(0), B.stride(1), C.stride(0), C.stride(1),
+              dy.stride(0), dy.stride(1), dy.stride(2),
+              _DTYPES[x.dtype], states.data_ptr(), dstates.data_ptr(),
+              cumlast.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
+              dA_part.data_ptr(),
+              torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "ssd_bwd", code)
+    ssd.bwd_launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+class _SSD(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C):
+        ctx.save_for_backward(x, dt, A, B, C)
+        return _launch(x, dt, A, B, C)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, B, C = ctx.saved_tensors
+        dx, ddt, dA, dB, dC = _launch_bwd(x, dt, A, B, C, dy)
+        return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC
+
+
 def ssd(x, dt, A, B, C, *, chunk: int = 128):
     """x: (b, L, H, P); dt: (b, L, H) post-softplus; A: (H,) negative;
     B, C: (b, L, N).  Returns (y (b, L, H, P) in x's dtype, None).
@@ -128,23 +221,15 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     A CPU tensor takes the plain version in chunks of `chunk`, and
     autograd differentiates it, as the other wrappers' CPU routes are.  A
     CUDA tensor launches the kernel (its own chunk of rows; the result
-    does not depend on the chunk apart from rounding) or raises.  The
-    kernel has no backward, so a CUDA input that needs a gradient raises:
-    SSM training on the card waits for the SSD backward (ROADMAP.md, Next,
-    "SSD backward and SSM training on the card").
+    does not depend on the chunk apart from rounding) or raises, and its
+    gradient launches the backward kernel (`_SSD`).
     """
     reject_dtensor("ssd", x, dt, A, B, C)
     if x.device.type == "cpu":
         return ssd_plain(x, dt, A, B, C, chunk), None
     if x.device.type != "cuda":
         raise ValueError(f"ssd: no kernel for {x.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, dt, A, B, C)):
-        raise NotImplementedError(
-            "the ssd kernel has no backward yet, so a Mamba2 model cannot "
-            "train on the card (ROADMAP.md, Next: SSD backward and SSM "
-            "training on the card)")
-    return _launch(x, dt, A, B, C), None
+    return _SSD.apply(x, dt, A, B, C), None
 
 
 #: kernel calls since the last reset (plain-version calls not counted);
@@ -152,3 +237,5 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
 ssd.launches = 0
 #: calls of the tensor-core (bfloat16) kernel alone, since the last reset
 ssd.tc_launches = 0
+#: backward kernel calls (`ssd_bwd`, one C call each) since the last reset
+ssd.bwd_launches = 0

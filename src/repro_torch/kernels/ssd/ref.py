@@ -12,6 +12,9 @@
   (chunk states, state passing, chunk outputs), with each operand
   derived in fp32 split into bf16 hi + lo as its MMAs take it; it is to
   that kernel what `ssd_plain` is to the float32 one.
+- `ssd_bwd_plain`: the gradients of `ssd_plain` written out chunk by
+  chunk in fp32, what the backward kernel computes; it is to that
+  kernel what `ssd_plain` is to the forward.
 
 Shapes as in the reference: x (b, L, H, P); dt (b, L, H), post-softplus;
 A (H,), negative; B, C (b, L, N), one group.  y comes back in x's dtype.
@@ -130,3 +133,92 @@ def ssd_tc_plain(x, dt, A, B, C, chunk: int = 128) -> torch.Tensor:
                  state * torch.exp(cum[:, -1])[..., None, None] + own)
     y = torch.cat(ys, dim=1) if ys else xf.new_zeros((b, 0, H, P))
     return y.to(x.dtype)
+
+
+def ssd_bwd_plain(x, dt, A, B, C, dy, chunk: int = 128):
+    """Gradients of `ssd_plain` for the output gradient dy, written out
+    chunk by chunk in fp32: what the backward kernel computes.  Returns
+    (dx, ddt, dA, dB, dC) in x's, dt's, A's, B's and C's dtypes.
+
+    Per chunk (cum the inclusive cumsum of dt A within it, S the state
+    before it, dS the gradient of the state after it, zero after the
+    last), with G_ij = (C_i.B_j) exp(cum_i - cum_j) and W_ij =
+    exp(cum_i - cum_j) dt_j (dy_i.x_j) for j <= i:
+      u_j  = sum_{i>=j} G_ij dy_i + exp(cum_last - cum_j) dS B_j,
+      dx_j = dt_j u_j,
+      dC_i = sum_{j<=i} W_ij B_j + exp(cum_i) S^T dy_i    (summed over heads),
+      dB_j = sum_{i>=j} W_ij C_i + exp(cum_last - cum_j) dt_j dS^T x_j,
+      dcum_i = sum_{j<i} M_ij - sum_{k>i} M_ki + exp(cum_i) dy_i.(S C_i)
+               - K_i, plus <dS, S_after> on the last row, with
+               M_ij = W_ij (C_i.B_j) and K_j = exp(cum_last - cum_j) dt_j
+               x_j.(dS B_j) (the diagonal, whose two terms cancel, left
+               out of both sums, so that it cancels exactly),
+      ddt_t = A R_t + x_t.u_t and dA = sum dt_t R_t, R_t = sum_{i>=t} dcum_i;
+    and the state's gradient carried to the chunk before,
+    dS <- exp(cum_last) dS + sum_i exp(cum_i) dy_i C_i^T.
+    """
+    if chunk < 1:
+        raise ValueError(f"ssd_bwd_plain: chunk must be positive, got {chunk}")
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    xf, dtf, Bf, Cf, dyf = (t.float() for t in (x, dt, B, C, dy))
+    Af = A.float()
+    starts = list(range(0, L, chunk))
+    # the forward's states: before[k] and after[k] of chunk k
+    state = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    before, after = [], []
+    for t0 in starts:
+        t1 = min(t0 + chunk, L)
+        xc, dtc, Bc = xf[:, t0:t1], dtf[:, t0:t1], Bf[:, t0:t1]
+        cum = torch.cumsum(dtc * Af, dim=1)
+        before.append(state)
+        w = torch.exp(cum[:, -1:] - cum) * dtc                # (b, q, H)
+        state = (state * torch.exp(cum[:, -1])[..., None, None]
+                 + torch.einsum("bjn,bjhp->bhpn", Bc, xc * w[..., None]))
+        after.append(state)
+    dS = torch.zeros_like(state)
+    dA = torch.zeros((H,), dtype=torch.float32, device=x.device)
+    dxs, ddts, dBs, dCs = [], [], [], []
+    for k in reversed(range(len(starts))):
+        t0 = starts[k]
+        t1 = min(t0 + chunk, L)
+        q = t1 - t0
+        xc, dtc, dyc = xf[:, t0:t1], dtf[:, t0:t1], dyf[:, t0:t1]
+        Bc, Cc, S = Bf[:, t0:t1], Cf[:, t0:t1], before[k]
+        cum = torch.cumsum(dtc * Af, dim=1)                   # (b, q, H)
+        seg = cum[:, :, None, :] - cum[:, None, :, :]         # (b, i, j, H)
+        tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+        decay = torch.exp(seg.masked_fill(~tri[None, :, :, None],
+                                          float("-inf")))
+        cb = torch.einsum("bin,bjn->bij", Cc, Bc)
+        W = torch.einsum("bihp,bjhp->bijh", dyc, xc) * decay \
+            * dtc[:, None, :, :]
+        wend = torch.exp(cum[:, -1:] - cum)                   # (b, q, H)
+        ecum = torch.exp(cum)
+        dsb = torch.einsum("bjn,bhpn->bjhp", Bc, dS)
+        u = (torch.einsum("bijh,bihp->bjhp", cb[..., None] * decay, dyc)
+             + wend[..., None] * dsb)
+        off = ecum[..., None] * torch.einsum("bihp,bhpn->bihn", dyc, S)
+        dCs.append(torch.einsum("bijh,bjn->bin", W, Bc) + off.sum(2))
+        dBs.append(torch.einsum("bijh,bin->bjn", W, Cc)
+                   + torch.einsum("bjh,bjhp,bhpn->bjn", wend * dtc, xc, dS))
+        dxs.append(dtc[..., None] * u)
+        xu = (xc * u).sum(-1)                                 # (b, q, H)
+        M = W * (cb * tri.tril(-1))[..., None]   # strictly below the diagonal
+        K = wend * dtc * (xc * dsb).sum(-1)
+        dcum = (M.sum(2) - M.sum(1) + torch.einsum("bin,bihn->bih", Cc, off)
+                - K)
+        dcum[:, -1] += (dS * after[k]).sum((-1, -2))
+        R = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        ddts.append(Af * R + xu)
+        dA = dA + (dtc * R).sum((0, 1))
+        dS = (dS * torch.exp(cum[:, -1])[..., None, None]
+              + torch.einsum("bih,bihp,bin->bhpn", ecum, dyc, Cc))
+
+    def cat(parts, like, shape):
+        out = torch.cat(parts[::-1], dim=1) if parts else \
+            torch.zeros(shape, dtype=torch.float32, device=x.device)
+        return out.to(like.dtype)
+
+    return (cat(dxs, x, (b, 0, H, P)), cat(ddts, dt, (b, 0, H)),
+            dA.to(A.dtype), cat(dBs, B, (b, 0, N)), cat(dCs, C, (b, 0, N)))

@@ -20,7 +20,9 @@ sequence, or replicated where the sequence does not divide either
 (`runtime/train.py: mesh_apply`), as the reference's compiled step
 does.  `--reduced` is the default (the reference keeps it so); `--full`
 trains the published widths, with remat on.  AdamW unless the model has
-more than 100e9 parameters (then Adafactor).
+more than 100e9 parameters (then Adafactor).  Every arch trains on the
+card, the SSM models' scans differentiated by the SSD backward kernel
+(`--arch mamba2-130m --full --device cuda`).
 
 `train_loop` is the loop itself.  A step that raises a RuntimeError (a
 CUDA fault, an out-of-memory error) restores the latest checkpoint and

@@ -7,7 +7,8 @@ recurrence carries the (H, P, N) state.  Single B/C group.
 
 `impl` picks the scan: "auto" and "kernel" go through the SSD kernel
 wrapper (`kernels/ssd/ops.py`: the CUDA kernel on a CUDA tensor, its
-plain version on a CPU tensor), where the reference's "pallas" goes;
+gradient the SSD backward kernel, its plain version on a CPU tensor),
+where the reference's "pallas" goes;
 "naive" and "chunked" run `ssd_scan`, with the reference's padding rule
 and bf16 rounding points.  The gated norm goes through
 `layers.rmsnorm(..., impl)`, so on the card it is the RMSNorm kernel.
@@ -25,7 +26,8 @@ the state dimension, summing the scores over 'model': the port keeps B
 and C whole, so that each head's scan stays one SSD kernel call).  The
 gated norm runs on the rank's columns with the rows' squares summed
 over 'model' (`kernels/rmsnorm/ops.py: rmsnorm_split` on the kernel
-routes, as GSPMD all-reduces them), and `out_proj` multiplies the
+routes, as GSPMD all-reduces them; its backward sums the rows' dots the
+same way), and `out_proj` multiplies the
 normed columns by the rank's rows, summed by `psum_model`.  Where the
 heads do not split (mamba2-130m's 24 heads on 16 ranks: its 1536 rows
 split 96 a rank, heads of 64) the fused output is gathered whole (or,
@@ -46,6 +48,7 @@ the split over 'model' above is independent of it.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -154,13 +157,18 @@ def _gated_norm(params: Params, v: torch.Tensor, cfg: ModelConfig,
     columns of each row (its heads): the norm of the split row, its sum
     of squares added over 'model' (`rmsnorm_split` on the kernel routes,
     its plain version on the plain ones), as the reference's program
-    all-reduces it; else the whole-row norm (`layers.rmsnorm`)."""
+    all-reduces it; else the whole-row norm (`layers.rmsnorm`).  The sum
+    is bound to this call's mesh: the kernels' backward sums again, in
+    the backward pass, where no mesh is installed."""
     if cols is None:
         return rmsnorm(params["gate_norm"], v, cfg.norm_eps, impl)
-    from ..runtime.parallel import psum_model
+    from ..launch.mesh import get_abstract_mesh
+    from ..runtime.parallel import psum
     norm = rmsnorm_split if impl in KERNEL_IMPLS else rmsnorm_split_ref
+    sum_rows = functools.partial(psum, mesh=get_abstract_mesh(),
+                                 axes=("model",))
     return norm(v, params["gate_norm"]["scale"][cols], cfg.d_inner,
-                psum_model, cfg.norm_eps)
+                sum_rows, cfg.norm_eps)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:

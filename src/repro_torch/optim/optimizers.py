@@ -73,12 +73,22 @@ def cosine_lr(cfg: OptimizerConfig, step) -> torch.Tensor:
     return cfg.lr * warm * 0.5 * (1.0 + torch.cos(math.pi * prog))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled to global norm <= max_norm, the global norm before)."""
+def _clip_scale(grads, max_norm: float):
+    """(the factor that scales grads to global norm <= max_norm, the
+    global norm)."""
     gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                         for g in leaves(grads)))
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0)
-    return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-12), max=1.0), gn
+
+
+def _clipped(g, scale):
+    return (g.float() * scale).to(g.dtype)
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled to global norm <= max_norm, the global norm before)."""
+    scale, gn = _clip_scale(grads, max_norm)
+    return tree_map(lambda g: _clipped(g, scale), grads), gn
 
 
 class Optimizer(NamedTuple):
@@ -99,6 +109,15 @@ def _pick(params, out, i):
 # AdamW
 # --------------------------------------------------------------------------
 
+#: entries of a leaf (a DTensor's: of its local shard) that AdamW updates
+#: at a time.  A larger leaf is walked in slices, each computed as the
+#: whole leaf would be, so that the update's fp32 temporaries are a few of
+#: 256 MB and not a few copies of the leaf: zamba2-2.7b's mixer
+#: projections are one stack of 1.44e9 entries, 5.8 GB a copy in fp32,
+#: beside two 27 GB states on one card.
+ADAMW_SLICE = 1 << 26
+
+
 def adamw(cfg: OptimizerConfig) -> Optimizer:
     def init(params):
         def zeros(p):
@@ -107,21 +126,55 @@ def adamw(cfg: OptimizerConfig) -> Optimizer:
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        grads, _ = clip_by_global_norm(grads, cfg.clip_norm)
+        from torch.distributed.tensor import DTensor
+        scale, _ = _clip_scale(grads, cfg.clip_norm)
+        # every rank reads the clip's factor (a replicated scalar) once
+        local_scale = (scale.full_tensor() if isinstance(scale, DTensor)
+                       else scale)
         step = _step_tensor(step, _first_device(params))
         lr = cosine_lr(cfg, step)
         t = step.float() + 1.0
         bc1 = 1.0 - torch.pow(cfg.b1, t)
         bc2 = 1.0 - torch.pow(cfg.b2, t)
 
-        def upd(p, g, mu, nu):
-            g = g.float()
+        def leaf(p, g, mu, nu, decay, scale):
+            g = _clipped(g, scale).float()
             mu = cfg.b1 * mu + (1 - cfg.b1) * g
             nu = cfg.b2 * nu + (1 - cfg.b2) * g * g
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-            if p.ndim >= 2:
+            if decay:
                 u = u + cfg.weight_decay * p.float()
             return (p.float() - lr * u).to(p.dtype), mu, nu
+
+        def sliced(p, g, mu, nu, decay, scale):
+            """`leaf` a slice of ADAMW_SLICE entries at a time."""
+            if p.numel() <= ADAMW_SLICE:
+                return leaf(p, g, mu, nu, decay, scale)
+            out = tuple(torch.empty_like(
+                x, memory_format=torch.contiguous_format) for x in (p, mu, nu))
+            flat = [x.reshape(-1) for x in (p, g, mu, nu)]
+            for i in range(0, p.numel(), ADAMW_SLICE):
+                part = leaf(*(x[i:i + ADAMW_SLICE] for x in flat), decay,
+                            scale)
+                for o, v in zip(out, part):
+                    o.view(-1)[i:i + ADAMW_SLICE] = v
+            return out
+
+        def upd(p, g, mu, nu):
+            decay = p.ndim >= 2
+            if not isinstance(p, DTensor):
+                return sliced(p, g, mu, nu, decay, scale)
+            if any(not isinstance(x, DTensor) or x.placements != p.placements
+                    or x.device_mesh != p.device_mesh for x in (g, mu, nu)):
+                return leaf(p, g, mu, nu, decay, scale)
+            # the four share their shards: the elementwise update on the
+            # local shards, as the DTensor operations would run it
+            local = sliced(*(x.to_local() for x in (p, g, mu, nu)), decay,
+                           local_scale)
+            return tuple(DTensor.from_local(
+                v, p.device_mesh, p.placements, run_check=False,
+                shape=x.shape, stride=x.stride())
+                for v, x in zip(local, (p, mu, nu)))
 
         out = tree_map(upd, params, grads, state["mu"], state["nu"])
         return (_pick(params, out, 0),

@@ -7,8 +7,9 @@ jits one XLA program, this runs eagerly: autograd gives the gradients
 takes the place of the microbatch `lax.scan`, and remat is the model's
 `torch.utils.checkpoint` over each unit.  On the card the model's norms
 and attention go through the hand-written kernels (`attention_impl`
-"auto"); the RMSNorm gradient is the backward kernel, the attention
-gradient the VJP of the plain attention, as in the reference.
+"auto"); the RMSNorm gradient is the backward kernel, the SSD scan's
+the SSD backward kernel, the attention gradient the VJP of the plain
+attention, as in the reference.
 
 On a mesh (`make_train_step(..., mesh=...)`) the step computes what the
 reference's sharded `jit` computes, with the state's leaves DTensors

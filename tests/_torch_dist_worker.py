@@ -270,6 +270,7 @@ def seeded_params(cfg, seed, device):
 def case_tp(workdir, device):
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.kernels.ssd.ops import ssd
     from repro_torch.launch.serve import serve_loop
     from repro_torch.optim.optimizers import OptimizerConfig, build_optimizer
     from repro_torch.runtime.parallel import all_gather
@@ -319,14 +320,17 @@ def case_tp(workdir, device):
                 if device == "cuda":
                     torch.cuda.reset_peak_memory_stats()
                     flash_attention.launches = rmsnorm.launches = 0
-                    rmsnorm.bwd_launches = 0
+                    rmsnorm.bwd_launches = rmsnorm.split_launches = 0
+                    ssd.launches = ssd.bwd_launches = 0
                 state, m = step_fn(state, dev(batch))
                 if device == "cuda":
                     peak = max(peak, torch.cuda.max_memory_allocated())
                     launches.append({
                         "flash_attention": flash_attention.launches,
                         "rmsnorm": rmsnorm.launches,
-                        "rmsnorm.bwd": rmsnorm.bwd_launches})
+                        "rmsnorm.bwd": rmsnorm.bwd_launches,
+                        "rmsnorm.split": rmsnorm.split_launches,
+                        "ssd": ssd.launches, "ssd_bwd": ssd.bwd_launches})
                 losses.append(float(m["loss"]))
                 if every:
                     whole = full(state)
@@ -363,7 +367,6 @@ def case_tp(workdir, device):
         out["decode"][name] = {"tokens": torch.cat(toks, 1),
                                "logits": torch.cat(logits, 1)}
     for name, run in spec.get("prefill", {}).items():
-        from repro_torch.kernels.ssd.ops import ssd
         cfg, tokens = run["cfg"], run["tokens"].to(device)
         with use_mesh(mesh), parallel_context(ParallelContext()):
             prefill, _, _ = make_serve_fns(cfg, ServeConfig(

@@ -20,6 +20,12 @@ only by the order of fp32 sums and exp approximations, so they land at
 most one output ulp apart (at most 2^-7 relative), and 2^-9 covers
 outputs near zero.
 
+The SSD backward kernel (fp32 arithmetic for both dtypes) against
+autograd through `ssd_plain`: float32 1e-4 of each gradient's largest
+(sums in another order; dA, ddt and the decay's cumsum gradient sum
+whole chunks), bfloat16 2e-2 plus a relative 2^-7 (both round an fp32
+result once).
+
 bfloat16 flash attention runs the tensor-core kernel, which rounds P to
 bf16 before P.V as `flash_plain` does; it is also held to `flash_plain`
 at 2^-8 plus a relative 2^-7: the two round an fp32 result to bf16 once
@@ -35,10 +41,15 @@ import torch
 from repro_torch.kernels import KERNELS, _build
 from repro_torch.kernels.flash_attention.ops import flash_attention, tc_block_k
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_plain
-from repro_torch.kernels.rmsnorm.ops import rmsnorm, rmsnorm_bwd
-from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
-from repro_torch.kernels.ssd.ops import TC_CHUNK, ssd
-from repro_torch.kernels.ssd.ref import ssd_plain, ssd_ref, ssd_tc_plain
+from repro_torch.kernels.rmsnorm.ops import (rmsnorm, rmsnorm_bwd,
+                                             rmsnorm_split,
+                                             rmsnorm_split_bwd)
+from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_ref, rmsnorm_ref,
+                                             rmsnorm_split_bwd_ref,
+                                             rmsnorm_split_ref)
+from repro_torch.kernels.ssd.ops import TC_CHUNK, _launch_bwd, ssd
+from repro_torch.kernels.ssd.ref import (ssd_bwd_plain, ssd_plain, ssd_ref,
+                                         ssd_tc_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -402,8 +413,12 @@ def test_ssd_kernel_matches_sequential_ref_and_strided_views(cuda):
 
 def test_ssd_kernel_rejects_what_it_cannot_take(cuda):
     x, dt, A, B, C = _ssd_inputs(1, 32, 2, 16, 16, torch.float32, cuda)
-    with pytest.raises(NotImplementedError, match="SSD backward"):
-        ssd(x.clone().requires_grad_(), dt, A, B, C)
+    xg = x.clone().requires_grad_()        # a gradient: the backward kernel
+    before = ssd.bwd_launches
+    ssd(xg, dt, A, B, C)[0].sum().backward()
+    torch.cuda.synchronize()
+    assert ssd.bwd_launches == before + 1
+    assert xg.grad.shape == x.shape and bool(torch.isfinite(xg.grad).all())
     with pytest.raises(ValueError, match="one device"):
         ssd(x, dt, A, B.cpu(), C)
     with pytest.raises(TypeError):
@@ -512,6 +527,216 @@ def test_train_step_kernels_match_plain_path(cuda, arch):
         attn = sum(b.kind == "attn" for b in cfg.unit) * cfg.n_units
         assert counts == ((2 * blocks + 1, blocks + 1, 2 * attn)
                           if impl == "auto" else (0, 0, 0)), counts
+    ((la, _), ga), ((ln, _), gn) = out["auto"], out["naive"]
+    assert float(la) == pytest.approx(float(ln), rel=1e-5)
+    for (path, a), b in zip(named_leaves(ga), leaves(gn)):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale,
+                                   msg=str(path))
+
+
+# ---- SSM training: the SSD backward kernel, the split-row norm's -------
+
+def _ssd_grads_close(got, want, dtype):
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
+        assert g.dtype == w.dtype and bool(torch.isfinite(g).all()), name
+        g, w = g.float(), w.float()
+        if dtype == "float32":
+            err = float((g - w).abs().max())
+            assert err <= 1e-4 * float(w.abs().max()), (name, err)
+        else:
+            torch.testing.assert_close(g, w, atol=2e-2, rtol=2.0 ** -7,
+                                       msg=name)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("b,L,H,P,N,steep", [
+    (1, 64, 4, 16, 16, False), (1, 100, 4, 16, 32, False),
+    (2, 256, 8, 32, 32, False), (1, 1000, 4, 64, 128, False),
+    (1, 64, 2, 16, 16, True),           # steep decay: A = -50, dt ~ 5
+    (8, 1024, 24, 64, 128, False),      # mamba2-130m's train shape
+    (2, 1024, 80, 64, 64, False)])      # zamba2-2.7b's
+def test_ssd_backward_kernel_matches_plain(cuda, dtype, b, L, H, P, N,
+                                           steep):
+    x, dt, A, B, C = _ssd_inputs(b, L, H, P, N, DTYPES[dtype], cuda, steep)
+    dy = _t(np.random.default_rng(7).standard_normal((b, L, H, P)),
+            DTYPES[dtype], cuda)
+    before = ssd.bwd_launches
+    got = _launch_bwd(x, dt, A, B, C, dy)
+    torch.cuda.synchronize()
+    assert ssd.bwd_launches == before + 1
+    ins = [t.clone().requires_grad_() for t in (x, dt, A, B, C)]
+    want = torch.autograd.grad(ssd_plain(*ins, 64), ins, dy)
+    _ssd_grads_close(got, want, dtype)
+    _ssd_grads_close(got, ssd_bwd_plain(x, dt, A, B, C, dy, 64), dtype)
+    again = _launch_bwd(x, dt, A, B, C, dy)      # no atomics: the same bits
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+
+
+def test_ssd_autograd_launches_the_backward_kernel(cuda):
+    """bf16 split views of one conv output, as the model hands them in:
+    the wrapper's forward once, its backward kernel once, and the
+    gradient of the conv output equal to autograd through `ssd_plain` on
+    the same views."""
+    rng = np.random.default_rng(8)
+    b, L, H, P, N = 2, 300, 4, 64, 64
+    xBC = _t(0.5 * rng.standard_normal((b, L, H * P + 2 * N)),
+             torch.bfloat16, cuda)
+    dt = _t(np.logaddexp(rng.standard_normal((b, L, H)), 0.0),
+            torch.float32, cuda)
+    A = _t(-np.exp(0.3 * rng.standard_normal(H)), torch.float32, cuda)
+    dy = _t(rng.standard_normal((b, L, H, P)), torch.bfloat16, cuda)
+    grads = []
+    for run in ("kernel", "plain"):
+        leaves = [xBC.clone().requires_grad_(), dt.clone().requires_grad_(),
+                  A.clone().requires_grad_()]
+        x, B, C = torch.split(leaves[0], [H * P, N, N], dim=-1)
+        x = x.reshape(b, L, H, P)
+        fwd0, bwd0 = ssd.launches, ssd.bwd_launches
+        y = (ssd(x, leaves[1], leaves[2], B, C)[0] if run == "kernel"
+             else ssd_plain(x, leaves[1], leaves[2], B, C, 64))
+        y.backward(dy)
+        torch.cuda.synchronize()
+        assert (ssd.launches - fwd0, ssd.bwd_launches - bwd0) == (
+            (1, 1) if run == "kernel" else (0, 0))
+        grads.append([t.grad for t in leaves])
+    for g, w in zip(*grads):
+        assert g.dtype == w.dtype and bool(torch.isfinite(g).all())
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-2,
+                                   rtol=2.0 ** -7)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rows,whole,ranks", [(2048, 5120, 16), (33, 300, 3),
+                                              (2, 5120, 4), (257, 1536, 4)])
+def test_rmsnorm_split_backward_matches_plain(cuda, dtype, rows, whole,
+                                              ranks):
+    """Each simulated rank's backward pair, its `sum_rows` adding the
+    other ranks' dots, against autograd through every rank's
+    `rmsnorm_split_ref` on float32 copies (one loss over all ranks'
+    outputs) and against `rmsnorm_split_bwd_ref`; dscale to the whole
+    backward's bound (`_dscale_bound`)."""
+    rng = np.random.default_rng(13)
+    xw = _t(rng.standard_normal((rows, whole)), DTYPES[dtype], cuda)
+    gw = _t(rng.standard_normal((rows, whole)), DTYPES[dtype], cuda)
+    sw = _t(1.0 + 0.3 * rng.standard_normal(whole), DTYPES[dtype], cuda)
+    d = whole // ranks
+    cols = [slice(r * d, (r + 1) * d) for r in range(ranks)]
+    xs = [xw[:, c].float().requires_grad_() for c in cols]
+    ss = [sw[c].float().requires_grad_() for c in cols]
+    loss = sum((rmsnorm_split_ref(xs[r], ss[r], whole, lambda v, r=r: v + sum(
+        (xs[k] * xs[k]).sum(-1) for k in range(ranks) if k != r))
+        * gw[:, c].float()).sum() for r, c in enumerate(cols))
+    auto = torch.autograd.grad(loss, xs + ss)
+    sq = (xw.float() ** 2).sum(-1)
+    dots = [(gw[:, c].float() * sw[c].float() * xw[:, c].float()).sum(-1)
+            for c in cols]
+    for r, c in enumerate(cols):
+        def sum_dots(v, r=r):
+            return v + sum(dots[k] for k in range(ranks) if k != r)
+        before = rmsnorm.bwd_launches
+        dx, ds = rmsnorm_split_bwd(xw[:, c], gw[:, c].contiguous(),
+                                   sw[c].contiguous(), sq, whole, sum_dots)
+        torch.cuda.synchronize()
+        assert rmsnorm.bwd_launches == before + 1
+        assert dx.dtype == xw.dtype and ds.dtype == sw.dtype
+        rdx, rds = rmsnorm_split_bwd_ref(xw[:, c], gw[:, c], sw[c], sq,
+                                         whole, sum_dots)
+        for want in (auto[r], rdx):
+            torch.testing.assert_close(dx.float(), want.float(),
+                                       atol=TOL[dtype], rtol=RTOL[dtype])
+        atol = 1e-5 * (gw[:, c].float() * xw[:, c].float() * torch.rsqrt(
+            sq / whole + 1e-6)[:, None]).abs().sum(0)
+        rtol = RTOL[dtype]
+        for want in (auto[ranks + r], rds):
+            err = (ds.float() - want.float()).abs()
+            assert bool((err <= atol + rtol * want.float().abs()).all())
+
+
+def test_rmsnorm_split_autograd_launches_the_backward_pair(cuda):
+    """`rmsnorm_split` under autograd: the forward pair once, the
+    backward pair once, `sum_rows` called again in the backward; one
+    rank's columns, the rest of the rows' sums added by `sum_rows`."""
+    rng = np.random.default_rng(14)
+    xw = _t(rng.standard_normal((3, 37, 256)), torch.bfloat16, cuda)
+    gw = _t(rng.standard_normal((3, 37, 64)), torch.bfloat16, cuda)
+    s = _t(1.0 + 0.3 * rng.standard_normal(64), torch.bfloat16, cuda)
+    other_sq = (xw[..., 64:].float() ** 2).sum(-1).reshape(-1)
+    calls = []
+
+    def sum_rows(v):
+        calls.append(v.shape)
+        return v + (other_sq if len(calls) == 1 else other_dot)
+
+    xa, sa = xw[..., :64].clone().requires_grad_(), s.clone().requires_grad_()
+    other_dot = torch.zeros_like(other_sq)       # the other ranks' g is 0
+    before = (rmsnorm.launches, rmsnorm.split_launches, rmsnorm.bwd_launches)
+    rmsnorm_split(xa, sa, 256, sum_rows).backward(gw)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, rmsnorm.split_launches,
+            rmsnorm.bwd_launches) == tuple(n + 1 for n in before)
+    assert calls == [(3 * 37,), (3 * 37,)]
+    sq = (xw.float() ** 2).sum(-1).reshape(-1)
+    rdx, rds = rmsnorm_split_bwd_ref(xw[..., :64], gw, s, sq, 256,
+                                     lambda v: v)
+    torch.testing.assert_close(xa.grad.float(), rdx.float(),
+                               atol=TOL["bfloat16"], rtol=RTOL["bfloat16"])
+    torch.testing.assert_close(sa.grad.float(), rds.float(), atol=2e-2,
+                               rtol=RTOL["bfloat16"])
+
+
+def ssm_train_launches(cfg):
+    """Launches of one train step with remat of an SSM arch: every
+    Mamba2 block's pre-norm and gated norm, and each shared block's two
+    norms, in the forward and again in the recompute, the final norm
+    once; one norm backward per norm; the SSD forward twice and its
+    backward once a mixer; the shared blocks' attention twice."""
+    mixers = cfg.n_layers
+    shared = cfg.n_layers // cfg.shared_attn_every if \
+        cfg.shared_attn_every else 0
+    norms = 2 * mixers + 2 * shared
+    return {"rmsnorm": 2 * norms + 1, "rmsnorm.bwd": norms + 1,
+            "flash_attention": 2 * shared, "ssd": 2 * mixers,
+            "ssd_bwd": mixers}
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_ssm_train_step_kernels_match_plain_path(cuda, arch):
+    """One reduced train step on the card, float32 weights, remat on:
+    impl "auto" (the SSD kernel and its backward, the RMSNorm kernels
+    and, in zamba2's shared blocks, flash attention) against impl
+    "naive" (`ssd_scan`, plain attention and norms): loss 1e-5 relative,
+    gradients 1e-4 of each leaf's largest, as the dense archs' test; the
+    launch counts of `ssm_train_launches`."""
+    from repro_torch.configs import ARCHS, reduced
+    from repro_torch.models import build_model
+    from repro_torch.runtime.train import (TrainConfig, make_loss_fn,
+                                           value_and_grad)
+    from repro_torch.tree import leaves, named_leaves, tree_map
+    cfg = reduced(ARCHS[arch])
+    params = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    params = tree_map(lambda t: t.float().to(cuda), params)
+    toks = torch.randint(0, cfg.vocab_size, (2, 101),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    wrappers = {"rmsnorm": rmsnorm, "flash_attention": flash_attention,
+                "ssd": ssd}
+    out = {}
+    for impl in ("auto", "naive"):
+        for w in wrappers.values():
+            w.launches = 0
+        rmsnorm.bwd_launches = ssd.bwd_launches = 0
+        loss_fn = make_loss_fn(cfg, TrainConfig(attention_impl=impl,
+                                                remat=True), cuda)
+        out[impl] = value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        counts.update({"rmsnorm.bwd": rmsnorm.bwd_launches,
+                       "ssd_bwd": ssd.bwd_launches})
+        want = ssm_train_launches(cfg) if impl == "auto" else \
+            dict.fromkeys(counts, 0)
+        assert counts == want, (impl, counts)
     ((la, _), ga), ((ln, _), gn) = out["auto"], out["naive"]
     assert float(la) == pytest.approx(float(ln), rel=1e-5)
     for (path, a), b in zip(named_leaves(ga), leaves(gn)):
@@ -893,9 +1118,12 @@ def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
     of the state) and reduced smollm (each MLP unit broadcast from the
     'model' rank that holds it, the rules reading its stack as an
     expert stack) on a (2, 2) mesh of four cards, one NCCL rank each:
-    two float32 AdamW steps (remat on; TF32 off; zamba2 and smollm on
-    the plain routes, as the SSD kernel has no backward) equal the steps
-    on one card: the two chained steps' losses within 1e-5 relative and
+    two float32 AdamW steps (remat on; TF32 off; smollm on the plain
+    routes, mixtral and zamba2 on the kernel routes: zamba2's mixers on
+    4 of the 8 heads a rank, through the SSD backward kernel and the
+    split-row RMSNorm's backward pair, each rank launching `ssd_bwd` once
+    a mixer a step and the split pair's backward once a mixer, its
+    forward twice under remat) equal the steps on one card: the two chained steps' losses within 1e-5 relative and
     params within two steps; and each step's optimizer state (rank 0's,
     gathered whole) within 1e-3 of each leaf's largest of one card's
     step from the same state (step 1 from the seed's, step 2 from the
@@ -949,7 +1177,7 @@ def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
         train[name] = {"cfg": cfg, "opt": opt, "batches": batches,
                        "params": 0, "capacity": 8.0 if moe else 1.25,
                        "aux": 0.0 if moe else 0.01, "remat": True,
-                       "impl": "auto" if moe else "naive",
+                       "impl": "naive" if name == "smollm-360m" else "auto",
                        "every_step": True}
         decode[name] = {"cfg": cfg, "params": 1, "max_len": 16,
                         "capacity": 8.0, "feed": torch.from_numpy(
@@ -1006,6 +1234,12 @@ def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
         for rank in got:
             np.testing.assert_allclose(rank["train"][name]["losses"], losses,
                                        rtol=1e-5)
+            if name == "zamba2-2.7b":
+                n = cfg.n_layers
+                for per_step in rank["train"][name]["launches"]:
+                    assert (per_step["ssd"], per_step["ssd_bwd"],
+                            per_step["rmsnorm.split"]) == (2 * n, n, 2 * n), \
+                        per_step
         for leaf, w in chained[-1].items():
             if leaf.startswith("params/"):
                 assert float((mesh_states[-1][leaf] - w).abs().max()) \

@@ -153,6 +153,49 @@ def test_adafactor_state_is_factored():
     assert set(st_["v"]["b"]) == {"v"}        # small: unfactored
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_walks_large_leaves_in_slices_bit_for_bit(monkeypatch, dtype):
+    """A leaf over `ADAMW_SLICE` entries is updated a slice at a time
+    (the update's fp32 temporaries bounded on the card), a DTensor leaf
+    on its local shard; every slice is computed as the whole leaf is, so
+    three steps, clipping active, give the same bits as the whole-leaf
+    update, in float32 and for bf16 params and gradients, as plain
+    tensors and as DTensors on a 1-rank mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    from _torch_dist import local_group
+    from repro_torch.optim import optimizers as topt
+    params = tree_map(lambda t: t.to(dtype), _to_torch(_numpy_tree(3)))
+    grads = [tree_map(lambda t: (5.0 * t).to(dtype),
+                      _to_torch(_numpy_tree(11 + i))) for i in range(3)]
+    cfg = OptimizerConfig(lr=1e-2, warmup_steps=2, total_steps=10)
+
+    def run(place):
+        opt = build_optimizer(cfg)
+        p = place(params)
+        state = opt.init(p)
+        for i, g in enumerate(grads):
+            p, state = opt.update(place(g), state, p, i)
+        return [t.full_tensor() if isinstance(t, DTensor) else t
+                for t in leaves({"params": p, "opt": state})]
+
+    runs = []
+    with local_group():
+        mesh = init_device_mesh("cpu", (1,))
+        for slice_ in (topt.ADAMW_SLICE, 999):   # the largest leaf: 96,000
+            monkeypatch.setattr(topt, "ADAMW_SLICE", slice_)
+            runs.append(run(lambda tree: tree))
+            runs.append(run(lambda tree: tree_map(
+                lambda t: distribute_tensor(t, mesh, [Shard(0)]), tree)))
+    names = [n for n, _ in named_leaves({"params": params,
+                                         "opt": build_optimizer(cfg).init(
+                                             params)})]
+    for other in runs[1:]:
+        for name, a, b in zip(names, runs[0], other):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
 def test_clip_by_global_norm():
     g = {"a": torch.full((10,), 100.0)}
     clipped, norm = clip_by_global_norm(g, 1.0)

@@ -518,17 +518,21 @@ import pytest
 import test_torch_unit_gather as T
 from repro_torch.launch import roofline as RL
 RL._propagation_apart = contextlib.nullcontext
-print("STEP_PEAK", T._memory_cell(int(sys.argv[1]), pytest.MonkeyPatch())[4])
+cell = T._memory_cell(int(sys.argv[1]), pytest.MonkeyPatch())
+print("STEP_PEAK", cell[4], "CLIP_PEAK", cell[5])
 """
 
 
 def _memory_cell(units, monkeypatch):
     """(peak, params shard bytes, saved input bytes, stale, the whole
-    step's peak) of the gradients of a remat step of reduced chatglm3
-    with `units` units on a fake (2, 4) group (`compute_grads` of the
-    mesh's loss: the forward, the recompute and the backward, without
-    the optimizer's update): `stale` counts, at each gather, the
-    earlier gathers' tensors still alive."""
+    step's peak, the clip's peak) of the gradients of a remat step of
+    reduced chatglm3 with `units` units on a fake (2, 4) group
+    (`compute_grads` of the mesh's loss: the forward, the recompute and
+    the backward, without the optimizer's update): `stale` counts, at
+    each gather, the earlier gathers' tensors still alive.  The clip's
+    peak is `clip_by_global_norm` of the placed params, DTensor
+    operations on every leaf (what Adafactor's update starts with)."""
+    from repro_torch.optim import clip_by_global_norm
     from repro_torch.runtime.train import (compute_grads, make_loss_fn,
                                            mesh_loss_fn)
     cfg = dataclasses.replace(reduced(ARCHS["chatglm3-6b"]), n_layers=units,
@@ -558,16 +562,18 @@ def _memory_cell(units, monkeypatch):
                              placed["params"], batch)
             monkeypatch.undo()
             _, whole = RL.count(step, placed, batch)
+            _, clip = RL.count(lambda g: clip_by_global_norm(g, 1.0),
+                               placed["params"])
     x_bytes = 2 * 64 * cfg.d_model * 2      # 2 rows of 64, bf16
     return (ex.peak_bytes, RL.local_bytes(placed["params"]), x_bytes, stale,
-            whole.peak_bytes)
+            whole.peak_bytes, clip.peak_bytes)
 
 
 def test_one_units_weights_at_a_time_and_the_peak_per_unit(runs,
                                                            monkeypatch):
     _, _, ref = runs
     cells = {u: _memory_cell(u, monkeypatch) for u in MEMORY_UNITS}
-    for units, (_, _, _, stale, _) in cells.items():
+    for units, (_, _, _, stale, _, _) in cells.items():
         # the forward's gathers and the recompute's, each unit once
         assert len(stale) == 2 * units
         assert not any(stale), stale
@@ -585,13 +591,21 @@ def test_one_units_weights_at_a_time_and_the_peak_per_unit(runs,
         env=dict(os.environ, PYTHONPATH="src"), capture_output=True,
         text=True, timeout=TIMEOUT_S, cwd=REPO)
     assert "STEP_PEAK" in probe.stdout, probe.stdout + probe.stderr
-    with_prop = int(probe.stdout.split("STEP_PEAK")[1].split()[0])
-    # `count` leaves DTensor's propagation on whole-shape fakes out
-    assert cells[MEMORY_UNITS[0]][4] < with_prop
+    with_prop, clip_with_prop = (
+        int(probe.stdout.split(key)[1].split()[0])
+        for key in ("STEP_PEAK", "CLIP_PEAK"))
+    # `count` leaves DTensor's propagation on whole-shape fakes out: the
+    # clip's DTensor operations count less without it; the step's peak
+    # runs none (AdamW updates each leaf's local shard), so it reads the
+    # same either way
+    assert cells[MEMORY_UNITS[0]][5] < clip_with_prop
+    assert cells[MEMORY_UNITS[0]][4] == with_prop
     print("readings:", json.dumps(dict(
         units=MEMORY_UNITS[0], step_peak_with_propagation_counted=with_prop,
-        port_step_peak_bytes=cells[MEMORY_UNITS[0]][4])))
-    for units, (peak, held, _, _, step_peak) in cells.items():
+        port_step_peak_bytes=cells[MEMORY_UNITS[0]][4],
+        clip_peak_with_propagation_counted=clip_with_prop,
+        port_clip_peak_bytes=cells[MEMORY_UNITS[0]][5])))
+    for units, (peak, held, _, _, step_peak, _) in cells.items():
         print("readings:", json.dumps(dict(
             cell=f"chatglm3 reduced, {units} units, (2, 4), remat",
             port_grads_peak_bytes=peak, port_step_peak_bytes=step_peak,
