@@ -22,11 +22,15 @@ Phases, each of which fails the run (exit code 1, no result line):
    plain version, timed beside `scaled_dot_product_attention` given the
    same mask (the four-card `gpu` test in `tests/test_torch_cuda.py`
    runs the context-parallel train step itself); the SSD backward kernel
-   (`ssd_bwd`) against autograd through `ssd_plain` on the same dy, at
-   mamba2-130m's and zamba2-2.7b's train shapes, the small, ragged and
-   steep cases and the models' strided layout, float32 and bf16, then
-   timed at both train shapes beside that autograd backward and its
-   bound (`ssd_bwd_cost`); and the split-row RMSNorm's backward pair
+   (`ssd_bwd`) against autograd through `ssd_plain` on the same dy, and
+   in bf16 (the tensor-core route, fed the states its forward kept) also
+   against its rounding model `ssd_bwd_tc_plain`, at mamba2-130m's and
+   zamba2-2.7b's train shapes, the small, ragged and steep cases and the
+   models' strided layout, float32 and bf16, then timed at both train
+   shapes, whole and pass by pass (torch.profiler), beside that autograd
+   backward, its bound (`ssd_bwd_cost`) and the forward's passes that a
+   backward recomputing the states would repeat; and the split-row
+   RMSNorm's backward pair
    against autograd through `rmsnorm_split_ref` over simulated ranks;
    2c. the MoE grouped GEMM, a library call (`torch._grouped_mm`), against
    its per-expert loop at mixtral's and kimi's prefill shapes, timed
@@ -139,7 +143,8 @@ Phases, each of which fails the run (exit code 1, no result line):
    differentiated by its backward kernel: full-width mamba2-130m (8 x
    1024) and zamba2-2.7b (2 x 1024), each with the exact launch counts of
    one step (the SSD forward twice and `ssd_bwd` once a mixer, every
-   bf16 forward on a tensor-core kernel, the norms' forward and backward,
+   bf16 forward and SSD backward on a tensor-core kernel, the norms'
+   forward and backward,
    zamba2's shared attention), one step against the plain routes in bf16
    (phase 5b's checks; the kernels' new weights held on the host) and in
    float32 (the loss and every leaf's gradient; mamba2's also against
@@ -182,8 +187,15 @@ SSD_TOL = {"float32": (5e-4, 1e-5), "bfloat16": (2e-2, 2.0 ** -7)}
 # as a share of each gradient's largest (fp32 sums in another order, dA
 # and ddt over whole chunks: 8.3e-6 seen on an H100 80GB HBM3 at
 # mamba2-130m's train shape); bfloat16 absolute plus relative, both round
-# an fp32 result once (tests/test_torch_ssd.py's KERNEL_TOL)
+# an fp32 result once (tests/test_torch_ssd.py's KERNEL_TOL); the bf16
+# tensor-core route is held to its model ssd_bwd_tc_plain at the same
+# bound for dx, dB and dC, as they differ before that rounding only by
+# the order of fp32 sums and exp approximations; its fp32 outputs ddt
+# and dA, which no bf16 rounding blurs, at SSD_BWD_TC_FP32_TOL of each
+# one's largest (3.0e-5 seen on an H100 80GB HBM3 at zamba2-2.7b's
+# strided layout)
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": (2e-2, 2.0 ** -7)}
+SSD_BWD_TC_FP32_TOL = 1e-4
 # Full-width prefill, kernels vs plain attention and norms, both bf16:
 # the plain path rounds scores and probabilities to bf16 where the kernel
 # keeps fp32, a difference of about one bf16 ulp per layer that 32 layers
@@ -317,22 +329,44 @@ def ssd_cost(b, L, H, P, N, chunk=256):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def ssd_bwd_cost(b, L, H, P, N, chunk=64):
+def ssd_bwd_cost(b, L, H, P, N, chunk=128):
     """(flops, bytes, bound ms, what bounds it) of the SSD backward on bf16
-    x, B, C and dy.  Bytes: each input read once (x, dy, B, C bf16; dt, A
-    fp32), each output written once (dx, dB, dC bf16; ddt, dA fp32).
-    Operations by the backward's formulas at the kernel's chunk Q, full
-    Q x Q blocks: per (batch row, chunk) C.B^T; per head the two state
-    products (the state before the chunk, dy's state gradient), dy.x^T,
-    G^T dy, B dS^T, W B, dy S, W^T C and x dS."""
+    x, B, C and dy, the VJP's own work.  Bytes: each input read once (x,
+    dy, B, C bf16; dt, A fp32), each output written once (dx, dB, dC bf16;
+    ddt, dA fp32); the forward's states, which the bf16 kernel reads
+    instead of recomputing them, are this design's and not counted.
+    Operations by the backward's formulas, full Q x Q blocks at the bf16
+    kernel's chunk Q, 128: per (batch row, chunk) C.B^T, and W B and W^T C
+    (W enters them linearly, so summed over the heads first); per head
+    dy.x^T, G^T dy and the four state products (dy's own state gradient,
+    B dS^T, dy S and x dS)."""
     nc = -(-L // chunk)
-    per_head = 2 * (chunk * chunk * (2 * P + 2 * N) + 5 * chunk * P * N)
-    flops = b * nc * (2 * chunk * chunk * N + H * per_head)
+    per_head = 2 * (2 * chunk * chunk * P + 4 * chunk * P * N)
+    flops = b * nc * (3 * 2 * chunk * chunk * N + H * per_head)
     nbytes = (2 * 3 * b * L * H * P + 4 * 2 * b * L * H + 4 * 2 * H
               + 2 * 4 * b * L * N)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
     return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_ms(torch, fn, iters):
+    """Device ms per call of each kernel `fn` launches, by name
+    (torch.profiler over `iters` calls after a warm-up call); {} where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0:
+            name = re.sub(r"^void ", "", ev.key.split("(")[0])
+            out[name] = out.get(name, 0.0) + ev.device_time_total / iters / 1e3
+    return out
 
 
 def rn_cost(rows, d):
@@ -489,8 +523,10 @@ def phase_kernels(torch, dev):
                                                  rmsnorm_ref,
                                                  rmsnorm_split_bwd_ref,
                                                  rmsnorm_split_ref)
-    from repro_torch.kernels.ssd.ops import _launch_bwd, ssd
-    from repro_torch.kernels.ssd.ref import ssd_plain, ssd_ref
+    from repro_torch.kernels.ssd.ops import (TC_CHUNK, _launch, _launch_bwd,
+                                             bwd_heads_per_group, ssd)
+    from repro_torch.kernels.ssd.ref import (ssd_bwd_tc_plain, ssd_plain,
+                                             ssd_ref)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -784,28 +820,49 @@ def phase_kernels(torch, dev):
           f"tests/test_kernels.py)")
 
     # the SSD backward kernel against autograd through ssd_plain (its
-    # chunk of 64), the same dy: mamba2-130m's and zamba2-2.7b's train
-    # shapes, the forward's small, ragged and steep cases, then the
-    # models' split views; every gradient finite, the same bits when
-    # repeated (no atomics)
+    # chunk of 64), the same dy, and bf16 also against its rounding model
+    # `ssd_bwd_tc_plain` (the tensor-core route's chunk of 128, splits and
+    # head groups): mamba2-130m's and zamba2-2.7b's train shapes, the
+    # forward's small, ragged and steep cases, then the models' split
+    # views; every gradient finite, dA exactly 0 at the steep decay (as
+    # autograd's), the same bits when repeated (no atomics), and every
+    # bf16 call on the tensor-core route, which reads the forward's states
     def ssd_grads(x, dt, A, B, C, dy):
         ins = [t.detach().clone().requires_grad_() for t in (x, dt, A, B, C)]
         with torch.enable_grad():
             return torch.autograd.grad(ssd_plain(*ins, 64), ins, dy)
 
-    def bwd_errs(got, want, dname):
-        """(every gradient within SSD_BWD_TOL and finite, its errors)"""
+    def bwd_errs(got, want, dname, model=False):
+        """(every gradient within SSD_BWD_TOL and finite, its errors);
+        against the rounding model, ddt and dA within SSD_BWD_TC_FP32_TOL
+        of their largest"""
         ok, errs = True, []
         for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, want):
             e, big = max_err(g, w), float(w.float().abs().max())
             if dname == "float32":
                 good = e <= SSD_BWD_TOL["float32"] * big
+            elif model and name in ("ddt", "dA"):
+                good = e <= SSD_BWD_TC_FP32_TOL * big
             else:
                 good = close(torch, g, w, *SSD_BWD_TOL["bfloat16"])
             ok &= good and g.dtype == w.dtype and bool(
                 torch.isfinite(g).all())
             errs.append(f"{name} {e:.3g} of {big:.3g}")
         return ok, ", ".join(errs)
+
+    def bwd_kernel(x, dt, A, B, C, dy):
+        """`_launch_bwd` as `_SSD` calls it: a bf16 call reads the
+        states its forward kept; and the tensor-core launches it made"""
+        states = (_launch(x, dt, A, B, C, keep=True)[1]
+                  if x.dtype == torch.bfloat16 else None)
+        tc0 = ssd.bwd_tc_launches
+        got = _launch_bwd(x, dt, A, B, C, dy, states)
+        return got, ssd.bwd_tc_launches - tc0, states
+
+    def tc_model(x, dt, A, B, C, dy):
+        b, L, H = x.shape[:3]
+        return ssd_bwd_tc_plain(x, dt, A, B, C, dy,
+                                bwd_heads_per_group(b, L, H, dev))
 
     bwd_cases = [(8, 1024, 24, 64, 128, False),   # mamba2-130m train
                  (2, 1024, 80, 64, 64, False)]    # zamba2-2.7b train
@@ -816,25 +873,41 @@ def phase_kernels(torch, dev):
         for b, L, H, P, N, steep in bwd_cases:
             x, dt, A, B, C = ssd_inputs(b, L, H, P, N, dtype, steep)
             dy = randn((b, L, H, P), dtype)
-            got = _launch_bwd(x, dt, A, B, C, dy)
+            got, tc, states = bwd_kernel(x, dt, A, B, C, dy)
             want = ssd_grads(x, dt, A, B, C, dy)
             torch.cuda.synchronize()
-            again = _launch_bwd(x, dt, A, B, C, dy)
+            again = _launch_bwd(x, dt, A, B, C, dy, states)
             ok, errs = bwd_errs(got, want, dname)
+            what = "autograd through ssd_plain"
+            if dname == "bfloat16":
+                ok_m, errs_m = bwd_errs(got, tc_model(x, dt, A, B, C, dy),
+                                        dname, model=True)
+                ok &= ok_m and tc == 1
+                errs += (f"; against ssd_bwd_tc_plain: {errs_m} (ddt, dA "
+                         f"{SSD_BWD_TC_FP32_TOL} of their largest)")
+            if steep:
+                ok &= bool((got[2] == 0).all())
             check(ok and all(torch.equal(a, g) for a, g in zip(again, got)),
                   f"ssd backward {dname} b={b} L={L} H={H} P={P} N={N} "
-                  f"steep={steep} against autograd through ssd_plain: "
-                  f"{errs} (tolerance {SSD_BWD_TOL[dname]}); finite, the "
-                  f"same bits when repeated")
+                  f"steep={steep} against {what}: {errs} (tolerance "
+                  f"{SSD_BWD_TOL[dname]}); finite, the same bits when "
+                  f"repeated; tensor-core launches {tc}"
+                  + ("; dA exactly 0" if steep else ""))
             if dname == "bfloat16" and (b, H) == (8, 24):
                 ssd_bwd_err = max_err(got[0], want[0])
     for b, H, N in ((8, 24, 128), (2, 80, 64)):   # the models' split views
         x, dt, A, B, C = ssd_model_layout(b, H, N)
         dy = randn(x.shape, torch.bfloat16)
-        ok, errs = bwd_errs(_launch_bwd(x, dt, A, B, C, dy),
-                            ssd_grads(x, dt, A, B, C, dy), "bfloat16")
-        check(ok, f"ssd backward bfloat16 b={b} L=1024 H={H} P=64 N={N} in "
-              f"the model's strided layout: {errs}")
+        got, tc, states = bwd_kernel(x, dt, A, B, C, dy)
+        again = _launch_bwd(x, dt, A, B, C, dy, states)
+        ok, errs = bwd_errs(got, ssd_grads(x, dt, A, B, C, dy), "bfloat16")
+        ok_m, errs_m = bwd_errs(got, tc_model(x, dt, A, B, C, dy),
+                                "bfloat16", model=True)
+        check(ok and ok_m and tc == 1
+              and all(torch.equal(a, g) for a, g in zip(again, got)),
+              f"ssd backward bfloat16 b={b} L=1024 H={H} P=64 N={N} in "
+              f"the model's strided layout: {errs}; against "
+              f"ssd_bwd_tc_plain: {errs_m}; the same bits when repeated")
 
     print("phase 2b: timing at the main path's shapes (CUDA events, warm "
           "L2, after 3 warm-up calls; host us = launch cost per call)",
@@ -989,12 +1062,14 @@ def phase_kernels(torch, dev):
     # the SSD backward at the train shapes (bf16, dy from the seed), beside
     # autograd's backward through ssd_plain (the graph kept, the backward
     # alone timed) and its bound
-    ssd_bwd_rows = []
+    ssd_bwd_rows, bwd_inputs = [], []
     for name, (b, L, H, P, N) in (("mamba2-130m", (8, 1024, 24, 64, 128)),
                                   ("zamba2-2.7b", (2, 1024, 80, 64, 64))):
         bv = ssd_inputs(b, L, H, P, N, torch.bfloat16)
         bdy = randn((b, L, H, P), torch.bfloat16)
-        k_ms, host_us = cuda_ms(torch, lambda: _launch_bwd(*bv, bdy), 10)
+        states = _launch(*bv, keep=True)[1]   # what `_SSD` keeps
+        k_ms, host_us = cuda_ms(
+            torch, lambda: _launch_bwd(*bv, bdy, states), 10)
         ins = [t.detach().clone().requires_grad_() for t in bv]
         with torch.enable_grad():
             by = ssd_plain(*ins, 64)
@@ -1006,11 +1081,13 @@ def phase_kernels(torch, dev):
                              "bound_by": bby, "flops": flops,
                              "bytes": nbytes, "host_us": host_us})
         print(f"  ssd backward at {name}'s train shape (b={b} L={L} H={H} "
-              f"P={P} N={N}, bf16): {k_ms:.4f} ms (autograd through "
-              f"ssd_plain {p_ms:.4f}, no library call, bound {bnd:.4f} by "
-              f"{bby}: {flops:.4g} FLOP, {nbytes:.4g} B; host us "
+              f"P={P} N={N}, bf16, the forward's states read): {k_ms:.4f} "
+              f"ms (autograd through ssd_plain {p_ms:.4f}, no library "
+              f"call, bound {bnd:.4f} by {bby} at the chunk of "
+              f"{TC_CHUNK}: {flops:.4g} FLOP, {nbytes:.4g} B; host us "
               f"{host_us:.1f})", flush=True)
-        del bv, bdy, ins, by
+        del ins, by
+        bwd_inputs.append((bv, bdy, states))
     # the split-row backward pair at the forward's shapes (the sum over
     # ranks left out), its plain version, and the whole row's fused
     # backward (2048 x 5120), the nearest library call
@@ -1076,6 +1153,23 @@ def phase_kernels(torch, dev):
           f"flash attention at the training shape (8,1024,15,64) "
           f"{fa_train_ms:.4f} ms, its plain backward (forward recomputed, "
           f"VJP) {fa_plain_bwd_ms:.4f} ms", flush=True)
+    # the SSD backward's passes, after every CUDA-event timing above (the
+    # profiler's tracing slows the plain routes' many launches)
+    for row, (bv, bdy, states) in zip(ssd_bwd_rows, bwd_inputs):
+        row["passes_ms"] = kernel_ms(
+            torch, lambda: _launch_bwd(*bv, bdy, states), 5)
+        # the forward's passes 1 and 2, which a backward that recomputed
+        # the states instead of reading the forward's would run again
+        row["recompute_states_ms"] = {
+            k: v for k, v in kernel_ms(torch, lambda: _launch(*bv), 5).items()
+            if k.startswith(("tc::chunk_state", "tc::state_pass"))}
+        print(f"  ssd backward at {row['name']}'s train shape, its passes "
+              f"(torch.profiler, ms a call): "
+              f"{json.dumps(row['passes_ms']) if row['passes_ms'] else 'not measured'}; "
+              f"the forward's passes 1-2 that recomputing the states would "
+              f"add: {json.dumps(row['recompute_states_ms']) if row['recompute_states_ms'] else 'not measured'}",
+              flush=True)
+    del bwd_inputs
     return {
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
@@ -1907,13 +2001,14 @@ def phase_ssm_train(torch, dev):
             w.launches = 0
         rmsnorm.bwd_launches = ssd.bwd_launches = 0
         flash_attention.tc_launches = ssd.tc_launches = 0
+        ssd.bwd_tc_launches = 0
 
     def read():
         c = {k: w.launches for k, w in wrappers.items()}
         c.update({"rmsnorm.bwd": rmsnorm.bwd_launches,
                   "ssd_bwd": ssd.bwd_launches})
         return c, {"flash_attention": flash_attention.tc_launches,
-                   "ssd": ssd.tc_launches}
+                   "ssd": ssd.tc_launches, "ssd_bwd": ssd.bwd_tc_launches}
 
     print("phase 10: training the SSM models on the card", flush=True)
     torch.cuda.empty_cache()
@@ -1957,7 +2052,8 @@ def phase_ssm_train(torch, dev):
         got, tc = read()
         check(got == expected and tc == {"flash_attention":
                                          expected["flash_attention"],
-                                         "ssd": expected["ssd"]},
+                                         "ssd": expected["ssd"],
+                                         "ssd_bwd": expected["ssd_bwd"]},
               f"{arch} train step launched {got} (expected {expected}: "
               f"{cfg.n_layers} Mamba2 mixers, remat's recompute included; "
               f"tensor-core launches {tc})")

@@ -75,33 +75,82 @@
 // Backward (`ssd_bwd`, training): the VJP of the scan above.  The TPU
 // kernel has none; the reference trains through `ssd_scan`
 // (src/repro/models/ssm.py), and this is the gradient of the same function.
-// One design for both dtypes: all arithmetic and sums in fp32, bf16 inputs
-// converted on load, dx, dB and dC cast at the end.  Chunks of 64 rows.
-// Seven launches from one C call:
-//   1. own_states (rev 0): each chunk's own state and total decay (as the
-//      forward's pass 1); own_states (rev 1): each chunk's own state
-//      gradient sum_i exp(cum_i) dy_i C_i^T.
-//   2. scan_states, forward then reverse, elementwise and in place: the
-//      state before each chunk, and the gradient of the state after it.
-//   3. chunk_grads, one block per (head, chunk, batch row), 256 threads,
-//      everything of the chunk in shared memory (B, C, x, dy, S, dS, and
-//      the (Q, Q) gate G and weight W; 223 KB at P = 64, N = 128): dx,
-//      ddt, this head's terms of dB and dC (fp32 scratch), and the
-//      chunk's part of dA.  The formulas are at the kernel.  The
-//      gradient through the decay's cumsum leaves the diagonal out of
-//      both of its sums, where the two terms cancel: a steep decay then
-//      gives exactly 0, as autograd does, not rounding noise times A.
-//   4. sum_heads: dB and dC summed over the heads in head order; sum_da:
-//      dA summed over (batch, chunk) in order.  No atomics: the same bits
-//      from run to run.
-// Bound on an H100: operations (~3e10 FLOP at mamba2-130m's train shape,
-// b=8, L=1024, H=24, P=64, N=128) against ~85 MB of inputs and outputs.
-// This first design runs the products as scalar fp32 FMAs from shared
-// memory (4x4 register tiles), one block an SM, and round-trips the
-// states and the per-head dB, dC terms (~400 MB at that shape) through
-// device memory: simple and right first.  Left on the table: tensor
-// cores (the forward's hi + lo split), the bf16 forward's saved states,
-// heads grouped per block so dB and dC stay on chip.
+// Per chunk, with cum the cumsum of dt A in it, S the state before it, dS
+// the gradient of the state after it (0 after the last), G_ij = (C_i.B_j)
+// e^{cum_i - cum_j} and W_ij = e^{cum_i - cum_j} dt_j (dy_i.x_j), j <= i:
+//   dx_j = dt_j u_j,  u_j = sum_i G_ij dy_i + e^{cum_last - cum_j} dS B_j;
+//   dC_i = sum_j W_ij B_j + e^{cum_i} S^T dy_i and dB_j = sum_i W_ij C_i +
+//   e^{cum_last - cum_j} dt_j dS^T x_j, both summed over the heads;
+//   ddt and dA through the gradient of the decay's cumsum, which leaves
+//   the diagonal out of both of its sums, where the two terms cancel: a
+//   steep decay then gives exactly 0, as autograd does, not rounding
+//   noise times A;  dS <- e^{cum_last} dS + sum_i e^{cum_i} dy_i C_i^T
+//   from chunk to chunk in reverse.  No atomics: every sum is taken in a
+//   fixed order, the same bits from run to run.
+//
+// bfloat16 (training): tensor cores, `tcb::`, in chunks of 128 rows, the
+// forward's, whose fp32 states it reads (the wrapper keeps them when an
+// input needs a gradient; recomputing them here would repeat the
+// forward's passes 1 and 2, which chip_smoke.py times beside it).
+//   Bound on an H100: bytes.  x, dy, B, C, dt and A read once, dx, ddt,
+//   dB, dC and dA written once: 85.5 MB at mamba2-130m's train shape
+//   (b=8, L=1024, H=24, P=64, N=128), 25.5 us at 3.35 TB/s; the products
+//   are 2.01e10 FLOP (W B and W^T C once a chunk, W being summed over the
+//   heads first), 20.4 us at the bf16 rate.  This design also reads the
+//   forward's fp32 states (44 MB there), and the split below doubles the
+//   state products' tensor-core work.
+//   Passes (one C call: 7 launches when L > 128, 5 when L <= 128):
+//   1. chunk_state<REV> (the forward's pass 1, mma.sync), grid (H,
+//      chunks - 1, b): each chunk's own state gradient sum_i dy_i
+//      (e^{cum_i} C_i)^T, fp32.
+//   2. dstate_pass, grid (slices of P.N, H, b): in reverse over the chunks,
+//      elementwise fp32, each thread's next 8 chunks loaded ahead of the
+//      dependent chain (a load after a store to the same array had held
+//      the first design's pass to memory latency): dS after each chunk,
+//      written split (bf16 hi, lo) for the tensor cores, the forward's S
+//      split the same way, and <dS, S after> by slice.
+//   3. chunk_dx, grid (head groups, chunks, b), 8 warps, one block an SM:
+//      C.B^T once; per head dy.x^T and x.dy^T, W and its row and column
+//      sums, u = G^T dy + diag(wend) B dS^T, dx, x.u, and v1 (rowm -
+//      colm - K); W summed over the group's heads in registers, then the
+//      group's W terms of dB and dC (the layout is at the kernel).
+//   4. chunk_dbc, the same grid: the state terms diag(e^cum) dy S and
+//      diag(wend dt) x dS summed over the group's heads in registers and
+//      added to chunk_dx's W terms; off_i = C_i.(that dC term) into v1.
+//   5. chunk_rows: dcum = v1 (+ <dS, S after> on the last row), its
+//      reverse cumsum R, ddt = A R + x.u, and the chunk's part of dA.
+//   6. sum_groups: dB and dC, the groups' parts summed in group order;
+//      sum_da: dA over (batch, chunk) in order.
+//   Split: products of two exact bf16 operands go in as they are (C.B^T,
+//   dy.x^T); every operand derived in fp32 is split, hi + lo, and takes
+//   two MMAs against an exact bf16 one: G (against dy), the group's W
+//   (against B and C), dS (against B and x), S (against dy) and e^cum.C
+//   (against dy).  A decay or dt that scales an exact operand's rows is
+//   applied after the MMA (wend on B dS^T, e^cum on dy S, wend dt on x
+//   dS).  kernels/ssd/ref.py: ssd_bwd_tc_plain is this arithmetic.
+//   Heads a group: enough that the grid is about one wave (ops.py:
+//   bwd_heads_per_group, at most 16): each block pays C.B^T and the W
+//   terms once, and the fp32 partials of dB and dC are (b, groups, L, N),
+//   where the first design wrote every head's, (b, H, L, N).
+//   Where the time goes (chip_smoke.py phase 2b times each pass): the
+//   chunk passes run 8 warps an SM at up to 255 registers, and wait on
+//   latency more than they issue MMAs.  In chunk_dx the W elementwise
+//   work weighed most; the decay is therefore a row factor times a
+//   column factor off the diagonal block (as the forward's gate), and
+//   C.B^T sits in shared memory, not in 72 registers a thread.  Tried
+//   and slower: recomputing the states (above); two waves of smaller
+//   head groups; one exp an element with C.B^T in registers.  Left on the
+//   table: 16 warps a block, two on each 16-row block, so that latency
+//   hides; wgmma (each product's A operand is derived in registers from
+//   an accumulator, which m16n8k16 fragments take directly); the
+//   imbalance of G^T dy (warp w takes 8 - w blocks of it).
+//
+// float32 (parity checks only): `bwd::`, the first backward kernel: all
+// arithmetic in fp32 in chunks of 64 rows, seven launches (each chunk's
+// own state and state gradient, the forward and reverse scans, one block
+// per (head, chunk, batch row) with everything of the chunk in shared
+// memory and scalar FMAs in 4x4 register tiles, the sums over heads and
+// over chunks), and every head's dB and dC terms through fp32 scratch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -457,7 +506,10 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
 // dt_j, and its total decay cum_last.  M = p, N = n, K = j.  x^T by
 // ldmatrix.trans (exact bf16); w.B split hi + lo once into shared memory
 // (hi over the staged B, in place), both by ldmatrix.trans; two MMAs.
-template <int P, int N>
+// REV (the backward's state gradients), for chunks 1 .. nc-1 into slot
+// c - 1: x is dy, B is C and w_j = exp(cum_j), so the slot holds the
+// chunk's own term sum_i dy_i (exp(cum_i) C_i)^T, and cumlast its decay.
+template <int P, int N, bool REV = false>
 __global__ void __launch_bounds__(kThreads)
 chunk_state(const bf16* __restrict__ x, const float* __restrict__ dt,
             const float* __restrict__ A, const bf16* __restrict__ Bm,
@@ -475,7 +527,8 @@ chunk_state(const bf16* __restrict__ x, const float* __restrict__ dt,
   float* cum = reinterpret_cast<float*>(blo + kQ * BS);
   float* w = cum + kQ;
 
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.x, slot = blockIdx.y, b = blockIdx.z;
+  const int c = slot + (REV ? 1 : 0);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int t0 = c * kQ, q = min(kQ, L - t0);
@@ -485,8 +538,9 @@ chunk_state(const bf16* __restrict__ x, const float* __restrict__ dt,
     chunk_cumsum(dt + b * dt_sb + t0 * dt_sl + h * dt_sh, dt_sl, q, A[h], cum,
                  w);
     const float last = cum[kQ - 1];
-    for (int r = lane; r < kQ; r += 32) w[r] *= expf(last - cum[r]);
-    if (lane == 0) cumlast[((long long)b * nc1 + c) * H + h] = last;
+    for (int r = lane; r < kQ; r += 32)
+      w[r] = REV ? expf(cum[r]) : w[r] * expf(last - cum[r]);
+    if (lane == 0) cumlast[((long long)b * nc1 + slot) * H + h] = last;
   }
   cp_async_wait_all();
   __syncthreads();
@@ -522,7 +576,7 @@ chunk_state(const bf16* __restrict__ x, const float* __restrict__ dt,
       mma(acc[k][1], a, bl[2], bl[3]);
     }
   }
-  float* st = states + (((long long)b * nc1 + c) * H + h) * (P * N);
+  float* st = states + (((long long)b * nc1 + slot) * H + h) * (P * N);
 #pragma unroll
   for (int k = 0; k < NT2W; ++k)
 #pragma unroll
@@ -997,13 +1051,11 @@ int launch_n(int N, const bf16* x, const float* dt, const float* A,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// Backward: the VJP of the scan, fp32 arithmetic for both dtypes.
+// Backward, float32: the VJP of the scan in fp32 FMAs.
 // ---------------------------------------------------------------------------
 namespace bwd {
 
-using scalar::from_f;
 using scalar::ld4;
-using scalar::to_f;
 
 constexpr int kQ = 64;          // rows of a chunk, in every pass
 constexpr int kQS = kQ + 4;     // padded stride of the (Q, Q) tiles
@@ -1098,10 +1150,9 @@ __device__ __forceinline__ void mm(float acc[4][4], const float* a, int lda,
 // x_j B_j^T, and its total decay cum_last.  Pass 2 (rev = 1): each chunk's
 // own state gradient sum_i exp(cum_i) dy_i C_i^T.  v is x or dy, w is B or
 // C; out[b][c][h] is (P, N) fp32.  Grid (H, chunks, batch).
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-own_states(const T* __restrict__ v, const float* __restrict__ dt,
-           const float* __restrict__ A, const T* __restrict__ w,
+own_states(const float* __restrict__ v, const float* __restrict__ dt,
+           const float* __restrict__ A, const float* __restrict__ w,
            float* __restrict__ out, float* __restrict__ cumlast, int L, int H,
            int P, int N, int nc, long long v_sb, long long v_sl, long long v_sh,
            long long dt_sb, long long dt_sl, long long dt_sh, long long w_sb,
@@ -1121,15 +1172,15 @@ own_states(const T* __restrict__ v, const float* __restrict__ dt,
   if (tid < kQ) coef[tid] = rev ? expf(cum[tid]) : expf(last - cum[tid]) * dts[tid];
   if (!rev && tid == 0) cumlast[((long long)b * nc + c) * H + h] = last;
   __syncthreads();
-  const T* vb = v + b * v_sb + h * v_sh + (long long)t0 * v_sl;
-  const T* wb = w + b * w_sb + (long long)t0 * w_sl;
+  const float* vb = v + b * v_sb + h * v_sh + (long long)t0 * v_sl;
+  const float* wb = w + b * w_sb + (long long)t0 * w_sl;
   for (int idx = tid; idx < kQ * P; idx += kThreads) {
     const int j = idx / P, p = idx - j * P;
-    vs[j * PS + p] = j < q ? to_f(vb[(long long)j * v_sl + p]) * coef[j] : 0.f;
+    vs[j * PS + p] = j < q ? vb[(long long)j * v_sl + p] * coef[j] : 0.f;
   }
   for (int idx = tid; idx < kQ * N; idx += kThreads) {
     const int j = idx / N, n = idx - j * N;
-    ws[j * NS + n] = j < q ? to_f(wb[(long long)j * w_sl + n]) : 0.f;
+    ws[j * NS + n] = j < q ? wb[(long long)j * w_sl + n] : 0.f;
   }
   __syncthreads();
   float* ob = out + (((long long)b * nc + c) * H + h) * P * N;
@@ -1179,13 +1230,13 @@ scan_states(float* __restrict__ st, const float* __restrict__ cumlast, int H,
 //   chunk's part of dA, sum_t dt_t R_t.  Products in 4x4 register tiles
 //   from shared memory; sums over a row's threads through shared partials,
 //   added in a fixed order.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-chunk_grads(const T* __restrict__ x, const float* __restrict__ dt,
-            const float* __restrict__ A, const T* __restrict__ Bm,
-            const T* __restrict__ Cm, const T* __restrict__ dy,
+chunk_grads(const float* __restrict__ x, const float* __restrict__ dt,
+            const float* __restrict__ A, const float* __restrict__ Bm,
+            const float* __restrict__ Cm, const float* __restrict__ dy,
             const float* __restrict__ states, const float* __restrict__ dstates,
-            T* __restrict__ dx, float* __restrict__ ddt, float* __restrict__ dBp,
+            float* __restrict__ dx, float* __restrict__ ddt,
+            float* __restrict__ dBp,
             float* __restrict__ dCp, float* __restrict__ dAp, int L, int H,
             int P, int N, int nc, long long x_sb, long long x_sl, long long x_sh,
             long long dt_sb, long long dt_sl, long long dt_sh, long long b_sb,
@@ -1226,21 +1277,21 @@ chunk_grads(const T* __restrict__ x, const float* __restrict__ dt,
     ecum[tid] = expf(cum[tid]);
   }
   {
-    const T* Bb = Bm + b * b_sb + (long long)t0 * b_sl;
-    const T* Cb = Cm + b * c_sb + (long long)t0 * c_sl;
+    const float* Bb = Bm + b * b_sb + (long long)t0 * b_sl;
+    const float* Cb = Cm + b * c_sb + (long long)t0 * c_sl;
     for (int idx = tid; idx < kQ * N; idx += kThreads) {
       const int j = idx / N, n = idx - j * N;
       const bool in = j < q;
-      Bs[j * NS + n] = in ? to_f(Bb[(long long)j * b_sl + n]) : 0.f;
-      Cs[j * NS + n] = in ? to_f(Cb[(long long)j * c_sl + n]) : 0.f;
+      Bs[j * NS + n] = in ? Bb[(long long)j * b_sl + n] : 0.f;
+      Cs[j * NS + n] = in ? Cb[(long long)j * c_sl + n] : 0.f;
     }
-    const T* xb = x + b * x_sb + h * x_sh + (long long)t0 * x_sl;
-    const T* dyb = dy + b * dy_sb + h * dy_sh + (long long)t0 * dy_sl;
+    const float* xb = x + b * x_sb + h * x_sh + (long long)t0 * x_sl;
+    const float* dyb = dy + b * dy_sb + h * dy_sh + (long long)t0 * dy_sl;
     for (int idx = tid; idx < kQ * P; idx += kThreads) {
       const int j = idx / P, p = idx - j * P;
       const bool in = j < q;
-      xs[j * PS + p] = in ? to_f(xb[(long long)j * x_sl + p]) : 0.f;
-      dys[j * PS + p] = in ? to_f(dyb[(long long)j * dy_sl + p]) : 0.f;
+      xs[j * PS + p] = in ? xb[(long long)j * x_sl + p] : 0.f;
+      dys[j * PS + p] = in ? dyb[(long long)j * dy_sl + p] : 0.f;
     }
     const float* Sg = states + slot * P * N;
     const float* dSg = dstates + slot * P * N;
@@ -1318,9 +1369,9 @@ chunk_grads(const T* __restrict__ x, const float* __restrict__ dt,
         pk = fmaf(xr[cc], t2[r][cc], pk);
       }
       if (j < q) {
-        T* dr = dx + (((long long)b * L + t0 + j) * H + h) * P + p0;
+        float* dr = dx + (((long long)b * L + t0 + j) * H + h) * P + p0;
 #pragma unroll
-        for (int cc = 0; cc < 4; ++cc) dr[cc] = from_f<T>(o[cc]);
+        for (int cc = 0; cc < 4; ++cc) dr[cc] = o[cc];
       }
       partA[j * P4 + p0 / 4] = pu;
       partA[kQ * P4 + j * P4 + p0 / 4] = pk;
@@ -1420,10 +1471,9 @@ chunk_grads(const T* __restrict__ x, const float* __restrict__ dt,
 
 // dB, dC (batch, L, N) = the sums over heads of the fp32 per-head terms
 // (batch, H, L, N), in head order, cast to the inputs' type.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
 sum_heads(const float* __restrict__ dBp, const float* __restrict__ dCp,
-          T* __restrict__ dB, T* __restrict__ dC, int batch, int H,
+          float* __restrict__ dB, float* __restrict__ dC, int batch, int H,
           long long LN) {
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= batch * LN) return;
@@ -1435,8 +1485,8 @@ sum_heads(const float* __restrict__ dBp, const float* __restrict__ dCp,
     sb += pb[h * LN];
     sc += pc[h * LN];
   }
-  dB[idx] = from_f<T>(sb);
-  dC[idx] = from_f<T>(sc);
+  dB[idx] = sb;
+  dC[idx] = sc;
 }
 
 // dA[h] = the sum of the chunks' parts (rows = batch x chunks), in order.
@@ -1449,10 +1499,10 @@ sum_da(const float* __restrict__ dAp, float* __restrict__ dA, int rows, int H) {
   dA[h] = s;
 }
 
-template <typename T>
-int launch(const T* x, const float* dt, const float* A, const T* Bm,
-           const T* Cm, const T* dy, T* dx, float* ddt, float* dA, T* dB,
-           T* dC, int batch, int L, int H, int P, int N, const long long* s,
+int launch(const float* x, const float* dt, const float* A, const float* Bm,
+           const float* Cm, const float* dy, float* dx, float* ddt,
+           float* dA, float* dB, float* dC, int batch, int L, int H, int P,
+           int N, const long long* s,
            float* states, float* dstates, float* cumlast, float* dBp,
            float* dCp, float* dAp, cudaStream_t st) {
   const int nc = (L + kQ - 1) / kQ;
@@ -1460,16 +1510,16 @@ int launch(const T* x, const float* dt, const float* A, const T* Bm,
   const int own_bytes = (int)(own_floats(N, P) * sizeof(float));
   const int main_bytes = (int)(main_floats(N, P) * sizeof(float));
   cudaError_t e = cudaFuncSetAttribute(
-      own_states<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, own_bytes);
+      own_states, cudaFuncAttributeMaxDynamicSharedMemorySize, own_bytes);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(chunk_grads<T>,
+  e = cudaFuncSetAttribute(chunk_grads,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, main_bytes);
   if (e != cudaSuccess) return (int)e;
-  own_states<T><<<blocks, kThreads, own_bytes, st>>>(
+  own_states<<<blocks, kThreads, own_bytes, st>>>(
       x, dt, A, Bm, states, cumlast, L, H, P, N, nc, s[0], s[1], s[2], s[3],
       s[4], s[5], s[6], s[7], 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  own_states<T><<<blocks, kThreads, own_bytes, st>>>(
+  own_states<<<blocks, kThreads, own_bytes, st>>>(
       dy, dt, A, Cm, dstates, cumlast, L, H, P, N, nc, s[10], s[11], s[12],
       s[3], s[4], s[5], s[8], s[9], 1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
@@ -1478,13 +1528,13 @@ int launch(const T* x, const float* dt, const float* A, const T* Bm,
   scan_states<<<sgrid, kThreads, 0, st>>>(states, cumlast, H, nc, pn, 0);
   scan_states<<<sgrid, kThreads, 0, st>>>(dstates, cumlast, H, nc, pn, 1);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  chunk_grads<T><<<blocks, kThreads, main_bytes, st>>>(
+  chunk_grads<<<blocks, kThreads, main_bytes, st>>>(
       x, dt, A, Bm, Cm, dy, states, dstates, dx, ddt, dBp, dCp, dAp, L, H, P,
       N, nc, s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9],
       s[10], s[11], s[12]);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   const long long LN = (long long)L * N;
-  sum_heads<T><<<(unsigned)((batch * LN + kThreads - 1) / kThreads), kThreads,
+  sum_heads<<<(unsigned)((batch * LN + kThreads - 1) / kThreads), kThreads,
                  0, st>>>(dBp, dCp, dB, dC, batch, H, LN);
   sum_da<<<(H + kThreads - 1) / kThreads, kThreads, 0, st>>>(dAp, dA,
                                                              batch * nc, H);
@@ -1492,6 +1542,891 @@ int launch(const T* x, const float* dt, const float* A, const T* Bm,
 }
 
 }  // namespace bwd
+
+// ---------------------------------------------------------------------------
+// Backward, bf16: tensor cores, chunks of 128 rows (the forward's).
+// ---------------------------------------------------------------------------
+namespace tcb {
+
+using tc::bf16;
+using tc::cp_async_wait_all;
+using tc::kPad;
+using tc::kQ;
+using tc::kThreads;
+using tc::kWarps;
+using tc::mma;
+using tc::smem_u32;
+using tc::split2;
+
+// 16-column blocks a warp of chunk_dx holds of a (Q, Q) product: blocks
+// 0 .. w of its rows (the i role, columns j <= i) and blocks w .. 7 of
+// its rows again (the j role, columns i >= j): 9 for every warp.
+constexpr int kPairs = kQ / 16 + 1;
+constexpr int kScanBatch = 8;      // dstate_pass: chunks loaded ahead
+constexpr int kScanThreads = 256;  // dstate_pass: float4 of a slice
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// A fragment of rows m0 .. m0+15, columns k0 .. k0+15 of a row-major
+// [m][k] tile of row stride S
+__device__ __forceinline__ void lda(uint32_t (&a)[4], const bf16* t, int S,
+                                    int m0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4(a, t + (m0 + (l & 15)) * S + k0 + ((l >> 4) << 3));
+}
+// B fragments of two n-tiles (n0 .. n0+15) over k0 .. k0+15: r[0], r[1]
+// the first, r[2], r[3] the second; `ldb_nk` from a [n][k] tile,
+// `ldb_kn` from a [k][n] tile (transposed on load)
+__device__ __forceinline__ void ldb_nk(uint32_t (&r)[4], const bf16* t, int S,
+                                       int n0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm_x4(r, t + (n0 + (l & 7) + ((l >> 4) << 3)) * S + k0 +
+                 (((l >> 3) & 1) << 3));
+}
+__device__ __forceinline__ void ldb_kn(uint32_t (&r)[4], const bf16* t, int S,
+                                       int k0, int n0) {
+  const int l = threadIdx.x & 31;
+  tc::ldsm_x4_t(r, t + (k0 + (l & 7) + (((l >> 3) & 1) << 3)) * S + n0 +
+                       ((l >> 4) << 3));
+}
+// d[2 np], d[2 np + 1] += a . (the two n-tiles of r)
+__device__ __forceinline__ void mma2(float (&d0)[4], float (&d1)[4],
+                                     const uint32_t (&a)[4],
+                                     const uint32_t (&r)[4]) {
+  mma(d0, a, r[0], r[1]);
+  mma(d1, a, r[2], r[3]);
+}
+// The A fragment of a 16-column block held as two accumulator tiles
+// v[0], v[1] (rows g and g + 8 of each), split hi + lo
+__device__ __forceinline__ void split_frag(const float (&v)[2][4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    split2(v[s][0], v[s][1], hi[2 * s], lo[2 * s]);
+    split2(v[s][2], v[s][3], hi[2 * s + 1], lo[2 * s + 1]);
+  }
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ROWS whole rows of COLS bf16 (row stride COLS) into a tile of row stride
+// COLS + kPad, asynchronously
+template <int ROWS, int COLS>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src) {
+  constexpr int V = COLS / 8;
+  for (int i = threadIdx.x; i < ROWS * V; i += kThreads) {
+    const int r = i / V, v = i - r * V;
+    tc::cp_async16(dst + r * (COLS + kPad) + 8 * v, src + r * COLS + 8 * v,
+                   true);
+  }
+}
+
+// chunk_dx's region for a head's x and dy, or for C, in bf16 elements
+__host__ __device__ constexpr int dx_region(int P, int N) {
+  return 2 * kQ * (P + kPad) > kQ * (N + kPad) ? 2 * kQ * (P + kPad)
+                                               : kQ * (N + kPad);
+}
+__host__ __device__ constexpr int dx_smem(int P, int N) {
+  return kQ * (N + kPad) * 2 + dx_region(P, N) * 2 + 4 * P * (N + kPad) * 2 +
+         kWarps * kPairs * 2 * 32 * 16 + 10 * kQ * 4;
+}
+__host__ __device__ constexpr int dbc_smem(int P, int N) {
+  return kQ * (N + kPad) * 2 + 2 * kQ * (P + kPad) * 2 +
+         4 * P * (N + kPad) * 2 + 6 * kQ * 4;
+}
+
+// The state gradients, in reverse over the chunks: slot s of D holds chunk
+// s + 1's own term (chunk_state<REV>); dS_s = exp(clr[s]) dS_{s+1} + D_s is
+// the gradient of the state after chunk s (dS after the last chunk is 0).
+// Written split for the chunk passes, hi then lo (bf16, (P, N) each):
+// dshl[s] = dS_s and shl[s] = S_s, the state after chunk s (the forward's
+// slot s); sdp[s] gets this slice's part of <dS_s, S_s>.  Grid (slices of
+// P.N, H, batch): each thread one float4, kScanBatch chunks loaded ahead
+// of the dependent chain, so the chain waits on memory once a batch.
+__global__ void __launch_bounds__(kScanThreads)
+dstate_pass(const float* __restrict__ D, const float* __restrict__ clr,
+            const float* __restrict__ st, bf16* __restrict__ dshl,
+            bf16* __restrict__ shl, float* __restrict__ sdp, int H, int nc1,
+            int pn4) {
+  __shared__ float red[kScanThreads / 32][kScanBatch];
+  const int i = blockIdx.x * kScanThreads + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z, slices = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool in = i < pn4;
+  const long long pn = 4LL * pn4;
+  auto put = [&](bf16* dst, long long slot, float4 v) {
+    uint32_t h01, l01, h23, l23;
+    split2(v.x, v.y, h01, l01);
+    split2(v.z, v.w, h23, l23);
+    bf16* p = dst + slot * 2 * pn + 4 * i;
+    *reinterpret_cast<uint2*>(p) = make_uint2(h01, h23);
+    *reinterpret_cast<uint2*>(p + pn) = make_uint2(l01, l23);
+  };
+  float4 carry = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int top = nc1 - 1; top >= 0; top -= kScanBatch) {
+    float4 d[kScanBatch], sa[kScanBatch];
+    float e[kScanBatch];
+#pragma unroll
+    for (int k = 0; k < kScanBatch; ++k) {
+      const int s = top - k;
+      const long long slot = ((long long)b * nc1 + (s >= 0 ? s : 0)) * H + h;
+      e[k] = s >= 0 ? expf(clr[slot]) : 0.f;
+      d[k] = sa[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (s >= 0 && in) {
+        d[k] = reinterpret_cast<const float4*>(D + slot * pn)[i];
+        sa[k] = reinterpret_cast<const float4*>(st + slot * pn)[i];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kScanBatch; ++k) {
+      const int s = top - k;
+      if (s < 0) break;
+      const long long slot = ((long long)b * nc1 + s) * H + h;
+      carry = make_float4(fmaf(e[k], carry.x, d[k].x), fmaf(e[k], carry.y, d[k].y),
+                          fmaf(e[k], carry.z, d[k].z), fmaf(e[k], carry.w, d[k].w));
+      if (in) {
+        put(dshl, slot, carry);
+        put(shl, slot, sa[k]);
+      }
+      float dot = carry.x * sa[k].x + carry.y * sa[k].y + carry.z * sa[k].z +
+                  carry.w * sa[k].w;
+      dot = bwd::warp_sum(dot);
+      if (lane == 0) red[warp][k] = dot;
+    }
+    __syncthreads();
+    if (threadIdx.x < kScanBatch && top - (int)threadIdx.x >= 0) {
+      const int s = top - threadIdx.x;
+      float sum = 0.f;
+      for (int w = 0; w < kScanThreads / 32; ++w) sum += red[w][threadIdx.x];
+      sdp[(((long long)b * nc1 + s) * H + h) * slices + blockIdx.x] = sum;
+    }
+    __syncthreads();
+  }
+}
+
+// Per (group of hg heads, chunk, batch row), 8 warps, warp w on rows
+// 16w .. 16w+15 of the chunk in two roles: as rows i (columns j <= i,
+// blocks 0 .. w) and as rows j (columns i >= j, blocks w .. 7), 9
+// 16-column blocks in all (`kPairs`; pair kp <= w is block kp of the i
+// role, pair kp > w block kp - 1 of the j role).
+//   Once:     CB = C.B^T (i role) and BC = B.C^T (j role), exact bf16,
+//             kept in shared memory, each warp's own.
+//   Per head: dyx = dy.x^T (i role), xdy = x.dy^T (j role), exact;
+//             W_ij = dyx_ij e^{cum_i - cum_j} dt_j, W^T from xdy the same
+//             way; M = W CB strictly below the diagonal, summed over j on
+//             the i rows (rowm) and over i on the j rows (colm): no
+//             reduction leaves the warp; W summed over the group's heads
+//             in registers; pair by pair on the j rows, u = G^T dy (G^T =
+//             BC e^{cum_i - cum_j}, split, against dy).  The decay off
+//             the diagonal block is a row factor times a column factor,
+//             both exponents <= 0 (the forward's gate does the same):
+//             e^{cum_i - cum_e} fcol_j on the i rows, cum_e the end of
+//             j's block, and e^{cum_s - cum_j} hcol_i on the j rows, cum_s
+//             the end of the block before i's; on the diagonal block it
+//             is masked before exp.  Then u += diag(wend) B dS^T (B exact,
+//             dS split); dx = dt u (bf16), x.u (to xu), and v1 = rowm -
+//             colm - K, K_j = wend_j dt_j x_j.(B_j dS^T).  The next head's
+//             dS hi/lo (double buffer) is copied in (cp.async) from the
+//             head's start, its x and dy once the products that read them
+//             are done, and warp 0 scans its dt.
+//   Once:     dC's W term sum_j Wsum_ij B_j and dB's sum_i Wsum_ji C_i
+//             (Wsum split, B and C exact), this group's part, to dCp, dBp.
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+chunk_dx(const bf16* __restrict__ x, const float* __restrict__ dt,
+         const float* __restrict__ A, const bf16* __restrict__ Bm,
+         const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+         const bf16* __restrict__ dshl, bf16* __restrict__ dx,
+         float* __restrict__ xu, float* __restrict__ v1,
+         float* __restrict__ dBp, float* __restrict__ dCp, int L, int H,
+         int nc, int hg, long long x_sb, long long x_sl, long long x_sh,
+         long long dt_sb, long long dt_sl, long long dt_sh, long long b_sb,
+         long long b_sl, long long c_sb, long long c_sl, long long dy_sb,
+         long long dy_sl, long long dy_sh) {
+  constexpr int BS = N + kPad, XS = P + kPad;
+  constexpr int ST = 2 * P * BS;  // a dS buffer: hi rows, then lo rows
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Bs = reinterpret_cast<bf16*>(smem);  // [kQ][BS] B
+  bf16* xs = Bs + kQ * BS;                   // [kQ][XS] x, then [kQ][XS] dy
+  bf16* dys = xs + kQ * XS;                  //   of a head; or C [kQ][BS]
+  bf16* Cs = xs;                             //   before and after the heads
+  bf16* dS0 = xs + dx_region(P, N);          // 2 x [2P][BS] dS hi, lo
+  float4* cbs = reinterpret_cast<float4*>(dS0 + 2 * ST);  // [warp][pair][2][lane]
+  float* vec0 = reinterpret_cast<float*>(cbs + kWarps * kPairs * 2 * 32);
+
+  const int grp = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int G = gridDim.x, nc1 = nc - 1;
+  const int h0 = grp * hg, h1 = min(H, h0 + hg);
+  const int lane = threadIdx.x & 31, warp = tc::warp_uniform(threadIdx.x >> 5);
+  const int g = lane >> 2, t = lane & 3;
+  const int t0 = c * kQ, q = min(kQ, L - t0);
+  const int r0 = 16 * warp, ra = r0 + g, rb = ra + 8;
+  const bool has_ds = c < nc1;
+  const float* dtb = dt + b * dt_sb + t0 * dt_sl;
+  float4* cbw = cbs + warp * (kPairs * 2 * 32) + lane;
+
+  auto fetch_xdy = [&](int h) {
+    tc::stage_rows<P>(xs, x + b * x_sb + t0 * x_sl + h * x_sh, x_sl, q);
+    tc::stage_rows<P>(dys, dy + b * dy_sb + t0 * dy_sl + h * dy_sh, dy_sl, q);
+  };
+  auto fetch_ds = [&](int h, int buf) {
+    if (has_ds)
+      stage_tile<2 * P, N>(dS0 + buf * ST,
+                           dshl + (((long long)b * nc1 + c) * H + h) * (2 * P * N));
+  };
+  // warp 0: a head's cum, dts, wend = e^{cum_last - cum} and the decay's
+  // column factors fcol_j = e^{cum_e - cum_j} dt_j (cum_e the end of j's
+  // 16-row block) and hcol_i = e^{cum_i - cum_s} (cum_s the end of the
+  // block before i's), from a lane's 4 dt
+  auto vectors = [&](const float (&d)[4], int h, int buf) {
+    float* cum = vec0 + buf * (5 * kQ);
+    tc::chunk_scan(d, A[h], cum, cum + kQ);
+    const float last = cum[kQ - 1];
+    for (int r = lane; r < kQ; r += 32) {
+      const float cr = cum[r];
+      cum[2 * kQ + r] = expf(last - cr);
+      cum[3 * kQ + r] = expf(cum[r | 15] - cr) * cum[kQ + r];
+      cum[4 * kQ + r] = r >= 16 ? expf(cr - cum[(r & ~15) - 1]) : 1.f;
+    }
+    __syncwarp();
+  };
+
+  tc::stage_rows<N>(Bs, Bm + b * b_sb + t0 * b_sl, b_sl, q);
+  tc::stage_rows<N>(Cs, Cm + b * c_sb + t0 * c_sl, c_sl, q);
+  cp_async_wait_all();
+  __syncthreads();
+  {
+    float cb[kPairs][2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < N / 16; ++ks) {
+      uint32_t aC[4], aB[4];
+      lda(aC, Cs, BS, r0, 16 * ks);
+      lda(aB, Bs, BS, r0, 16 * ks);
+#pragma unroll
+      for (int kp = 0; kp < kPairs; ++kp) {
+        const bool irole = kp <= warp;
+        const int blk = irole ? kp : kp - 1;
+        uint32_t r[4], a[4];
+        ldb_nk(r, irole ? Bs : Cs, BS, 16 * blk, 16 * ks);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = irole ? aC[e] : aB[e];
+        mma2(cb[kp][0], cb[kp][1], a, r);
+      }
+    }
+#pragma unroll
+    for (int kp = 0; kp < kPairs; ++kp)
+#pragma unroll
+      for (int s = 0; s < 2; ++s)
+        cbw[(2 * kp + s) * 32] =
+            make_float4(cb[kp][s][0], cb[kp][s][1], cb[kp][s][2], cb[kp][s][3]);
+  }
+  __syncthreads();  // C is done with: its region takes x and dy
+  fetch_xdy(h0);
+  fetch_ds(h0, 0);
+  if (warp == 0) {
+    float d[4];
+    tc::chunk_dt(dtb + h0 * dt_sh, dt_sl, q, d);
+    vectors(d, h0, 0);
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  float ws[kPairs][2][4] = {};
+  for (int h = h0; h < h1; ++h) {
+    const int buf = (h - h0) & 1;
+    const bool next = h + 1 < h1;
+    if (next) fetch_ds(h + 1, buf ^ 1);
+    float dn[4];
+    if (warp == 0) tc::chunk_dt(dtb + (next ? h + 1 : h) * dt_sh, dt_sl, q, dn);
+    const bf16* dSh = dS0 + buf * ST;
+    const bf16* dSl = dSh + P * BS;
+    const float* cum = vec0 + buf * (5 * kQ);
+    const float* dts = cum + kQ;
+    const float* wend = dts + kQ;
+    const float* fcol = wend + kQ;
+    const float* hcol = fcol + kQ;
+
+    // dyx (i role) and xdy (j role)
+    float v[kPairs][2][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < P / 16; ++ks) {
+      uint32_t aY[4], aX[4];
+      lda(aY, dys, XS, r0, 16 * ks);
+      lda(aX, xs, XS, r0, 16 * ks);
+#pragma unroll
+      for (int kp = 0; kp < kPairs; ++kp) {
+        const bool irole = kp <= warp;
+        const int blk = irole ? kp : kp - 1;
+        uint32_t r[4], a[4];
+        ldb_nk(r, irole ? xs : dys, XS, 16 * blk, 16 * ks);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = irole ? aY[e] : aX[e];
+        mma2(v[kp][0], v[kp][1], a, r);
+      }
+    }
+
+    // W from v, its strict row and column sums, the group's sum; on the
+    // j rows G^T, split, and u = G^T dy
+    const float cA = cum[ra], cB = cum[rb], dA_ = dts[ra], dB_ = dts[rb];
+    float mA = 0.f, mB = 0.f;
+    float u[P / 8][4] = {};
+#pragma unroll
+    for (int kp = 0; kp < kPairs; ++kp) {
+      const bool irole = kp <= warp;
+      const int blk = irole ? kp : kp - 1;
+      float cb[2][4];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float4 c4 = cbw[(2 * kp + s) * 32];
+        cb[s][0] = c4.x;
+        cb[s][1] = c4.y;
+        cb[s][2] = c4.z;
+        cb[s][3] = c4.w;
+      }
+      if (irole && blk < warp) {      // rows i, columns j < i
+        const float ce = cum[16 * blk + 15];
+        const float fa = __expf(cA - ce), fb = __expf(cB - ce);
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float fc = fcol[16 * blk + 8 * s + 2 * t + e];
+            const float wa = v[kp][s][e] * fa * fc;
+            const float wb = v[kp][s][2 + e] * fb * fc;
+            mA = fmaf(wa, cb[s][e], mA);
+            mB = fmaf(wb, cb[s][2 + e], mB);
+            ws[kp][s][e] += wa;
+            ws[kp][s][2 + e] += wb;
+          }
+      } else if (irole) {             // rows i, the diagonal block
+#pragma unroll
+        for (int s = 0; s < 2; ++s)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 16 * blk + 8 * s + 2 * t + e;
+            const float cc = cum[col], dc = dts[col];
+            const float wa = v[kp][s][e] *
+                             __expf(col <= ra ? cA - cc : -INFINITY) * dc;
+            const float wb = v[kp][s][2 + e] *
+                             __expf(col <= rb ? cB - cc : -INFINITY) * dc;
+            if (col < ra) mA = fmaf(wa, cb[s][e], mA);
+            if (col < rb) mB = fmaf(wb, cb[s][2 + e], mB);
+            ws[kp][s][e] += wa;
+            ws[kp][s][2 + e] += wb;
+          }
+      } else {                        // rows j, columns i >= j
+        float gv[2][4];
+        if (blk > warp) {             // i > j throughout
+          const float cs = cum[16 * blk - 1];
+          const float ga = __expf(cs - cA), gb = __expf(cs - cB);
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float hc = hcol[16 * blk + 8 * s + 2 * t + e];
+              const float da = ga * hc, db = gb * hc;
+              gv[s][e] = cb[s][e] * da;
+              gv[s][2 + e] = cb[s][2 + e] * db;
+              const float wa = v[kp][s][e] * da * dA_;
+              const float wb = v[kp][s][2 + e] * db * dB_;
+              mA = fmaf(-wa, cb[s][e], mA);
+              mB = fmaf(-wb, cb[s][2 + e], mB);
+              ws[kp][s][e] += wa;
+              ws[kp][s][2 + e] += wb;
+            }
+        } else {                      // the diagonal block
+#pragma unroll
+          for (int s = 0; s < 2; ++s)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 16 * blk + 8 * s + 2 * t + e;
+              const float cc = cum[col];
+              const float da = __expf(col >= ra ? cc - cA : -INFINITY);
+              const float db = __expf(col >= rb ? cc - cB : -INFINITY);
+              gv[s][e] = cb[s][e] * da;
+              gv[s][2 + e] = cb[s][2 + e] * db;
+              const float wa = v[kp][s][e] * da * dA_;
+              const float wb = v[kp][s][2 + e] * db * dB_;
+              if (col > ra) mA = fmaf(-wa, cb[s][e], mA);
+              if (col > rb) mB = fmaf(-wb, cb[s][2 + e], mB);
+              ws[kp][s][e] += wa;
+              ws[kp][s][2 + e] += wb;
+            }
+        }
+        uint32_t ah[4], al[4];
+        split_frag(gv, ah, al);
+#pragma unroll
+        for (int pp = 0; pp < P / 16; ++pp) {
+          uint32_t r[4];
+          ldb_kn(r, dys, XS, 16 * blk, 16 * pp);
+          mma2(u[2 * pp], u[2 * pp + 1], ah, r);
+          mma2(u[2 * pp], u[2 * pp + 1], al, r);
+        }
+      }
+    }
+
+    // this warp's rows of x, for the epilogue; then x and dy are done with
+    uint32_t xa[P / 8], xb[P / 8];
+#pragma unroll
+    for (int nt = 0; nt < P / 8; ++nt) {
+      xa[nt] = *reinterpret_cast<const uint32_t*>(xs + ra * XS + 8 * nt + 2 * t);
+      xb[nt] = *reinterpret_cast<const uint32_t*>(xs + rb * XS + 8 * nt + 2 * t);
+    }
+    __syncthreads();
+    if (next) fetch_xdy(h + 1);
+
+    // u2 = B dS^T
+    float u2[P / 8][4] = {};
+    if (has_ds) {
+#pragma unroll
+      for (int ks = 0; ks < N / 16; ++ks) {
+        uint32_t aB[4];
+        lda(aB, Bs, BS, r0, 16 * ks);
+#pragma unroll
+        for (int pp = 0; pp < P / 16; ++pp) {
+          uint32_t rh[4], rl[4];
+          ldb_nk(rh, dSh, BS, 16 * pp, 16 * ks);
+          ldb_nk(rl, dSl, BS, 16 * pp, 16 * ks);
+          mma2(u2[2 * pp], u2[2 * pp + 1], aB, rh);
+          mma2(u2[2 * pp], u2[2 * pp + 1], aB, rl);
+        }
+      }
+    }
+
+    // dx = dt u, u = G^T dy + wend u2; x.u; K
+    const float wa = wend[ra], wb = wend[rb];
+    float xuA = 0.f, xuB = 0.f, kA = 0.f, kB = 0.f;
+    bf16* dxb = dx + (((long long)b * L + t0) * H + h) * P;
+    const long long dxs = (long long)H * P;
+#pragma unroll
+    for (int nt = 0; nt < P / 8; ++nt) {
+      const int p = 8 * nt + 2 * t;
+      const float2 fa = tc::unpack(xa[nt]), fb = tc::unpack(xb[nt]);
+      const float uA0 = fmaf(wa, u2[nt][0], u[nt][0]);
+      const float uA1 = fmaf(wa, u2[nt][1], u[nt][1]);
+      const float uB0 = fmaf(wb, u2[nt][2], u[nt][2]);
+      const float uB1 = fmaf(wb, u2[nt][3], u[nt][3]);
+      xuA = fmaf(fa.x, uA0, fmaf(fa.y, uA1, xuA));
+      xuB = fmaf(fb.x, uB0, fmaf(fb.y, uB1, xuB));
+      kA = fmaf(fa.x, u2[nt][0], fmaf(fa.y, u2[nt][1], kA));
+      kB = fmaf(fb.x, u2[nt][2], fmaf(fb.y, u2[nt][3], kB));
+      if (ra < q)
+        *reinterpret_cast<__nv_bfloat162*>(dxb + ra * dxs + p) =
+            __floats2bfloat162_rn(dA_ * uA0, dA_ * uA1);
+      if (rb < q)
+        *reinterpret_cast<__nv_bfloat162*>(dxb + rb * dxs + p) =
+            __floats2bfloat162_rn(dB_ * uB0, dB_ * uB1);
+    }
+    xuA = quad_sum(xuA);
+    xuB = quad_sum(xuB);
+    kA = quad_sum(kA);
+    kB = quad_sum(kB);
+    mA = quad_sum(mA);
+    mB = quad_sum(mB);
+    if (t == 0) {
+      const long long at = ((long long)b * L + t0) * H + h;
+      if (ra < q) {
+        xu[at + (long long)ra * H] = xuA;
+        v1[at + (long long)ra * H] = mA - wa * dA_ * kA;
+      }
+      if (rb < q) {
+        xu[at + (long long)rb * H] = xuB;
+        v1[at + (long long)rb * H] = mB - wb * dB_ * kB;
+      }
+    }
+    if (warp == 0 && next) vectors(dn, h + 1, buf ^ 1);
+    cp_async_wait_all();
+    __syncthreads();  // the next head's copies and vectors have landed
+  }
+
+  // C back in for dB's W term
+  tc::stage_rows<N>(Cs, Cm + b * c_sb + t0 * c_sl, c_sl, q);
+  cp_async_wait_all();
+  __syncthreads();
+  // this group's W terms: dC (i role, against B), then dB (j role, against C)
+#pragma unroll
+  for (int role = 0; role < 2; ++role) {
+    float acc[N / 8][4] = {};
+#pragma unroll
+    for (int kp = 0; kp < kPairs; ++kp) {
+      const bool irole = kp <= warp;
+      if (irole != (role == 0)) continue;
+      const int blk = irole ? kp : kp - 1;
+      uint32_t ah[4], al[4];
+      split_frag(ws[kp], ah, al);
+#pragma unroll
+      for (int np = 0; np < N / 16; ++np) {
+        uint32_t r[4];
+        ldb_kn(r, irole ? Bs : Cs, BS, 16 * blk, 16 * np);
+        mma2(acc[2 * np], acc[2 * np + 1], ah, r);
+        mma2(acc[2 * np], acc[2 * np + 1], al, r);
+      }
+    }
+    float* out = (role == 0 ? dCp : dBp) +
+                 (((long long)b * G + grp) * L + t0) * N;
+#pragma unroll
+    for (int nt = 0; nt < N / 8; ++nt) {
+      const int n = 8 * nt + 2 * t;
+      if (ra < q)
+        *reinterpret_cast<float2*>(out + (long long)ra * N + n) =
+            make_float2(acc[nt][0], acc[nt][1]);
+      if (rb < q)
+        *reinterpret_cast<float2*>(out + (long long)rb * N + n) =
+            make_float2(acc[nt][2], acc[nt][3]);
+    }
+  }
+}
+
+// Per (group of hg heads, chunk, batch row), 8 warps of 16 rows: the
+// state terms of dC and dB, summed over the group's heads in registers,
+// added to chunk_dx's W terms in place:
+//   phase 1: dC_i += sum_h e^{cum_i} (dy_i S) (dy exact, S the state
+//            before the chunk, split; off_i = C_i.(that term) to v1),
+//   phase 2: dB_j += sum_h wend_j dt_j (x_j dS) (x exact, dS split).
+// One buffer each, the copies staggered: the next head's dy and S are
+// copied in while phase 2 runs, its x and dS while the next phase 1 runs
+// (two cp.async groups in flight).
+template <int P, int N>
+__global__ void __launch_bounds__(kThreads, 1)
+chunk_dbc(const bf16* __restrict__ x, const float* __restrict__ dt,
+          const float* __restrict__ A, const bf16* __restrict__ Cm,
+          const bf16* __restrict__ dy, const bf16* __restrict__ shl,
+          const bf16* __restrict__ dshl, float* __restrict__ v1,
+          float* __restrict__ dBp, float* __restrict__ dCp, int L, int H,
+          int nc, int hg, long long x_sb, long long x_sl, long long x_sh,
+          long long dt_sb, long long dt_sl, long long dt_sh, long long c_sb,
+          long long c_sl, long long dy_sb, long long dy_sl, long long dy_sh) {
+  constexpr int BS = N + kPad, XS = P + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Cs = reinterpret_cast<bf16*>(smem);  // [kQ][BS] C
+  bf16* xs = Cs + kQ * BS;                   // [kQ][XS]
+  bf16* dys = xs + kQ * XS;                  // [kQ][XS]
+  bf16* Sh = dys + kQ * XS;                  // [2P][BS] S hi, then lo
+  bf16* Sl = Sh + P * BS;
+  bf16* dSh = Sl + P * BS;                   // [2P][BS] dS hi, then lo
+  bf16* dSl = dSh + P * BS;
+  float* cum = reinterpret_cast<float*>(dSl + P * BS);  // cum, dts scratch
+  float* vec0 = cum + 2 * kQ;                // 2 x (ecum, wd)
+
+  const int grp = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
+  const int G = gridDim.x, nc1 = nc - 1;
+  const int h0 = grp * hg, h1 = min(H, h0 + hg);
+  const int lane = threadIdx.x & 31, warp = tc::warp_uniform(threadIdx.x >> 5);
+  const int g = lane >> 2, t = lane & 3;
+  const int t0 = c * kQ, q = min(kQ, L - t0);
+  const int r0 = 16 * warp, ra = r0 + g, rb = ra + 8;
+  const bool has_s = c > 0, has_ds = c < nc1;
+  if (!has_s && !has_ds) return;  // one chunk: no state terms
+  const float* dtb = dt + b * dt_sb + t0 * dt_sl;
+  const long long PN2 = 2LL * P * N;
+
+  // group A (phase 1's dy and S) and group B (phase 2's x and dS) of head
+  // h, each committed even when empty, so two groups are always in flight
+  auto fetchA = [&](int h, bool on) {
+    if (on && has_s) {
+      tc::stage_rows<P>(dys, dy + b * dy_sb + t0 * dy_sl + h * dy_sh, dy_sl, q);
+      stage_tile<2 * P, N>(Sh, shl + (((long long)b * nc1 + c - 1) * H + h) * PN2);
+    }
+    cp_async_commit();
+  };
+  auto fetchB = [&](int h, bool on) {
+    if (on && has_ds) {
+      tc::stage_rows<P>(xs, x + b * x_sb + t0 * x_sl + h * x_sh, x_sl, q);
+      stage_tile<2 * P, N>(dSh, dshl + (((long long)b * nc1 + c) * H + h) * PN2);
+    }
+    cp_async_commit();
+  };
+  // warp 0: ecum = e^{cum} and wd = e^{cum_last - cum} dt of a head
+  auto vectors = [&](const float (&d)[4], int h, int buf) {
+    tc::chunk_scan(d, A[h], cum, cum + kQ);
+    float* ecum = vec0 + buf * (2 * kQ);
+    const float last = cum[kQ - 1];
+    for (int r = lane; r < kQ; r += 32) {
+      ecum[r] = expf(cum[r]);
+      ecum[kQ + r] = expf(last - cum[r]) * cum[kQ + r];
+    }
+    __syncwarp();
+  };
+
+  tc::stage_rows<N>(Cs, Cm + b * c_sb + t0 * c_sl, c_sl, q);
+  fetchA(h0, true);
+  fetchB(h0, true);
+  if (warp == 0) {
+    float d[4];
+    tc::chunk_dt(dtb + h0 * dt_sh, dt_sl, q, d);
+    vectors(d, h0, 0);
+  }
+  float dC[N / 8][4] = {}, dB[N / 8][4] = {};
+  for (int h = h0; h < h1; ++h) {
+    const int buf = (h - h0) & 1;
+    const bool next = h + 1 < h1;
+    const float* ecum = vec0 + buf * (2 * kQ);
+    const float* wd = ecum + kQ;
+    float dn[4];
+    if (warp == 0) tc::chunk_dt(dtb + (next ? h + 1 : h) * dt_sh, dt_sl, q, dn);
+    cp_async_wait<1>();
+    __syncthreads();  // group A of h (and C) has landed
+    if (has_s) {
+      float tmp[N / 8][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks) {
+        uint32_t a[4];
+        lda(a, dys, XS, r0, 16 * ks);
+#pragma unroll
+        for (int np = 0; np < N / 16; ++np) {
+          uint32_t rh[4], rl[4];
+          ldb_kn(rh, Sh, BS, 16 * ks, 16 * np);
+          ldb_kn(rl, Sl, BS, 16 * ks, 16 * np);
+          mma2(tmp[2 * np], tmp[2 * np + 1], a, rh);
+          mma2(tmp[2 * np], tmp[2 * np + 1], a, rl);
+        }
+      }
+      const float ea = ecum[ra], eb = ecum[rb];
+      float oA = 0.f, oB = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < N / 8; ++nt) {
+        const int n = 8 * nt + 2 * t;
+        const float2 ca = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Cs + ra * BS + n));
+        const float2 cbv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(Cs + rb * BS + n));
+        const float a0 = ea * tmp[nt][0], a1 = ea * tmp[nt][1];
+        const float b0 = eb * tmp[nt][2], b1 = eb * tmp[nt][3];
+        oA = fmaf(ca.x, a0, fmaf(ca.y, a1, oA));
+        oB = fmaf(cbv.x, b0, fmaf(cbv.y, b1, oB));
+        dC[nt][0] += a0;
+        dC[nt][1] += a1;
+        dC[nt][2] += b0;
+        dC[nt][3] += b1;
+      }
+      oA = quad_sum(oA);
+      oB = quad_sum(oB);
+      if (t == 0) {
+        const long long at = ((long long)b * L + t0) * H + h;
+        if (ra < q) v1[at + (long long)ra * H] += oA;
+        if (rb < q) v1[at + (long long)rb * H] += oB;
+      }
+    }
+    __syncthreads();  // dy and S are done with
+    fetchA(h + 1, next);
+    cp_async_wait<1>();
+    __syncthreads();  // group B of h has landed
+    if (has_ds) {
+      float tmp[N / 8][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < P / 16; ++ks) {
+        uint32_t a[4];
+        lda(a, xs, XS, r0, 16 * ks);
+#pragma unroll
+        for (int np = 0; np < N / 16; ++np) {
+          uint32_t rh[4], rl[4];
+          ldb_kn(rh, dSh, BS, 16 * ks, 16 * np);
+          ldb_kn(rl, dSl, BS, 16 * ks, 16 * np);
+          mma2(tmp[2 * np], tmp[2 * np + 1], a, rh);
+          mma2(tmp[2 * np], tmp[2 * np + 1], a, rl);
+        }
+      }
+      const float wa = wd[ra], wb = wd[rb];
+#pragma unroll
+      for (int nt = 0; nt < N / 8; ++nt) {
+        dB[nt][0] = fmaf(wa, tmp[nt][0], dB[nt][0]);
+        dB[nt][1] = fmaf(wa, tmp[nt][1], dB[nt][1]);
+        dB[nt][2] = fmaf(wb, tmp[nt][2], dB[nt][2]);
+        dB[nt][3] = fmaf(wb, tmp[nt][3], dB[nt][3]);
+      }
+    }
+    if (warp == 0 && next) vectors(dn, h + 1, buf ^ 1);
+    __syncthreads();  // x and dS are done with; the next vectors are in
+    fetchB(h + 1, next);
+  }
+  cp_async_wait<0>();
+  const long long base = (((long long)b * G + grp) * L + t0) * N;
+#pragma unroll
+  for (int nt = 0; nt < N / 8; ++nt) {
+    const int n = 8 * nt + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = half ? rb : ra;
+      if (r >= q) continue;
+      float2* pc = reinterpret_cast<float2*>(dCp + base + (long long)r * N + n);
+      float2* pb = reinterpret_cast<float2*>(dBp + base + (long long)r * N + n);
+      float2 vc = *pc, vb = *pb;
+      vc.x += dC[nt][2 * half];
+      vc.y += dC[nt][2 * half + 1];
+      vb.x += dB[nt][2 * half];
+      vb.y += dB[nt][2 * half + 1];
+      *pc = vc;
+      *pb = vb;
+    }
+  }
+}
+
+// Per (4 heads, chunk, batch row), a warp a head, 4 rows a lane: dcum =
+// v1 (rowm - colm + off - K) plus <dS, S after> on the chunk's last row,
+// its reverse cumsum R, ddt = A R + x.u (xu, read from and written to
+// ddt), and this chunk's part of dA, sum_t dt_t R_t.
+__global__ void __launch_bounds__(128)
+chunk_rows(const float* __restrict__ dt, const float* __restrict__ A,
+           const float* __restrict__ v1, const float* __restrict__ sdp,
+           float* __restrict__ ddt, float* __restrict__ dAp, int L, int H,
+           int nc, int slices, long long dt_sb, long long dt_sl,
+           long long dt_sh) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int h = blockIdx.x * 4 + warp, c = blockIdx.y, b = blockIdx.z;
+  if (h >= H) return;
+  const int t0 = c * kQ, q = min(kQ, L - t0), nc1 = nc - 1;
+  const long long at = ((long long)b * L + t0) * H + h;
+  float d[4], dtv[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = 4 * lane + e;
+    const bool in = r < q;
+    d[e] = in ? v1[at + (long long)r * H] : 0.f;
+    dtv[e] = in ? dt[b * dt_sb + (t0 + r) * dt_sl + h * dt_sh] : 0.f;
+  }
+  if (c < nc1 && lane == 31) {  // not the last chunk: q = kQ
+    const float* sp = sdp + (((long long)b * nc1 + c) * H + h) * slices;
+    float sd = 0.f;
+    for (int s = 0; s < slices; ++s) sd += sp[s];
+    d[3] += sd;
+  }
+  float R[4];
+  R[3] = d[3];
+  R[2] = R[3] + d[2];
+  R[1] = R[2] + d[1];
+  R[0] = R[1] + d[0];
+  float incl = R[0];
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_down_sync(0xffffffffu, incl, o);
+    if (lane + o < 32) incl += v;
+  }
+  float later = __shfl_down_sync(0xffffffffu, incl, 1);
+  if (lane == 31) later = 0.f;
+  const float a = A[h];
+  float pa = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = 4 * lane + e;
+    const float Rt = later + R[e];
+    if (r < q) ddt[at + (long long)r * H] = fmaf(a, Rt, ddt[at + (long long)r * H]);
+    pa = fmaf(dtv[e], Rt, pa);
+  }
+  pa = bwd::warp_sum(pa);
+  if (lane == 0) dAp[((long long)b * nc + c) * H + h] = pa;
+}
+
+// dB, dC (batch, L, N) = the groups' parts (batch, G, L, N) summed in
+// group order, cast to bf16.
+__global__ void __launch_bounds__(256)
+sum_groups(const float* __restrict__ dBp, const float* __restrict__ dCp,
+           bf16* __restrict__ dB, bf16* __restrict__ dC, int G, long long LN,
+           long long total) {
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= total) return;
+  const long long b = idx / LN, r = idx - b * LN;
+  const float* pb = dBp + b * G * LN + r;
+  const float* pc = dCp + b * G * LN + r;
+  float sb = 0.f, sc = 0.f;
+  for (int k = 0; k < G; ++k) {
+    sb += pb[k * LN];
+    sc += pc[k * LN];
+  }
+  dB[idx] = __float2bfloat16(sb);
+  dC[idx] = __float2bfloat16(sc);
+}
+
+template <int P, int N>
+int launch(const bf16* x, const float* dt, const float* A, const bf16* Bm,
+           const bf16* Cm, const bf16* dy, bf16* dx, float* ddt, float* dA,
+           bf16* dB, bf16* dC, int batch, int L, int H, int hg,
+           const long long* s, const float* states, float* D, bf16* dshl,
+           bf16* shl, float* clr, float* sdp, float* v1, float* dBp,
+           float* dCp, float* dAp, cudaStream_t st) {
+  const int nc = (L + kQ - 1) / kQ, nc1 = nc - 1, G = (H + hg - 1) / hg;
+  const int pn4 = P * N / 4;
+  const int slices = (pn4 + kScanThreads - 1) / kScanThreads;
+  cudaError_t e;
+  if (nc1 > 0) {
+    e = cudaFuncSetAttribute(tc::chunk_state<P, N, true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tc::state_smem(P, N));
+    if (e != cudaSuccess) return (int)e;
+    tc::chunk_state<P, N, true><<<dim3(H, nc1, batch), kThreads,
+                                  tc::state_smem(P, N), st>>>(
+        dy, dt, A, Cm, D, clr, L, H, nc1, s[10], s[11], s[12], s[3], s[4],
+        s[5], s[8], s[9]);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    dstate_pass<<<dim3(slices, H, batch), kScanThreads, 0, st>>>(
+        D, clr, states, dshl, shl, sdp, H, nc1, pn4);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  }
+  e = cudaFuncSetAttribute(chunk_dx<P, N>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           dx_smem(P, N));
+  if (e != cudaSuccess) return (int)e;
+  chunk_dx<P, N><<<dim3(G, nc, batch), kThreads, dx_smem(P, N), st>>>(
+      x, dt, A, Bm, Cm, dy, dshl, dx, ddt, v1, dBp, dCp, L, H, nc, hg, s[0],
+      s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
+      s[12]);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  e = cudaFuncSetAttribute(chunk_dbc<P, N>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           dbc_smem(P, N));
+  if (e != cudaSuccess) return (int)e;
+  chunk_dbc<P, N><<<dim3(G, nc, batch), kThreads, dbc_smem(P, N), st>>>(
+      x, dt, A, Cm, dy, shl, dshl, v1, dBp, dCp, L, H, nc, hg, s[0], s[1],
+      s[2], s[3], s[4], s[5], s[8], s[9], s[10], s[11], s[12]);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  chunk_rows<<<dim3((H + 3) / 4, nc, batch), 128, 0, st>>>(
+      dt, A, v1, sdp, ddt, dAp, L, H, nc, slices, s[3], s[4], s[5]);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const long long LN = (long long)L * N, total = batch * LN;
+  sum_groups<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(dBp, dCp, dB,
+                                                             dC, G, LN, total);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  bwd::sum_da<<<(H + bwd::kThreads - 1) / bwd::kThreads, bwd::kThreads, 0,
+                st>>>(dAp, dA, batch * nc, H);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_n(int N, const bf16* x, const float* dt, const float* A,
+             const bf16* Bm, const bf16* Cm, const bf16* dy, bf16* dx,
+             float* ddt, float* dA, bf16* dB, bf16* dC, int batch, int L,
+             int H, int hg, const long long* s, const float* states,
+             float* D, bf16* dshl, bf16* shl, float* clr, float* sdp,
+             float* v1, float* dBp, float* dCp, float* dAp, cudaStream_t st) {
+#define TCB_LAUNCH(NN)                                                       \
+  return launch<P, NN>(x, dt, A, Bm, Cm, dy, dx, ddt, dA, dB, dC, batch, L, \
+                       H, hg, s, states, D, dshl, shl, clr, sdp, v1, dBp,   \
+                       dCp, dAp, st)
+  switch (N) {
+    case 16: TCB_LAUNCH(16);
+    case 32: TCB_LAUNCH(32);
+    case 64: TCB_LAUNCH(64);
+    case 128: TCB_LAUNCH(128);
+  }
+#undef TCB_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace tcb
 
 extern "C" {
 
@@ -1542,8 +2477,8 @@ long long ssd_bwd_smem_bytes(int N, int P) {
   return (a > b ? a : b) * (long long)sizeof(float);
 }
 
-// The backward.  dtype codes as above (x, B, C, dy, dx, dB and dC share
-// it; dt, ddt, A and dA are float32); P and N multiples of 4.  Element
+// The float32 backward (`bwd::`, parity checks): x, B, C, dy, dx, dB and
+// dC float32, as are dt, ddt, A and dA; P and N multiples of 4.  Element
 // strides: x and dy (batch, L, H) with P contiguous; dt (batch, L, H); B
 // and C (batch, L) with N contiguous.  dx (batch, L, H, P), ddt (batch, L,
 // H) and dB, dC (batch, L, N) contiguous.  fp32 scratch, with nc =
@@ -1555,29 +2490,59 @@ int ssd_bwd(const void* x, const void* dt, const void* A, const void* Bm,
             long long x_sb, long long x_sl, long long x_sh, long long dt_sb,
             long long dt_sl, long long dt_sh, long long b_sb, long long b_sl,
             long long c_sb, long long c_sl, long long dy_sb, long long dy_sl,
-            long long dy_sh, int dtype, void* states, void* dstates,
-            void* cumlast, void* dBp, void* dCp, void* dAp, void* stream) {
+            long long dy_sh, void* states, void* dstates, void* cumlast,
+            void* dBp, void* dCp, void* dAp, void* stream) {
   if (batch == 0 || L == 0 || H == 0) return 0;
   if (P % 4 || N % 4 || P <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
   const long long s[13] = {x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb,
                            b_sl, c_sb, c_sl, dy_sb, dy_sl, dy_sh};
-  cudaStream_t st = (cudaStream_t)stream;
-  float *f0 = (float*)states, *f1 = (float*)dstates, *f2 = (float*)cumlast,
-        *f3 = (float*)dBp, *f4 = (float*)dCp, *f5 = (float*)dAp;
-  if (dtype == 0) {
-    typedef float T;
-    return bwd::launch<T>((const T*)x, (const float*)dt, (const float*)A,
-                          (const T*)Bm, (const T*)Cm, (const T*)dy, (T*)dx,
-                          (float*)ddt, (float*)dA, (T*)dB, (T*)dC, batch, L, H,
-                          P, N, s, f0, f1, f2, f3, f4, f5, st);
+  return bwd::launch((const float*)x, (const float*)dt, (const float*)A,
+                     (const float*)Bm, (const float*)Cm, (const float*)dy,
+                     (float*)dx, (float*)ddt, (float*)dA, (float*)dB,
+                     (float*)dC, batch, L, H, P, N, s, (float*)states,
+                     (float*)dstates, (float*)cumlast, (float*)dBp,
+                     (float*)dCp, (float*)dAp, (cudaStream_t)stream);
+}
+
+// The bfloat16 backward (`tcb::`, tensor cores): x, B, C, dy, dx, dB and
+// dC bfloat16; dt, ddt, A and dA float32.  P in {16, 32, 64}, N in {16,
+// 32, 64, 128}; x, B, C and dy 16-byte aligned with strides that are
+// multiples of 8 elements (strides as ssd_bwd's); dx, ddt, dB, dC
+// contiguous.  `hg` heads a group.  With nc = ceil(L / 128), nc1 = nc -
+// 1, G = ceil(H / hg), slices = ceil(P N / 1024): `states` (batch, nc1, H,
+// P, N) fp32, the forward's (ssd_fwd's `states` after the call); scratch
+// `D` (batch, nc1, H, P, N) fp32, `dshl` and `shl` (batch, nc1, H, 2, P,
+// N) bf16, `clr` (batch, nc1, H), `sdp` (batch, nc1, H, slices), `v1`
+// (batch, L, H), `dBp` and `dCp` (batch, G, L, N), `dAp` (batch, nc, H),
+// all fp32 but dshl and shl.
+int ssd_bwd_tc(const void* x, const void* dt, const void* A, const void* Bm,
+               const void* Cm, const void* dy, void* dx, void* ddt, void* dA,
+               void* dB, void* dC, int batch, int L, int H, int P, int N,
+               int hg, long long x_sb, long long x_sl, long long x_sh,
+               long long dt_sb, long long dt_sl, long long dt_sh,
+               long long b_sb, long long b_sl, long long c_sb, long long c_sl,
+               long long dy_sb, long long dy_sl, long long dy_sh,
+               const void* states, void* D, void* dshl, void* shl, void* clr,
+               void* sdp, void* v1, void* dBp, void* dCp, void* dAp,
+               void* stream) {
+  if (batch == 0 || L == 0 || H == 0) return 0;
+  if (hg < 1) return (int)cudaErrorInvalidValue;
+  const long long s[13] = {x_sb, x_sl, x_sh, dt_sb, dt_sl, dt_sh, b_sb,
+                           b_sl, c_sb, c_sl, dy_sb, dy_sl, dy_sh};
+  typedef __nv_bfloat16 bf16;
+#define TCB_P(PP)                                                             \
+  return tcb::launch_n<PP>(                                                   \
+      N, (const bf16*)x, (const float*)dt, (const float*)A, (const bf16*)Bm,  \
+      (const bf16*)Cm, (const bf16*)dy, (bf16*)dx, (float*)ddt, (float*)dA,   \
+      (bf16*)dB, (bf16*)dC, batch, L, H, hg, s, (const float*)states,         \
+      (float*)D, (bf16*)dshl, (bf16*)shl, (float*)clr, (float*)sdp,           \
+      (float*)v1, (float*)dBp, (float*)dCp, (float*)dAp, (cudaStream_t)stream)
+  switch (P) {
+    case 16: TCB_P(16);
+    case 32: TCB_P(32);
+    case 64: TCB_P(64);
   }
-  if (dtype == 1) {
-    typedef __nv_bfloat16 T;
-    return bwd::launch<T>((const T*)x, (const float*)dt, (const float*)A,
-                          (const T*)Bm, (const T*)Cm, (const T*)dy, (T*)dx,
-                          (float*)ddt, (float*)dA, (T*)dB, (T*)dC, batch, L, H,
-                          P, N, s, f0, f1, f2, f3, f4, f5, st);
-  }
+#undef TCB_P
   return (int)cudaErrorInvalidValue;
 }
 

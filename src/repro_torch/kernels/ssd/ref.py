@@ -15,6 +15,9 @@
 - `ssd_bwd_plain`: the gradients of `ssd_plain` written out chunk by
   chunk in fp32, what the backward kernel computes; it is to that
   kernel what `ssd_plain` is to the forward.
+- `ssd_bwd_tc_plain`: the bf16 backward kernel's decomposition (its
+  chunk, head groups and hi + lo splits); it is to that kernel what
+  `ssd_tc_plain` is to the forward's.
 
 Shapes as in the reference: x (b, L, H, P); dt (b, L, H), post-softplus;
 A (H,), negative; B, C (b, L, N), one group.  y comes back in x's dtype.
@@ -44,6 +47,11 @@ def ssd_ref(x, dt, A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cf[:, t]))
     y = torch.stack(ys, dim=1) if ys else xf.new_zeros((b, 0, H, P))
     return y.to(x.dtype), state.to(x.dtype)
+
+
+#: rows of a chunk of the bf16 tensor-core kernels, forward and backward
+#: (`tc::kQ` in ssd.cu)
+TC_CHUNK = 128
 
 
 def ssd_plain(x, dt, A, B, C, chunk: int = 128) -> torch.Tensor:
@@ -218,6 +226,114 @@ def ssd_bwd_plain(x, dt, A, B, C, dy, chunk: int = 128):
     def cat(parts, like, shape):
         out = torch.cat(parts[::-1], dim=1) if parts else \
             torch.zeros(shape, dtype=torch.float32, device=x.device)
+        return out.to(like.dtype)
+
+    return (cat(dxs, x, (b, 0, H, P)), cat(ddts, dt, (b, 0, H)),
+            dA.to(A.dtype), cat(dBs, B, (b, 0, N)), cat(dCs, C, (b, 0, N)))
+
+
+def ssd_bwd_tc_plain(x, dt, A, B, C, dy, group: int):
+    """The bf16 backward kernel's arithmetic: `ssd_bwd_plain`'s formulas
+    in the kernel's chunks of `TC_CHUNK` rows, grouped and split as the
+    kernel takes them.  Returns (dx, ddt, dA, dB, dC) in x's, dt's, A's,
+    B's and C's dtypes.
+
+    - The states S before each chunk are the forward's tensor-core states
+      (`ssd_tc_plain`: the own state sum_j x_j (w_j B_j)^T with w.B
+      split), fp32; the state gradients dS carry each chunk's own term
+      sum_i dy_i (exp(cum_i) C_i)^T, exp(cum).C split, against dy.
+    - u = G^T dy (G split) + diag(wend) B dS^T (dS split); dx = dt u.
+    - The terms of dB and dC through W are taken once per group of
+      `group` heads (the kernel's `ops.bwd_heads_per_group`): W summed
+      over the group's heads in fp32, split, against C or B; the groups'
+      terms summed in order.  The state terms, diag(exp cum) dy S (S
+      split) and diag(wend dt) x dS (dS split), are summed over the heads.
+    - dcum, R, ddt and dA as `ssd_bwd_plain`, with the split products.
+
+    Every fp32-derived operand is split hi + lo (`split_bf16`), whatever
+    the inputs' dtype, as the kernel splits them."""
+    b, L, H, P = x.shape
+    N = B.shape[-1]
+    if group < 1:
+        raise ValueError(f"ssd_bwd_tc_plain: group must be positive, got "
+                         f"{group}")
+    chunk, sp = TC_CHUNK, split_bf16
+    xf, dtf, Bf, Cf, dyf = (t.float() for t in (x, dt, B, C, dy))
+    Af = A.float()
+    dev = x.device
+    starts = list(range(0, L, chunk))
+
+    def cums(t0):
+        t1 = min(t0 + chunk, L)
+        return t1, torch.cumsum(dtf[:, t0:t1] * Af, dim=1)
+
+    # the forward's states before and after each chunk, and each chunk's
+    # own state gradient (dy against exp(cum).C split)
+    state = torch.zeros((b, H, P, N), dtype=torch.float32, device=dev)
+    before, after, own_ds = [], [], []
+    for t0 in starts:
+        t1, cum = cums(t0)
+        xc, dtc, dyc = xf[:, t0:t1], dtf[:, t0:t1], dyf[:, t0:t1]
+        before.append(state)
+        w = torch.exp(cum[:, -1:] - cum) * dtc                # (b, q, H)
+        wB = w[..., None] * Bf[:, t0:t1, None, :]             # (b, q, H, N)
+        own = sum(torch.einsum("bjhn,bjhp->bhpn", v, xc) for v in sp(wB))
+        state = state * torch.exp(cum[:, -1])[..., None, None] + own
+        after.append(state)
+        eC = torch.exp(cum)[..., None] * Cf[:, t0:t1, None, :]
+        own_ds.append(sum(torch.einsum("bihn,bihp->bhpn", v, dyc)
+                          for v in sp(eC)))
+    dS = torch.zeros_like(state)
+    dA = torch.zeros((H,), dtype=torch.float32, device=dev)
+    dxs, ddts, dBs, dCs = [], [], [], []
+    heads = [slice(h0, min(H, h0 + group)) for h0 in range(0, H, group)]
+    for k in reversed(range(len(starts))):
+        t0 = starts[k]
+        t1, cum = cums(t0)
+        q = t1 - t0
+        xc, dtc, dyc = xf[:, t0:t1], dtf[:, t0:t1], dyf[:, t0:t1]
+        Bc, Cc, S = Bf[:, t0:t1], Cf[:, t0:t1], before[k]
+        seg = cum[:, :, None, :] - cum[:, None, :, :]         # (b, i, j, H)
+        tri = torch.ones((q, q), dtype=torch.bool, device=dev).tril()
+        decay = torch.exp(seg.masked_fill(~tri[None, :, :, None],
+                                          float("-inf")))
+        cb = torch.einsum("bin,bjn->bij", Cc, Bc)
+        W = torch.einsum("bihp,bjhp->bijh", dyc, xc) * decay \
+            * dtc[:, None, :, :]
+        wend = torch.exp(cum[:, -1:] - cum)                   # (b, q, H)
+        ecum = torch.exp(cum)
+        G = cb[..., None] * decay
+        dsb = sum(torch.einsum("bjn,bhpn->bjhp", Bc, s) for s in sp(dS))
+        u = (sum(torch.einsum("bijh,bihp->bjhp", s, dyc) for s in sp(G))
+             + wend[..., None] * dsb)
+        dxs.append(dtc[..., None] * u)
+        off = ecum[..., None] * sum(torch.einsum("bihp,bhpn->bihn", dyc, s)
+                                    for s in sp(S))
+        dB2 = (wend * dtc)[..., None] * sum(
+            torch.einsum("bjhp,bhpn->bjhn", xc, s) for s in sp(dS))
+        dC, dB = off.sum(2), dB2.sum(2)
+        for hs in heads:
+            Wg = W[..., hs].sum(-1)                           # (b, i, j)
+            dC = dC + sum(torch.einsum("bij,bjn->bin", s, Bc)
+                          for s in sp(Wg))
+            dB = dB + sum(torch.einsum("bij,bin->bjn", s, Cc)
+                          for s in sp(Wg))
+        dCs.append(dC)
+        dBs.append(dB)
+        xu = (xc * u).sum(-1)                                 # (b, q, H)
+        M = W * (cb * tri.tril(-1))[..., None]   # strictly below the diagonal
+        K = wend * dtc * (xc * dsb).sum(-1)
+        dcum = (M.sum(2) - M.sum(1) + torch.einsum("bin,bihn->bih", Cc, off)
+                - K)
+        dcum[:, -1] += (dS * after[k]).sum((-1, -2))
+        R = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        ddts.append(Af * R + xu)
+        dA = dA + (dtc * R).sum((0, 1))
+        dS = dS * torch.exp(cum[:, -1])[..., None, None] + own_ds[k]
+
+    def cat(parts, like, shape):
+        out = torch.cat(parts[::-1], dim=1) if parts else \
+            torch.zeros(shape, dtype=torch.float32, device=dev)
         return out.to(like.dtype)
 
     return (cat(dxs, x, (b, 0, H, P)), cat(ddts, dt, (b, 0, H)),

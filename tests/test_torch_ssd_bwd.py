@@ -42,7 +42,8 @@ from repro.runtime.train import make_loss_fn as jax_make_loss_fn
 from repro_torch.kernels.rmsnorm.ref import (rmsnorm_split_bwd_ref,
                                              rmsnorm_split_ref)
 from repro_torch.kernels.ssd import ops as ssd_ops
-from repro_torch.kernels.ssd.ref import ssd_bwd_plain, ssd_plain
+from repro_torch.kernels.ssd.ref import (ssd_bwd_plain, ssd_bwd_tc_plain,
+                                         ssd_plain)
 from repro_torch.models import ssm as torch_ssm
 from repro_torch.optim.optimizers import OptimizerConfig, build_optimizer
 from repro_torch.runtime.train import TrainConfig, make_train_step
@@ -145,16 +146,68 @@ def test_bwd_plain_does_not_depend_on_its_chunk(b, L, H, P, N, chunk,
                1e-4, f"chunk {other}")
 
 
+def _bf16_rounded(arrays):
+    """x, B, C and dy rounded to bf16 (the tensor-core route's exact
+    operands), as float32 numpy; dt and A as they are."""
+    return [torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+            if i in (0, 3, 4, 5) else a for i, a in enumerate(arrays)]
+
+
+@pytest.mark.parametrize("group", [1, 2, 3, 4, 8, 16])
+@pytest.mark.parametrize("b,L,H,P,N,chunk,steep", CASES)
+def test_bwd_tc_plain_matches_bwd_plain(b, L, H, P, N, chunk, steep, group):
+    """The bf16 route's arithmetic (`ssd_bwd_tc_plain`: chunks of 128, W
+    summed over head groups of 1 to 16, the kernel's range, a group of at
+    least H taking every head; hi + lo splits) against the written-out
+    backward at the same chunk, on bf16-rounded inputs."""
+    arrays = _bf16_rounded(_case(b, L, H, P, N, steep))
+    tensors = [torch.from_numpy(a) for a in arrays]
+    got = ssd_bwd_tc_plain(*tensors, group)
+    want = ssd_bwd_plain(*tensors, 128)
+    # the split keeps 16 bits of each fp32 operand, a relative 2^-17 each,
+    # over sums of up to 128 products, and the fp32 sums are regrouped:
+    # 8.6e-6 seen, bound 3e-5
+    _close([t.numpy() for t in got], [t.numpy() for t in want], 3e-5,
+           f"group {group}", arrays)
+    if steep:
+        assert (got[2] == 0).all()
+
+
+@pytest.mark.parametrize("oracle", ["ssd_ref", "ssd_scan"])
+@pytest.mark.parametrize("b,L,H,P,N,chunk,steep", CASES)
+def test_bwd_tc_plain_matches_jax_vjp(oracle, b, L, H, P, N, chunk, steep):
+    """`ssd_bwd_tc_plain` (2 heads a group) against `jax.vjp` of
+    the reference's oracle and scan on the same bf16-rounded values: 1e-4,
+    as `ssd_bwd_plain` (another chunking; the split's 2^-17 is far below
+    it), dA of its terms' magnitudes (1.0e-5 seen).  Fed bf16 tensors it
+    splits by itself and returns the inputs' dtypes."""
+    arrays = _bf16_rounded(_case(b, L, H, P, N, steep))
+    fn = ((lambda *a: jax_ssd_ref(*a)[0]) if oracle == "ssd_ref"
+          else _jax_scan_padded(chunk))
+    want = jax.jit(lambda args, g: jax.vjp(fn, *args)[1](g))(
+        [jnp.asarray(a) for a in arrays[:5]], jnp.asarray(arrays[5]))
+    ins = [torch.from_numpy(a) for a in arrays]
+    got = ssd_bwd_tc_plain(*ins, 2)
+    _close([t.numpy() for t in got], [np.asarray(w) for w in want], 1e-4,
+           oracle, arrays)
+    ins = [t.to(torch.bfloat16) if i in (0, 3, 4, 5) else t
+           for i, t in enumerate(ins)]
+    as_bf16 = ssd_bwd_tc_plain(*ins, 2)
+    assert [g.dtype for g in as_bf16] == [t.dtype for t in ins[:5]]
+    for g, w in zip(as_bf16, got):
+        assert torch.equal(g, w.to(g.dtype))
+
+
 def _plain_launches(monkeypatch, chunk):
     """`_SSD`'s kernel launches replaced by the plain versions (what the
     card runs, on the CPU), counted in the dict returned."""
     calls = {}
 
-    def fwd(x, dt, A, B, C):
+    def fwd(x, dt, A, B, C, keep=False):
         calls["fwd"] = calls.get("fwd", 0) + 1
-        return ssd_plain(x, dt, A, B, C, chunk)
+        return ssd_plain(x, dt, A, B, C, chunk), None
 
-    def bwd(x, dt, A, B, C, dy):
+    def bwd(x, dt, A, B, C, dy, states=None):
         calls["bwd"] = calls.get("bwd", 0) + 1
         return ssd_bwd_plain(x, dt, A, B, C, dy, chunk)
 
@@ -173,7 +226,7 @@ def test_ssd_function_wires_the_backward(monkeypatch, dtype):
     ins = [t.to(dtype) if i in (0, 3, 4) else t for i, t in enumerate(ins)]
     ins = [t.requires_grad_() for t in ins]
     dy = torch.from_numpy(arrays[5]).to(dtype)
-    got = torch.autograd.grad(ssd_ops._SSD.apply(*ins), ins, dy)
+    got = torch.autograd.grad(ssd_ops._SSD.apply(*ins, True), ins, dy)
     want = torch.autograd.grad(ssd_plain(*ins, 32), ins, dy)
     assert calls == {"fwd": 1, "bwd": 1}
     assert [g.dtype for g in got] == [t.dtype for t in ins]
@@ -252,7 +305,7 @@ def test_mamba2_train_step_through_ssd_function_matches_jax(monkeypatch):
     jcfg, tcfg = configs(arch)
     calls = _plain_launches(monkeypatch, tcfg.ssm_chunk)
     monkeypatch.setattr(torch_ssm, "ssd", lambda x, dt, A, B, C, chunk:
-                        (ssd_ops._SSD.apply(x, dt, A, B, C), None))
+                        (ssd_ops._SSD.apply(x, dt, A, B, C, True), None))
     jparams, tparams = both_params(numpy_params(jcfg), "float32")
     jb, tb = train_batch(tcfg, S, B, "float32")
 
