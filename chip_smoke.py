@@ -78,7 +78,17 @@ Phases, each of which fails the run (exit code 1, no result line):
    the card, and times it at zamba2's pod-rank (2048 x 320 of 5120) and
    four-card (2048 x 1280) shapes beside its bound and F.rms_norm over
    the whole row; its launches on the main paths (0: on one card no
-   path splits heads) are on the kernels line;
+   path splits heads) are on the kernels line.  The gated norm (the
+   Mamba2 mixer's y * silu(z) folded into the RMSNorm kernels:
+   `rmsnorm_gated`, `rmsnorm_split(..., gate=z)`, their backward
+   kernels) is held to its plain versions, whole and split, forward and
+   backward, float32 and bf16, vector and scalar kernels, z a strided
+   column view, dscale's bits equal twice (`phase_gated_norm`), and
+   timed at mamba2-130m's and zamba2-2.7b's train rows and the two split
+   shapes beside its bound, its plain version and the unfused sequence
+   it replaces; its launches (one a mixer a prefill and a decode step,
+   two a train step, one backward) are checked on phases 3b, 3c and 10
+   and printed on the kernels line as `rmsnorm_gated`;
 6. distribution, on the 1-rank group's host mesh (1, 1), as the
    launchers run it (`--mesh host`, under the default ParallelContext):
    6a. mixtral-8x22b at published widths, depth 56 -> 4, launch counters
@@ -401,6 +411,262 @@ def dscale_ok(torch, got, want, x, g, dtype):
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     err = (got.float() - want.float()).abs()
     return bool((err <= 1e-5 * mag + rtol * want.float().abs()).all())
+
+
+def gated_cost(rows, d, bwd=False, split=False):
+    """(flops, bytes, bound ms, what bounds it) of the bf16 gated norm
+    (the norm of v = y * silu(z)): y and z read once and the output
+    written once (backward: g read too, dy and dz written), the scale
+    read (and dscale written) once; split, 4 bytes a row each way (the
+    rows' local sums out, the summed ones back); ~10 fp32 operations an
+    element forward (the gate's exp, division and products, the square,
+    the scaling), ~25 backward (the gate's again, its derivative, dv, dy,
+    dz, the dscale term)."""
+    flops = (25 if bwd else 10) * rows * d
+    nbytes = 2 * ((5 if bwd else 3) * rows * d + (2 if bwd else 1) * d) \
+        + (8 * rows if split else 0)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (flops, nbytes, max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+#: the gated norm's timed shapes: whole rows at mamba2-130m's and
+#: zamba2-2.7b's train rows, z a column view of `in_proj`'s output
+#: (rows, d, that output's width); split, a pod rank's 5 heads and a
+#: four-card rank's 20 of zamba2's 80, z as the all-to-all delivers it
+#: (the rank's [z, x, B, C, dt] columns, rows of 2 Hl P + 2 N + Hl)
+GATED_WHOLE = ((8192, 1536, 3352), (2048, 5120, 10448))
+GATED_SPLIT = ((2048, 320, 773), (2048, 1280, 2708))
+
+
+def phase_gated_norm(torch, dev, randn):
+    """Phases 2 and 2b for the gated norm (the Mamba2 mixer's
+    y * silu(z) folded into the RMSNorm kernels): each entry, whole row
+    and split over simulated ranks, forward and backward, float32 and
+    bf16, against its plain version (`rmsnorm_gated_ref`,
+    `rmsnorm_gated_bwd_ref`, `rmsnorm_split_ref(..., gate=z)`,
+    `rmsnorm_split_gated_bwd_ref`) at RN_TOL, dscale within `dscale_ok`'s
+    bound and the same bits twice; then each timed at the train shapes
+    beside its bound, its plain version and the unfused sequence it
+    replaces (the gate's four ops, then the ungated entry; backward,
+    autograd through them).  No PyTorch call computes the gated norm, so
+    no library time.  Returns the kernels line's entry."""
+    from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+    from repro_torch.kernels.rmsnorm.ops import (rmsnorm, rmsnorm_gated,
+                                                 rmsnorm_gated_bwd,
+                                                 rmsnorm_split,
+                                                 rmsnorm_split_gated_bwd)
+    from repro_torch.kernels.rmsnorm.ref import (gate_ref,
+                                                 rmsnorm_gated_bwd_ref,
+                                                 rmsnorm_gated_ref,
+                                                 rmsnorm_split_gated_bwd_ref,
+                                                 rmsnorm_split_ref)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+    def inputs(shape, dtype, width=None, offset=0):
+        """y, g and z, z a column view at `offset` of rows `width` wide
+        (contiguous where width is None)."""
+        y, g = randn(shape, dtype), randn(shape, dtype)
+        if width is None:
+            return y, (2.0 * randn(shape, torch.float32)).to(dtype), g
+        wide = (2.0 * randn(shape[:-1] + (width,), torch.float32)).to(dtype)
+        return y, wide[..., offset:offset + shape[-1]], g
+
+    print("phase 2: the gated norm against its plain versions", flush=True)
+    # mamba2's and zamba2's train rows and decode rows (z a column view of
+    # in_proj's output), small, ragged, d not a multiple of 8 (bf16's
+    # scalar kernels), z not 16-byte aligned (read by elements), rows
+    # wider than the vector kernels take: (shape, z's width, its offset)
+    cases = [((8192, 1536), 3352, 0), ((2048, 5120), 10448, 0),
+             ((4, 1, 1536), 3352, 0), ((2, 1, 5120), 10448, 0),
+             ((2, 64, 128), None, 0), ((33, 100), None, 0),
+             ((257, 384), 800, 3), ((5, 20000), None, 0)]
+    err_fwd = err_bwd = None
+    for dname, dtype in dts.items():
+        atol, rtol = RN_TOL[dname]
+        for shape, width, offset in cases:
+            y, z, g = inputs(shape, dtype, width, offset)
+            s = (torch.linspace(0.5, 1.5, shape[-1], device=dev)).to(dtype)
+            out = rmsnorm_gated(y, z, s)
+            ref = rmsnorm_gated_ref(y, z, s)
+            dy, dz, ds = rmsnorm_gated_bwd(y, z, g, s)
+            rdy, rdz, rds = rmsnorm_gated_bwd_ref(y, z, g, s)
+            again = rmsnorm_gated_bwd(y, z, g, s)
+            torch.cuda.synchronize()
+            errs = [max_err(out, ref), max_err(dy, rdy), max_err(dz, rdz)]
+            check(close(torch, out, ref, atol, rtol)
+                  and close(torch, dy, rdy, atol, rtol)
+                  and close(torch, dz, rdz, atol, rtol)
+                  and dscale_ok(torch, ds, rds, gate_ref(y, z), g, dtype)
+                  and all(torch.equal(a, b) for a, b in zip(again,
+                                                            (dy, dz, ds))),
+                  f"rmsnorm_gated {dname} {shape} (z {'contiguous' if width is None else f'columns {offset}: of rows {width} wide'}): "
+                  f"max err out {errs[0]:.3g}, dy {errs[1]:.3g}, dz "
+                  f"{errs[2]:.3g} (atol {atol}, rtol {rtol}), dscale "
+                  f"{max_err(ds, rds):.3g} (1e-5 of the terms' magnitudes "
+                  f"+ one ulp); the same bits when repeated")
+            if dname == "bfloat16" and shape == (8192, 1536):
+                err_fwd, err_bwd = errs[0], max(errs[1:])
+
+    # the split pair: one simulated rank's columns (z a column view of rows
+    # twice as wide), `sum_rows` adding the other columns' squares of v and
+    # dots; (rows, columns, whole width, first column)
+    split_cases = [(2048, 320, 5120, 1600), (2048, 1280, 5120, 0),
+                   (2, 320, 5120, 4800), (33, 100, 300, 100),
+                   (257, 384, 1536, 384)]
+    err_split = None
+    for dname, dtype in dts.items():
+        atol, rtol = RN_TOL[dname]
+        for rows, d, whole, c0 in split_cases:
+            yw, zw, gw = inputs((rows, whole), dtype, 2 * whole + 40, 0)
+            sw = torch.linspace(0.5, 1.5, whole, device=dev).to(dtype)
+            c = slice(c0, c0 + d)
+            vw = gate_ref(yw, zw).float()
+            sq = (vw * vw).sum(-1)
+            other_sq = sq - (vw[:, c] * vw[:, c]).sum(-1)
+            dots = (gw.float() * sw.float() * vw)
+            other_dot = dots.sum(-1) - dots[:, c].sum(-1)
+
+            def sum_rows(v, other=other_sq):
+                return v + other
+
+            def sum_dots(v, other=other_dot):
+                return v + other
+
+            y, z, g, s = yw[:, c], zw[:, c], gw[:, c].contiguous(), \
+                sw[c].contiguous()
+            out = rmsnorm_split(y, s, whole, sum_rows, gate=z)
+            ref = rmsnorm_split_ref(y, s, whole, sum_rows, gate=z)
+            whole_ref = rmsnorm_gated_ref(yw, zw, sw)[:, c]
+            dy, dz, ds = rmsnorm_split_gated_bwd(y, z, g, s, sq, whole,
+                                                 sum_dots)
+            rdy, rdz, rds = rmsnorm_split_gated_bwd_ref(y, z, g, s, sq, whole,
+                                                        sum_dots)
+            again = rmsnorm_split_gated_bwd(y, z, g, s, sq, whole, sum_dots)
+            torch.cuda.synchronize()
+            mag = (g.float() * vw[:, c] * torch.rsqrt(
+                sq / whole + 1e-6)[:, None]).abs().sum(0)
+            ds_ok = bool(((ds.float() - rds.float()).abs()
+                          <= 1e-5 * mag + rtol * rds.float().abs()).all())
+            errs = [max_err(out, ref), max_err(out, whole_ref),
+                    max_err(dy, rdy), max_err(dz, rdz)]
+            check(close(torch, out, ref, atol, rtol)
+                  and close(torch, out, whole_ref, atol, rtol)
+                  and close(torch, dy, rdy, atol, rtol)
+                  and close(torch, dz, rdz, atol, rtol) and ds_ok
+                  and all(torch.equal(a, b) for a, b in zip(again,
+                                                            (dy, dz, ds))),
+                  f"rmsnorm_split gated {dname} columns {c0}:{c0 + d} of "
+                  f"{rows} rows x {whole}: max err out {errs[0]:.3g} "
+                  f"against its plain version, {errs[1]:.3g} against the "
+                  f"whole row's gated norm, dy {errs[2]:.3g}, dz "
+                  f"{errs[3]:.3g} (atol {atol}, rtol {rtol}), dscale "
+                  f"{max_err(ds, rds):.3g} (1e-5 of the terms' magnitudes "
+                  f"+ {rtol} relative); the same bits when repeated")
+            if dname == "bfloat16" and (rows, d) == (2048, 320):
+                err_split = max(errs)
+
+    print("phase 2b: the gated norm timed (CUDA events, warm L2, bf16; "
+          "unfused: the gate's ops, then the ungated entry)", flush=True)
+    bf = torch.bfloat16
+
+    def timed(fwd, fwd_plain, fwd_unfused, bwd, bwd_two, bwd_plain, leaves,
+              loss):
+        """Device ms of the kernels, the plain versions and the unfused
+        sequences (backward: autograd through them, the graph kept), and
+        of the backward with dscale's sum in a launch of its own
+        (`bwd_two`: the same blocks and bits, the fold's yardstick)."""
+        with torch.enable_grad():
+            out = loss(*leaves)
+        g = torch.randn(out.shape, device=dev).to(out.dtype)
+        row = {"ms": cuda_ms(torch, fwd, 200)[0],
+               "plain_ms": cuda_ms(torch, fwd_plain, 50)[0],
+               "unfused_ms": cuda_ms(torch, fwd_unfused, 200)[0]}
+        row["bwd_ms"], row["bwd_host_us"] = cuda_ms(torch, lambda: bwd(g),
+                                                    200)
+        row["bwd_two_launch_ms"] = cuda_ms(torch, lambda: bwd_two(g), 200)[0]
+        row["bwd_plain_ms"] = cuda_ms(torch, lambda: bwd_plain(g), 50)[0]
+        row["bwd_unfused_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, g, retain_graph=True), 50)[0]
+        return row
+
+    rows_out = []
+    for rows, d, width in GATED_WHOLE:
+        y, z, _ = inputs((rows, d), bf, width, 0)
+        s = torch.linspace(0.5, 1.5, d, device=dev).to(bf)
+        leaves = [t.detach().clone().requires_grad_() for t in (y, z, s)]
+        row = timed(lambda: rmsnorm_gated(y, z, s),
+                    lambda: rmsnorm_gated_ref(y, z, s),
+                    lambda: rmsnorm(gate_ref(y, z), s),
+                    lambda g: rmsnorm_gated_bwd(y, z, g, s),
+                    lambda g: rmsnorm_ops._bwd(y, z, g, s, 1e-6, fold=False),
+                    lambda g: rmsnorm_gated_bwd_ref(y, z, g, s),
+                    leaves, lambda a, b, c: rmsnorm(gate_ref(a, b), c))
+        for key, bwd in (("", False), ("bwd_", True)):
+            flops, nbytes, bnd, by = gated_cost(rows, d, bwd)
+            row.update({f"{key}bound_ms": bnd, f"{key}bound_by": by,
+                        f"{key}flops": flops, f"{key}bytes": nbytes})
+        row.update(shape=[rows, d], z_row_width=width, split=False)
+        rows_out.append(row)
+    for rows, d, width in GATED_SPLIT:
+        y, z, _ = inputs((rows, d), bf, width, 0)
+        s = torch.linspace(0.5, 1.5, d, device=dev).to(bf)
+        v = gate_ref(y, z).float()
+        sq = (v * v).sum(-1) * (5120 / d)
+
+        def ident(t):
+            return t
+
+        leaves = [t.detach().clone().requires_grad_() for t in (y, z, s)]
+        row = timed(lambda: rmsnorm_split(y, s, 5120, ident, gate=z),
+                    lambda: rmsnorm_split_ref(y, s, 5120, ident, gate=z),
+                    lambda: rmsnorm_split(gate_ref(y, z), s, 5120, ident),
+                    lambda g: rmsnorm_split_gated_bwd(y, z, g, s, sq, 5120,
+                                                      ident),
+                    lambda g: rmsnorm_ops._split_bwd(y, z, g, s, sq, 5120,
+                                                     ident, 1e-6, fold=False),
+                    lambda g: rmsnorm_split_gated_bwd_ref(y, z, g, s, sq,
+                                                          5120, ident),
+                    leaves, lambda a, b, c: rmsnorm_split(
+                        gate_ref(a, b), c, 5120, ident))
+        for key, bwd in (("", False), ("bwd_", True)):
+            flops, nbytes, bnd, by = gated_cost(rows, d, bwd, split=True)
+            row.update({f"{key}bound_ms": bnd, f"{key}bound_by": by,
+                        f"{key}flops": flops, f"{key}bytes": nbytes})
+        row.update(shape=[rows, d], whole=5120, z_row_width=width,
+                   split=True)
+        rows_out.append(row)
+    for r in rows_out:
+        what = (f"split {r['shape'][0]} x {r['shape'][1]} of 5120"
+                if r["split"] else f"{r['shape'][0]} x {r['shape'][1]}")
+        print(f"  rmsnorm_gated {what} (z in rows {r['z_row_width']} wide): "
+              f"forward {r['ms']:.5f} ms (plain {r['plain_ms']:.5f}, "
+              f"unfused {r['unfused_ms']:.5f}, bound {r['bound_ms']:.5f} by "
+              f"{r['bound_by']}); backward {r['bwd_ms']:.5f} ms (dscale's "
+              f"sum in a launch of its own {r['bwd_two_launch_ms']:.5f}, plain "
+              f"{r['bwd_plain_ms']:.5f}, unfused {r['bwd_unfused_ms']:.5f}, "
+              f"bound {r['bwd_bound_ms']:.5f} by {r['bwd_bound_by']}; host "
+              f"us {r['bwd_host_us']:.1f})", flush=True)
+    first = rows_out[0]
+    return {
+        "name": "rmsnorm_gated", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/rmsnorm.py:32",
+        "shape": "y, z (8192,1536) bf16, z columns of rows 3352 wide "
+                 "(mamba2-130m's train rows)",
+        "max_abs_err": err_fwd, "tolerance": RN_TOL["bfloat16"],
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": None,
+        "library": "none: no PyTorch call computes the gated norm",
+        "unfused_ms": first["unfused_ms"],
+        "bwd_max_abs_err": err_bwd, "bwd_ms": first["bwd_ms"],
+        "bwd_plain_ms": first["bwd_plain_ms"],
+        "bwd_unfused_ms": first["bwd_unfused_ms"],
+        "bwd_two_launch_ms": first["bwd_two_launch_ms"],
+        "bwd_bound_ms": first["bwd_bound_ms"],
+        "bwd_bound_by": first["bwd_bound_by"],
+        "split_max_abs_err": err_split, "model_shapes": rows_out}
 
 
 def fa_cost(B, S, H, K, D, T=None, causal=True, pairs=None, kv_rows=None,
@@ -1170,6 +1436,7 @@ def phase_kernels(torch, dev):
               f"add: {json.dumps(row['recompute_states_ms']) if row['recompute_states_ms'] else 'not measured'}",
               flush=True)
     del bwd_inputs
+    gated = phase_gated_norm(torch, dev, randn)
     return {
         "flash_attention": {
             "name": "flash_attention", "route": "cuda",
@@ -1274,6 +1541,7 @@ def phase_kernels(torch, dev):
             "zamba2_shape_plain_ms": ssd_bwd_rows[1]["plain_ms"],
             "zamba2_shape_bound_ms": ssd_bwd_rows[1]["bound_ms"],
             "model_shapes": ssd_bwd_rows},
+        "rmsnorm_gated": gated,
     }
 
 
@@ -1521,10 +1789,12 @@ def phase_serve(torch, dev, arch, batch, n_requests, slots, max_new,
     prefill, decode_step, init_cache = make_serve_fns(cfg, scfg, dev)
 
     def counted():
-        return {k: w.launches for k, w in wrappers.items()}
+        return dict({k: w.launches for k, w in wrappers.items()},
+                    rmsnorm_gated=rmsnorm.gated_launches)
 
     for w in wrappers.values():
         w.launches = 0
+    rmsnorm.gated_launches = 0
     flash_attention.tc_launches = 0
     ssd.tc_launches = 0
     t0 = time.perf_counter()
@@ -1732,48 +2002,48 @@ def phase_main_paths(torch, dev):
     print("phase 3: main path, full-width smollm-360m", flush=True)
     smollm = phase_serve(
         torch, dev, "smollm-360m", 4, 8, 4, 16,
-        {"flash_attention": 32, "rmsnorm": 65, "ssd": 0},
-        {"flash_attention": 0, "rmsnorm": 65, "ssd": 0}, PREFILL_TOL)
+        {"flash_attention": 32, "rmsnorm": 65, "ssd": 0, "rmsnorm_gated": 0},
+        {"flash_attention": 0, "rmsnorm": 65, "ssd": 0, "rmsnorm_gated": 0}, PREFILL_TOL)
     print("phase 3b: main path, full-width mamba2-130m", flush=True)
     mamba = phase_serve(
         torch, dev, "mamba2-130m", 4, 8, 4, 16,
-        {"flash_attention": 0, "rmsnorm": 49, "ssd": 24},
-        {"flash_attention": 0, "rmsnorm": 49, "ssd": 0}, MAMBA_PREFILL_TOL)
+        {"flash_attention": 0, "rmsnorm": 49, "ssd": 24, "rmsnorm_gated": 24},
+        {"flash_attention": 0, "rmsnorm": 49, "ssd": 0, "rmsnorm_gated": 24}, MAMBA_PREFILL_TOL)
     print("phase 3c: main path, full-width zamba2-2.7b", flush=True)
     zamba = phase_serve(
         torch, dev, "zamba2-2.7b", 2, 4, 2, 8,
-        {"flash_attention": 9, "rmsnorm": 127, "ssd": 54},
-        {"flash_attention": 0, "rmsnorm": 127, "ssd": 0}, ZAMBA_PREFILL_TOL)
+        {"flash_attention": 9, "rmsnorm": 127, "ssd": 54, "rmsnorm_gated": 54},
+        {"flash_attention": 0, "rmsnorm": 127, "ssd": 0, "rmsnorm_gated": 54}, ZAMBA_PREFILL_TOL)
     print("phase 3d: main path, mixtral-8x22b at published widths",
           flush=True)
     mixtral = phase_serve(
         torch, dev, "mixtral-8x22b", 4, 8, 4, 8,
-        {"flash_attention": 4, "rmsnorm": 9, "ssd": 0},
-        {"flash_attention": 0, "rmsnorm": 9, "ssd": 0}, PREFILL_TOL,
-        layers=4)
+        {"flash_attention": 4, "rmsnorm": 9, "ssd": 0, "rmsnorm_gated": 0},
+        {"flash_attention": 0, "rmsnorm": 9, "ssd": 0, "rmsnorm_gated": 0},
+        PREFILL_TOL, layers=4)
     mixtral[0]["profile"] = profile_moe_prefill(torch, dev)
     print("phase 3e: main path, kimi-k2 at published widths", flush=True)
     kimi = phase_serve(
         torch, dev, "kimi-k2-1t-a32b", 2, 4, 2, 8,
-        {"flash_attention": 1, "rmsnorm": 3, "ssd": 0},
-        {"flash_attention": 0, "rmsnorm": 3, "ssd": 0}, PREFILL_TOL,
+        {"flash_attention": 1, "rmsnorm": 3, "ssd": 0, "rmsnorm_gated": 0},
+        {"flash_attention": 0, "rmsnorm": 3, "ssd": 0, "rmsnorm_gated": 0}, PREFILL_TOL,
         layers=1, fp32="its float32 weights, 77.5 GB, and the bf16 ones "
                        "exceed the card")
     print("phase 3f: main path, full-width pixtral-12b fed embeddings",
           flush=True)
     pixtral = phase_serve(
         torch, dev, "pixtral-12b", 2, 4, 2, 8,
-        {"flash_attention": 40, "rmsnorm": 81, "ssd": 0},
-        {"flash_attention": 0, "rmsnorm": 81, "ssd": 0}, PREFILL_TOL,
+        {"flash_attention": 40, "rmsnorm": 81, "ssd": 0, "rmsnorm_gated": 0},
+        {"flash_attention": 0, "rmsnorm": 81, "ssd": 0, "rmsnorm_gated": 0}, PREFILL_TOL,
         feed="embeds")
     print("phase 3g: main path, full-width seamless-m4t-large-v2",
           flush=True)
     seamless = phase_serve(
         torch, dev, "seamless-m4t-large-v2", 4, 8, 4, 8,
-        {"flash_attention": 72, "rmsnorm": 122, "ssd": 0},
-        {"flash_attention": 0, "rmsnorm": 73, "ssd": 0}, PREFILL_TOL,
+        {"flash_attention": 72, "rmsnorm": 122, "ssd": 0, "rmsnorm_gated": 0},
+        {"flash_attention": 0, "rmsnorm": 73, "ssd": 0, "rmsnorm_gated": 0}, PREFILL_TOL,
         feed="encdec", cross=({"flash_attention": 24, "rmsnorm": 49,
-                               "ssd": 0}, 16),
+                               "ssd": 0, "rmsnorm_gated": 0}, 16),
         fp32="the encoder casts the source embeddings to bf16, which a "
              "float32 model cannot take (in either package)")
     runs = {"smollm-360m": smollm, "mamba2-130m": mamba,
@@ -1963,13 +2233,16 @@ def ssm_train_launches(cfg):
     Mamba2 block's pre-norm and gated norm, and each shared block's two
     norms, in the forward and again in remat's recompute, the final norm
     once; one norm backward a norm; the SSD forward twice and its
-    backward once a mixer; the shared blocks' attention twice."""
+    backward once a mixer; the shared blocks' attention twice.  Of the
+    norms, the gated ones (one a mixer: its forward twice, its backward
+    once) also count in `rmsnorm_gated`."""
     mixers = cfg.n_layers
     shared = cfg.n_layers // cfg.shared_attn_every if \
         cfg.shared_attn_every else 0
     norms = 2 * mixers + 2 * shared
     return {"flash_attention": 2 * shared, "rmsnorm": 2 * norms + 1,
-            "rmsnorm.bwd": norms + 1, "ssd": 2 * mixers, "ssd_bwd": mixers}
+            "rmsnorm.bwd": norms + 1, "ssd": 2 * mixers, "ssd_bwd": mixers,
+            "rmsnorm_gated": 2 * mixers, "rmsnorm_gated.bwd": mixers}
 
 
 def phase_ssm_train(torch, dev):
@@ -2000,13 +2273,16 @@ def phase_ssm_train(torch, dev):
         for w in wrappers.values():
             w.launches = 0
         rmsnorm.bwd_launches = ssd.bwd_launches = 0
+        rmsnorm.gated_launches = rmsnorm.gated_bwd_launches = 0
         flash_attention.tc_launches = ssd.tc_launches = 0
         ssd.bwd_tc_launches = 0
 
     def read():
         c = {k: w.launches for k, w in wrappers.items()}
         c.update({"rmsnorm.bwd": rmsnorm.bwd_launches,
-                  "ssd_bwd": ssd.bwd_launches})
+                  "ssd_bwd": ssd.bwd_launches,
+                  "rmsnorm_gated": rmsnorm.gated_launches,
+                  "rmsnorm_gated.bwd": rmsnorm.gated_bwd_launches})
         return c, {"flash_attention": flash_attention.tc_launches,
                    "ssd": ssd.tc_launches, "ssd_bwd": ssd.bwd_tc_launches}
 
@@ -3312,13 +3588,17 @@ def main():
     counts.update(ssm_counts)
 
     # every path counts the forward kernels; only SSM training launches
-    # the SSD backward
-    ssd_bwd_paths = ("mamba2-130m-train", "zamba2-2.7b-train")
+    # the SSD backward; the serving and SSM training paths count the
+    # gated norm
     for name, entry in kernels.items():
-        by_path = {path: counts[path][name] for path in (
-            ssd_bwd_paths if name == "ssd_bwd" else counts)}
+        by_path = {path: c[name] for path, c in counts.items() if name in c}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
+    kernels["rmsnorm_gated"]["bwd_launches_by_path"] = {
+        path: counts[path]["rmsnorm_gated.bwd"]
+        for path in ("mamba2-130m-train", "zamba2-2.7b-train")}
+    kernels["rmsnorm_gated"]["bwd_launches"] = sum(
+        kernels["rmsnorm_gated"]["bwd_launches_by_path"].values())
     kernels["rmsnorm"]["split"]["launches"] = rmsnorm.split_launches
     kernels["rmsnorm"]["bwd_launches"] = sum(
         counts[path]["rmsnorm.bwd"]

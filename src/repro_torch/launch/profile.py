@@ -14,9 +14,10 @@ cuts the depth (mixtral-8x22b and kimi-k2 fit one card only so).
 `torch.profiler` traces `--calls` warm prefills or steps and reports the
 device time of each kernel (summed over the calls, largest first), the
 device's busy time against the wall time of the traced window (its idle
-share), the host's wall time per call and, in training, the device time
-of the plain attention backward (the flash-attention wrapper's named
-backward range) and its share of the busy time.  On the CPU it reports
+share), the device's operations per call (kernels, copies, fills), the
+host's wall time per call and, in training, the device time of the plain
+attention backward (the flash-attention wrapper's named backward range)
+and its share of the busy time.  On the CPU it reports
 the CPU's operators and no device numbers.
 """
 
@@ -57,7 +58,8 @@ def _busy_us(intervals) -> float:
 def _trace(run, calls: int, on_card: bool, per: str) -> Dict:
     """Trace `calls` runs of `run` (already warm); the kernels' device
     times (us, summed over the calls, largest first), the device's busy
-    time and idle share of the traced window, the host's ms per call, and
+    time and idle share of the traced window, the device operations per
+    call, the host's ms per call, and
     the device time inside the flash-attention backward's named range
     (the plain attention VJP).  `per` names a call in the keys
     ("host_ms_per_prefill", "device_busy_ms_per_step", ...)."""
@@ -98,6 +100,7 @@ def _trace(run, calls: int, on_card: bool, per: str) -> Dict:
         window = max(e for _, e in spans) - min(s for s, _ in spans)
         busy = _busy_us(spans)
         out.update({
+            f"device_ops_per_{per}": len(spans) / calls,
             f"device_busy_ms_per_{per}": busy / calls / _US_PER_MS,
             f"device_window_ms_per_{per}": window / calls / _US_PER_MS,
             "device_idle_share": 1.0 - busy / window if window else 0.0,
@@ -180,7 +183,8 @@ def main(argv=None):
     if "device_idle_share" in res:
         log.info(f"  device busy {res[f'device_busy_ms_per_{what}']:.3f} ms "
                  f"of a {res[f'device_window_ms_per_{what}']:.3f} ms window "
-                 f"a {what} (idle share {res['device_idle_share']:.3f}); "
+                 f"a {what} (idle share {res['device_idle_share']:.3f}), "
+                 f"{res[f'device_ops_per_{what}']:.0f} device ops a {what}; "
                  f"plain attention backward "
                  f"{res[f'plain_attention_bwd_ms_per_{what}']:.3f} ms "
                  f"({res['plain_attention_bwd_share_of_busy']:.3f} of busy)")

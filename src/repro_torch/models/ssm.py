@@ -10,9 +10,11 @@ wrapper (`kernels/ssd/ops.py`: the CUDA kernel on a CUDA tensor, its
 gradient the SSD backward kernel, its plain version on a CPU tensor),
 where the reference's "pallas" goes;
 "naive" and "chunked" run `ssd_scan`, with the reference's padding rule
-and bf16 rounding points.  The gated norm goes through
-`layers.rmsnorm(..., impl)`, so on the card it is the RMSNorm kernel.
-Every other cast sits where the reference puts it.
+and bf16 rounding points.  The gated norm, the norm of
+y * silu(z), goes through `kernels/rmsnorm/ops.py: rmsnorm_gated` on the
+kernel routes, so on the card one RMSNorm kernel forms the gate in
+registers, and through its plain version (the reference's ops) on the
+plain routes.  Every other cast sits where the reference puts it.
 
 On a mesh the mixer computes tensor-parallel over 'model' where the
 rules shard its projections (`sharding.compute_spec`), as the
@@ -55,10 +57,10 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from ..kernels.rmsnorm.ops import rmsnorm_split
-from ..kernels.rmsnorm.ref import rmsnorm_split_ref
+from ..kernels.rmsnorm.ops import rmsnorm_gated, rmsnorm_split
+from ..kernels.rmsnorm.ref import rmsnorm_gated_ref, rmsnorm_split_ref
 from ..kernels.ssd.ops import ssd
-from .layers import KERNEL_IMPLS, _dense_init, rmsnorm, rmsnorm_init
+from .layers import KERNEL_IMPLS, _dense_init, rmsnorm_init
 
 Params = Dict[str, torch.Tensor]
 
@@ -151,24 +153,31 @@ def _out_proj(params: Params, y: torch.Tensor, cfg: ModelConfig,
     return psum_model((y if at_rows else y[..., rows]) @ w)
 
 
-def _gated_norm(params: Params, v: torch.Tensor, cfg: ModelConfig,
-                impl: str, cols: Optional[slice]) -> torch.Tensor:
-    """The gated norm of v = y * silu(z).  With `cols` v holds the rank's
-    columns of each row (its heads): the norm of the split row, its sum
-    of squares added over 'model' (`rmsnorm_split` on the kernel routes,
-    its plain version on the plain ones), as the reference's program
-    all-reduces it; else the whole-row norm (`layers.rmsnorm`).  The sum
-    is bound to this call's mesh: the kernels' backward sums again, in
-    the backward pass, where no mesh is installed."""
+def _gated_norm(params: Params, y: torch.Tensor, z: torch.Tensor,
+                cfg: ModelConfig, impl: str,
+                cols: Optional[slice]) -> torch.Tensor:
+    """The gated norm, the norm of v = y * silu(z) (the gate's rounding
+    points the reference's: `kernels/rmsnorm/ref.py: gate_ref`).  On the
+    kernel routes the gate is folded into the norm's kernels
+    (`rmsnorm_gated`, `rmsnorm_split(..., gate=z)`), on the plain ones
+    their plain versions run the reference's ops.  With `cols` y and z
+    hold the rank's columns of each row (its heads): the norm of the
+    split row, its sum of squares added over 'model', as the reference's
+    program all-reduces it; else the whole-row norm.  The sum is bound to
+    this call's mesh: the kernels' backward sums again, in the backward
+    pass, where no mesh is installed."""
+    kernel = impl in KERNEL_IMPLS
+    scale = params["gate_norm"]["scale"]
     if cols is None:
-        return rmsnorm(params["gate_norm"], v, cfg.norm_eps, impl)
+        norm = rmsnorm_gated if kernel else rmsnorm_gated_ref
+        return norm(y, z, scale, cfg.norm_eps)
     from ..launch.mesh import get_abstract_mesh
     from ..runtime.parallel import psum
-    norm = rmsnorm_split if impl in KERNEL_IMPLS else rmsnorm_split_ref
+    norm = rmsnorm_split if kernel else rmsnorm_split_ref
     sum_rows = functools.partial(psum, mesh=get_abstract_mesh(),
                                  axes=("model",))
-    return norm(v, params["gate_norm"]["scale"][cols], cfg.d_inner,
-                sum_rows, cfg.norm_eps)
+    return norm(y, scale[cols], cfg.d_inner, sum_rows, cfg.norm_eps,
+                gate=z)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -398,8 +407,7 @@ def mamba_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
         y = y + _carried_state(xh, dt, A, Bv, Cv, split, final)
     y = y + params["D"][hs].to(y.dtype)[:, None] * xh
     y = y.reshape(B_, L, Hl * P)
-    v = y * F.silu(z.float()).to(y.dtype)
-    return _out_proj(params, _gated_norm(params, v, cfg, impl, cols), cfg,
+    return _out_proj(params, _gated_norm(params, y, z, cfg, impl, cols), cfg,
                      at_rows=cols is not None)
 
 
@@ -460,9 +468,7 @@ def decode_mamba(params: Params, x: torch.Tensor, cache: Dict,
         if part != slice(None):
             y = gather_model(y, dim)
     y = y.reshape(B_, 1, dssm).to(x.dtype)
-    y = rmsnorm(params["gate_norm"],
-                y * F.silu(z.float()).to(y.dtype), cfg.norm_eps, impl)
-    out = _out_proj(params, y, cfg)
+    out = _out_proj(params, _gated_norm(params, y, z, cfg, impl, None), cfg)
     cache["conv"].copy_(window[:, 1:])
     cache["state"].copy_(st)
     return out, cache

@@ -45,11 +45,17 @@ import torch
 from repro_torch.kernels import KERNELS, _build
 from repro_torch.kernels.flash_attention.ops import flash_attention, tc_block_k
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_plain
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 from repro_torch.kernels.rmsnorm.ops import (rmsnorm, rmsnorm_bwd,
+                                             rmsnorm_gated, rmsnorm_gated_bwd,
                                              rmsnorm_split,
-                                             rmsnorm_split_bwd)
-from repro_torch.kernels.rmsnorm.ref import (rmsnorm_bwd_ref, rmsnorm_ref,
+                                             rmsnorm_split_bwd,
+                                             rmsnorm_split_gated_bwd)
+from repro_torch.kernels.rmsnorm.ref import (gate_ref, rmsnorm_bwd_ref,
+                                             rmsnorm_gated_bwd_ref,
+                                             rmsnorm_gated_ref, rmsnorm_ref,
                                              rmsnorm_split_bwd_ref,
+                                             rmsnorm_split_gated_bwd_ref,
                                              rmsnorm_split_ref)
 from repro_torch.kernels.ssd.ops import (TC_CHUNK, _launch, _launch_bwd,
                                          bwd_heads_per_group, ssd)
@@ -76,6 +82,15 @@ def cuda():
 
 def _t(a, dtype, dev):
     return torch.from_numpy(np.asarray(a, np.float32)).to(dev, dtype)
+
+
+def _rmsnorm_kernels(fn):
+    """(fn's result, the kernels the RMSNorm library launched in it: its
+    own count of its launches)."""
+    n0 = rmsnorm_ops.kernels_launched()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, rmsnorm_ops.kernels_launched() - n0
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -764,6 +779,206 @@ def test_rmsnorm_split_autograd_launches_the_backward_pair(cuda):
                                atol=TOL["bfloat16"], rtol=RTOL["bfloat16"])
     torch.testing.assert_close(sa.grad.float(), rds.float(), atol=2e-2,
                                rtol=RTOL["bfloat16"])
+
+
+# ---- the gated norm (the Mamba2 mixer's y * silu(z), folded in) ----------
+
+def _gated_inputs(rng, shape, dtype, dev, z_offset=None):
+    """y, z, g from the seed; z a column view of a wider tensor (as
+    `in_proj`'s output hands it over) starting at `z_offset`, else
+    contiguous."""
+    d = shape[-1]
+    y = _t(rng.standard_normal(shape), dtype, dev)
+    g = _t(rng.standard_normal(shape), dtype, dev)
+    if z_offset is None:
+        z = _t(2.0 * rng.standard_normal(shape), dtype, dev)
+    else:
+        wide = _t(2.0 * rng.standard_normal(shape[:-1] + (2 * d + 40,)),
+                  dtype, dev)
+        z = wide[..., z_offset:z_offset + d]
+    return y, z, g
+
+
+def _dscale_bound_gated(y, z, g, dtype):
+    """`_dscale_bound` at v = y * silu(z), the rounded v the norm sees."""
+    return _dscale_bound(gate_ref(y, z), g, dtype)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape,z_offset", [
+    ((8192, 1536), 0),      # mamba2-130m's train rows, z a column view
+    ((2048, 5120), 0),      # zamba2-2.7b's
+    ((2, 64, 128), None), ((300, 96), None), ((1, 1, 256), 8),
+    ((3, 37, 1536), 16),    # a view at an aligned offset
+    ((33, 100), None),      # d not a multiple of 8: bf16's scalar kernels
+    ((257, 384), 3),        # z not 16-byte aligned: read by elements
+    ((3, 9000), None),      # wider than the gated vector kernels take
+    ((5, 20000), None)])    # wider than the vector kernels take
+def test_rmsnorm_gated_matches_plain(cuda, dtype, shape, z_offset):
+    """The gated norm's forward and backward kernels against
+    `rmsnorm_gated_ref` and `rmsnorm_gated_bwd_ref` (the same rounding
+    points; dv kept in fp32 in both): outputs, dy and dz at the file's
+    tolerances, dscale at `_dscale_bound`; one launch each way, dscale's
+    sum folded in (no `rmsnorm_dscale_sum`: the library's own count of
+    its launches), the same bits when repeated."""
+    rng = np.random.default_rng(15)
+    y, z, g = _gated_inputs(rng, shape, DTYPES[dtype], cuda, z_offset)
+    s = _t(1.0 + 0.3 * rng.standard_normal(shape[-1]), DTYPES[dtype], cuda)
+    n0 = (rmsnorm.launches, rmsnorm.gated_launches)
+    out, n = _rmsnorm_kernels(lambda: rmsnorm_gated(y, z, s))
+    assert (rmsnorm.launches, rmsnorm.gated_launches) == (n0[0] + 1,
+                                                          n0[1] + 1)
+    assert n == 1
+    torch.testing.assert_close(out.float(),
+                               rmsnorm_gated_ref(y, z, s).float(),
+                               atol=TOL[dtype], rtol=RTOL[dtype])
+    b0 = (rmsnorm.bwd_launches, rmsnorm.gated_bwd_launches)
+    (dy, dz, ds), n = _rmsnorm_kernels(lambda: rmsnorm_gated_bwd(y, z, g, s))
+    assert (rmsnorm.bwd_launches, rmsnorm.gated_bwd_launches) == (
+        b0[0] + 1, b0[1] + 1)
+    assert n == 1                            # no rmsnorm_dscale_sum
+    rdy, rdz, rds = rmsnorm_gated_bwd_ref(y, z, g, s)
+    assert (dy.dtype, dz.dtype, ds.dtype) == (y.dtype, y.dtype, s.dtype)
+    for got, want in ((dy, rdy), (dz, rdz)):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[dtype], rtol=RTOL[dtype])
+    atol, rtol = _dscale_bound_gated(y, z, g, dtype)
+    err = (ds.float() - rds.float()).abs()
+    assert bool((err <= atol + rtol * rds.float().abs()).all())
+    again = rmsnorm_gated_bwd(y, z, g, s)    # no atomics in the sums
+    assert all(torch.equal(a, b) for a, b in zip(again, (dy, dz, ds)))
+
+
+def test_rmsnorm_gated_takes_one_dtype(cuda):
+    """The gated kernels take y, z and the scale in one dtype (the
+    mixer's): another scale dtype raises, before any launch."""
+    y = torch.ones((4, 64), dtype=torch.bfloat16, device=cuda)
+    n0 = rmsnorm.launches
+    with pytest.raises(TypeError, match="one dtype"):
+        rmsnorm_gated(y, y, torch.ones(64, device=cuda))
+    with pytest.raises(TypeError, match="one dtype"):
+        rmsnorm_split(y, torch.ones(64, device=cuda), 128, lambda v: v,
+                      gate=y)
+    assert rmsnorm.launches == n0
+
+
+def test_rmsnorm_gated_autograd_saves_y_and_z(cuda):
+    """`rmsnorm_gated` under autograd: one forward and one backward
+    launch, the gradients the backward kernel's, of y, of z (a column
+    view) and of the scale."""
+    rng = np.random.default_rng(16)
+    y, z, g = _gated_inputs(rng, (2, 37, 192), torch.bfloat16, cuda, 0)
+    s = _t(1.0 + 0.3 * rng.standard_normal(192), torch.bfloat16, cuda)
+    wide = z._base.clone().requires_grad_()
+    ya, sa = y.clone().requires_grad_(), s.clone().requires_grad_()
+    n0 = (rmsnorm.launches, rmsnorm.bwd_launches)
+    rmsnorm_gated(ya, wide[..., :192], sa).backward(g)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, rmsnorm.bwd_launches) == (n0[0] + 1, n0[1] + 1)
+    dy, dz, ds = rmsnorm_gated_bwd(y, z, g, s)
+    assert torch.equal(ya.grad, dy) and torch.equal(sa.grad, ds)
+    assert torch.equal(wide.grad[..., :192], dz)
+    assert not bool(wide.grad[..., 192:].any())
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_folded_dscale_keeps_the_two_launch_bits(cuda, gated):
+    """dscale's sum folded into the backward kernel adds the partial rows
+    in `rmsnorm_dscale_sum`'s order: the whole row's backward, plain and
+    gated, with the fold equals its two-launch version bit for bit
+    (vector and scalar kernels, one partial row and many)."""
+    rng = np.random.default_rng(17)
+    for shape in ((8192, 1536), (2048, 5120), (33, 100), (3, 12),
+                  (5, 20000)):
+        y, z, g = _gated_inputs(rng, shape, torch.bfloat16, cuda, 0)
+        s = _t(1.0 + 0.3 * rng.standard_normal(shape[-1]),
+               torch.bfloat16 if gated else torch.float32, cuda)
+        z = z if gated else None
+        two = rmsnorm_ops._bwd(y, z, g, s, 1e-6, fold=False)
+        for _ in range(2):
+            got = rmsnorm_ops._bwd(y, z, g, s, 1e-6, fold=True)
+            assert all(a is b or torch.equal(a, b)
+                       for a, b in zip(got, two)), shape
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("rows,whole,ranks,z_offset", [
+    (2048, 5120, 16, 0), (2048, 5120, 4, 0), (33, 300, 3, None),
+    (2, 5120, 4, 0), (257, 1536, 4, 3)])
+def test_rmsnorm_split_gated_matches_plain(cuda, dtype, rows, whole, ranks,
+                                           z_offset):
+    """Each simulated rank's gated split pair, its `sum_rows` adding the
+    other ranks' squares (forward) or dots (backward), against its plain
+    versions (`rmsnorm_split_ref(..., gate=z)`,
+    `rmsnorm_split_gated_bwd_ref`) and the forward against the whole
+    row's gated norm; two launches each way, dscale's sum folded into the
+    second, the same bits when repeated."""
+    rng = np.random.default_rng(18)
+    yw, zw, gw = _gated_inputs(rng, (rows, whole), DTYPES[dtype], cuda,
+                               z_offset)
+    sw = _t(1.0 + 0.3 * rng.standard_normal(whole), DTYPES[dtype], cuda)
+    d = whole // ranks
+    cols = [slice(r * d, (r + 1) * d) for r in range(ranks)]
+    vw = gate_ref(yw, zw).float()
+    sq = (vw * vw).sum(-1)
+    dots = [(gw[:, c].float() * sw[c].float() * vw[:, c]).sum(-1)
+            for c in cols]
+    whole_out = rmsnorm_gated_ref(yw, zw, sw)
+    for r, c in enumerate(cols):
+        local_sq = (vw[:, c] * vw[:, c]).sum(-1)
+
+        def sum_rows(v, r=r, local_sq=local_sq):
+            return v + (sq - local_sq)
+
+        def sum_dots(v, r=r):
+            return v + sum(dots[k] for k in range(ranks) if k != r)
+
+        y, z, g, s = yw[:, c], zw[:, c], gw[:, c].contiguous(), \
+            sw[c].contiguous()
+        n0 = (rmsnorm.launches, rmsnorm.split_launches,
+              rmsnorm.gated_launches)
+        out, n = _rmsnorm_kernels(
+            lambda: rmsnorm_split(y, s, whole, sum_rows, gate=z))
+        assert (rmsnorm.launches, rmsnorm.split_launches,
+                rmsnorm.gated_launches) == tuple(k + 1 for k in n0)
+        assert n == 2
+        for want in (rmsnorm_split_ref(y, s, whole, sum_rows, gate=z),
+                     whole_out[:, c]):
+            torch.testing.assert_close(out.float(), want.float(),
+                                       atol=TOL[dtype], rtol=RTOL[dtype])
+        b0 = rmsnorm.bwd_launches
+        (dy, dz, ds), n = _rmsnorm_kernels(
+            lambda: rmsnorm_split_gated_bwd(y, z, g, s, sq, whole,
+                                            sum_dots))
+        assert rmsnorm.bwd_launches == b0 + 1
+        assert n == 2                        # no rmsnorm_dscale_sum
+        rdy, rdz, rds = rmsnorm_split_gated_bwd_ref(y, z, g, s, sq, whole,
+                                                    sum_dots)
+        for got, want in ((dy, rdy), (dz, rdz)):
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=TOL[dtype], rtol=RTOL[dtype])
+        atol = 1e-5 * (g.float() * vw[:, c] * torch.rsqrt(
+            sq / whole + 1e-6)[:, None]).abs().sum(0)
+        err = (ds.float() - rds.float()).abs()
+        assert bool((err <= atol + RTOL[dtype] * rds.float().abs()).all())
+        again = rmsnorm_split_gated_bwd(y, z, g, s, sq, whole, sum_dots)
+        assert all(torch.equal(a, b) for a, b in zip(again, (dy, dz, ds)))
+
+
+def test_rmsnorm_split_backward_pair_folds_dscale(cuda):
+    """The ungated split backward is two launches too, dscale's sum
+    folded into its second; the whole row's ungated backward keeps its
+    two (the kernel, then `rmsnorm_dscale_sum`)."""
+    rng = np.random.default_rng(19)
+    x = _t(rng.standard_normal((2048, 320)), torch.bfloat16, cuda)
+    g = _t(rng.standard_normal((2048, 320)), torch.bfloat16, cuda)
+    s = _t(1.0 + 0.3 * rng.standard_normal(320), torch.bfloat16, cuda)
+    sq = (x.float() ** 2).sum(-1) * 16
+    _, n = _rmsnorm_kernels(
+        lambda: rmsnorm_split_bwd(x, g, s, sq, 5120, lambda v: v))
+    assert n == 2
+    _, n = _rmsnorm_kernels(lambda: rmsnorm_bwd(x, g, s))
+    assert n == 2                            # the whole row's: two launches
 
 
 def ssm_train_launches(cfg):
