@@ -163,7 +163,28 @@ Phases, each of which fails the run (exit code 1, no result line):
    card), then steps through `train_loop`
    (mamba2 20, its CE falling; zamba2 5), each printed with its step
    time, tokens/s, peak `max_memory_allocated` and MFU (mamba2's from
-   the count of the step, as phase 5).
+   the count of the step, as phase 5);
+11. the paper's analytic plane on the card (`repro_torch.launch
+   .paper_plane.run`, no kernel of its own: tensor code on the trace's
+   device): the 15 Table-1 traces and the 12 LLM traces built, then
+   `sweep_all` (batched engine), the per-point loop engine on zfnet
+   against the batched one, `network_sweep_all` (3 MACs x 4 channel
+   plans) on the 15, `scaling_sweep` over the five `SCALING_GRIDS` (up
+   to 16x16) at 96 Gb/s on the 15 and `balance` at 96 Gb/s with the
+   ideal MAC on the 15, each held to the port's own CPU route of the
+   same call within rtol 1e-9 (times also within 1e-12 of the wired base
+   time) under the tie rule (a differing choice passes only where the
+   CPU route's own value at the card's choice is within the tolerance
+   of its best), and `sweep_all`'s summary to the paper's band (1.04 <=
+   mean64 <= 1.12, 1.055 <= mean96 <= 1.145, max96 >= 1.15); printed:
+   each call's wall times beside the card's name and power limit (trace
+   building on the host apart from evaluation, first calls apart; the
+   four sweeps 3 runs a route, card and CPU alternating, with the ratio
+   of their medians), the device operations, busy time and idle share
+   of one batched `evaluate` (the paper grid and the network grid on
+   the largest paper trace, torch.profiler), the host syncs of one such
+   `evaluate` and of a `sweep_all` of that trace (torch's sync debug
+   mode), and whether the card's runs are bit-equal.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
@@ -2245,6 +2266,55 @@ def ssm_train_launches(cfg):
             "rmsnorm_gated": 2 * mixers, "rmsnorm_gated.bwd": mixers}
 
 
+def phase_paper_plane(torch, dev, card):
+    """11: the paper's analytic plane on the card, every call held to
+    the port's own CPU route (`launch/paper_plane.py`)."""
+    from repro_torch.launch.paper_plane import RTOL, run
+
+    print("phase 11: the paper's analytic plane on the card", flush=True)
+    t_phase = time.perf_counter()
+    out = run(dev)
+    phase_s = time.perf_counter() - t_phase
+    secs = out["seconds"]
+    for name, runs in secs.items():
+        ratio, cpu_runs = "", secs.get(name + "_cpu")
+        if cpu_runs:
+            mid = statistics.median(runs)
+            ratio = (f"; median {mid:.4f} s, "
+                     f"{mid / statistics.median(cpu_runs):.3f} x the CPU "
+                     f"route's median")
+        print(f"  {name}: {', '.join(f'{t:.4f}' for t in runs)} s wall"
+              f"{ratio} ({card})")
+    for name in ("paper_grid", "network_grid"):
+        r = out["profile"][name]
+        print(f"  one batched evaluate, {name} on "
+              f"{out['profile']['trace']}: "
+              f"{r.get('device_ops_per_evaluate', 'not measured')} device "
+              f"ops, busy {r.get('device_busy_ms_per_evaluate', 'n/a')} ms "
+              f"of a {r.get('device_window_ms_per_evaluate', 'n/a')} ms "
+              f"window (idle share {r.get('device_idle_share', 'n/a')}), "
+              f"host {r['host_ms_per_evaluate']:.3f} ms, "
+              f"{r.get('host_syncs_per_evaluate', 'not measured')} host "
+              f"syncs with its best point read ({card})")
+    print(f"  host syncs of a sweep_all of {out['profile']['trace']} "
+          f"(design space built, 64 and 96 Gb/s): "
+          f"{out['profile'].get('host_syncs_sweep_all_one_trace')}")
+    print(f"  the card's runs bit-equal: {out['bit_equal']}")
+    print(f"  sweep_all summary (bw -> mean, max best speedup): "
+          f"{out['summary']}")
+    print(f"  balancer packets differing from the CPU route: "
+          f"{out['balance_packets_differing_from_cpu']}")
+    for line in out["failures"]:
+        print(f"  FAILED: {line}")
+    print(f"  phase 11 took {phase_s:.1f} s")
+    check(not out["failures"],
+          f"the analytic plane on the card agrees with its CPU route "
+          f"(rtol {RTOL}, tie rule) and meets the paper's band "
+          f"({len(out['failures'])} failures)")
+    out["phase_s"] = phase_s
+    return out
+
+
 def phase_ssm_train(torch, dev):
     """Full-width mamba2-130m (8 x 1024) and zamba2-2.7b (2 x 1024)
     trained on the card through `make_train_step` (bf16 weights from
@@ -3586,6 +3656,7 @@ def main():
     ssm_metrics, ssm_counts = phase_ssm_train(torch, dev)
     metrics.update(ssm_metrics)
     counts.update(ssm_counts)
+    metrics["paper-plane"] = phase_paper_plane(torch, dev, card)
 
     # every path counts the forward kernels; only SSM training launches
     # the SSD backward; the serving and SSM training paths count the

@@ -1610,3 +1610,36 @@ def test_unit_gather_mixtral_and_zamba2_across_four_cards(tmp_path):
                                    atol=FULL_ZAMBA2_ATOL)
         assert res["launches"] == launches and min(launches.values()) > 0
         assert res["split_launches"] == fcfg.n_layers
+
+
+@pytest.fixture
+def card():
+    """The card, for tests that build no kernel (the analytic plane)."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card on this machine; these tests run on the "
+                    "H100 with -m gpu")
+    return torch.device("cuda")
+
+
+def test_paper_plane_sweep_all_and_a_scaling_point_on_card_match_cpu(card):
+    """The paper's sweep and one point of the scale-out frontier (vgg on
+    8x8, with its reuse plans) on the card against the port's CPU route
+    of the same calls: rtol 1e-9 and the tie rule (`launch/paper_plane`):
+    the card's scatter sums run in another order, so an exact tie on the
+    CPU may break either way there."""
+    from repro_torch.core import make_trace, scaling_sweep, summary, sweep_all
+    from repro_torch.core.workloads import WORKLOADS
+    from repro_torch.launch.paper_plane import (RTOL, compare_scaling,
+                                                compare_sweeps)
+
+    traces = {w: make_trace(w, device=card) for w in WORKLOADS}
+    assert all(t.nbytes.is_cuda for t in traces.values())
+    on_card = sweep_all(traces)
+    on_cpu = sweep_all({w: t.to("cpu") for w, t in traces.items()})
+    assert compare_sweeps(on_card, on_cpu, RTOL) == []
+    (mean64, _), (mean96, max96) = summary(on_card)[64], summary(on_card)[96]
+    assert 1.04 <= mean64 <= 1.12 and 1.055 <= mean96 <= 1.145
+    assert max96 >= 1.15
+    a = scaling_sweep(["vgg"], [(8, 8)], device=card)
+    b = scaling_sweep(["vgg"], [(8, 8)], device="cpu")
+    assert compare_scaling(a, b, RTOL, 96, "cpu") == []

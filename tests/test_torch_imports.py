@@ -21,6 +21,21 @@ STUDY_MODULES = ("repro_torch.configs", "repro_torch.launch.roofline",
                  "repro_torch.launch.dryrun",
                  "repro_torch.core.hybrid_schedule",
                  "repro_torch.launch.lm_scale")
+#: the analytic plane's modules (the paper's traces, decision function,
+#: simulators, sweeps and balancer), each imported alone below too
+PAPER_PLANE_MODULES = ("repro_torch.units", "repro_torch.core.units",
+                       "repro_torch.core.workloads",
+                       "repro_torch.core.topology", "repro_torch.core.mapper",
+                       "repro_torch.core.traffic",
+                       "repro_torch.core.collectives",
+                       "repro_torch.core.workloads_llm",
+                       "repro_torch.core.wireless", "repro_torch.net.channel",
+                       "repro_torch.net.mac", "repro_torch.net.config",
+                       "repro_torch.net.stack", "repro_torch.net.batched",
+                       "repro_torch.core.simulator", "repro_torch.core.dse",
+                       "repro_torch.core.balancer",
+                       "repro_torch.launch.wireless_dse",
+                       "repro_torch.launch.paper_plane")
 
 
 def _imported_modules(path):
@@ -58,7 +73,7 @@ def test_port_imports_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("module", STUDY_MODULES)
+@pytest.mark.parametrize("module", STUDY_MODULES + PAPER_PLANE_MODULES)
 def test_study_module_imports_alone_with_jax_and_repro_blocked(module):
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
