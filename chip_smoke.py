@@ -184,7 +184,29 @@ Phases, each of which fails the run (exit code 1, no result line):
    of one batched `evaluate` (the paper grid and the network grid on
    the largest paper trace, torch.profiler), the host syncs of one such
    `evaluate` and of a `sweep_all` of that trace (torch's sync debug
-   mode), and whether the card's runs are bit-equal.
+   mode), and whether the card's runs are bit-equal;
+12. the event engine and the fault plane on the card (`repro_torch
+   .launch.event_plane.run`, no kernel of its own: tensor code on the
+   trace's device, per-packet online runs on the host): the 15 Table-1
+   traces on the paper's 3x3 package, nothing cut; `policy_sweep_all`
+   at 96 Gb/s with all four policies (each policy's injected mask too;
+   adaptive and oracle at least the static grid's best less 1e-9,
+   greedy at least 1), `fidelity_report` over the three link models
+   (striped's worst error at most 1e-9), a faulted `PacketSim` on vgg
+   under `default_scenario(k=1, fade_db=3.0)` plus link failures that
+   kill cut 0 (striped and xy run every policy, the adaptive model
+   refuses the faults, the wired-only run is infinite), and
+   `resilience_sweep_all` on zfnet and smollm_360m:decode over
+   `fig_resilience`'s grid (online-reshard never slower), each held to
+   the port's own CPU route at rtol 1e-9 under the tie rule (a
+   differing mask passes only where the CPU route's time under the
+   card's mask is within the tolerance of its own); printed: each
+   policy's mean speedup, the retained-speedup means, the wall times of
+   `policy_sweep_all` and `fidelity_report` (3 runs a route, card and
+   CPU alternating, with the ratio of their medians) beside the card's
+   name and power limit, the device operations, busy time, idle share
+   and host syncs of one planned `PacketSim.run("static")` on vgg, the
+   host ms of one greedy online run, and the phase's wall time.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
@@ -2315,6 +2337,67 @@ def phase_paper_plane(torch, dev, card):
     return out
 
 
+def phase_event_plane(torch, dev, card):
+    """12: the event engine and the fault plane on the card, every call
+    held to the port's own CPU route (`launch/event_plane.py`)."""
+    from repro_torch.launch.event_plane import RTOL, run
+
+    print("phase 12: the event engine and the fault plane on the card",
+          flush=True)
+    t_phase = time.perf_counter()
+    out = run(dev)
+    phase_s = time.perf_counter() - t_phase
+    secs = out["seconds"]
+    for name, runs in secs.items():
+        if name.endswith("_cpu") and name[:-4] in secs:
+            continue
+        ratio, cpu_runs = "", secs.get(name + "_cpu")
+        if cpu_runs:
+            mid = statistics.median(runs)
+            cmid = statistics.median(cpu_runs)
+            ratio = (f"; CPU route {', '.join(f'{t:.4f}' for t in cpu_runs)}"
+                     f" s; medians {mid:.4f} | {cmid:.4f} s, "
+                     f"{mid / cmid:.3f} x the CPU route's")
+        print(f"  {name}: {', '.join(f'{t:.4f}' for t in runs)} s wall"
+              f"{ratio} ({card})")
+    print(f"  policy mean speedups over the 15 at 96 Gb/s: "
+          f"{out['policy_mean_speedup']} (static grid best "
+          f"{out['grid_best_mean']!r}); packets whose plane differs from "
+          f"the CPU route: {out['policy_packets_differing_from_cpu']}")
+    print(f"  fidelity worst speedup error: {out['fidelity_worst']}")
+    print(f"  faulted vgg ({out['faulted']['scenario']}): striped "
+          f"{out['faulted']['striped']}, xy {out['faulted']['xy']}, "
+          f"adaptive refuses: {out['faulted'].get('adaptive_refuses')}")
+    print(f"  retained-speedup means: {out['retained_mean']}; resharded "
+          f"cells: {out['resharded_cells']}")
+    for what, d in out["reshard"].items():
+        print(f"  {what}: degraded {d['degraded_time']!r} s, rebuilt "
+              f"{d['resharded_time']!r} s (migration "
+              f"{d['migration_time']!r} s, eras {d['eras']}), shipped "
+              f"{'rebuilt' if d['resharded'] else 'degraded'}")
+    prof = out["profile"]
+    r = prof["planned_static"]
+    print(f"  one planned PacketSim.run('static') on {prof['trace']}: "
+          f"{r.get('device_ops_per_run', 'not measured')} device ops, busy "
+          f"{r.get('device_busy_ms_per_run', 'n/a')} ms of a "
+          f"{r.get('device_window_ms_per_run', 'n/a')} ms window (idle "
+          f"share {r.get('device_idle_share', 'n/a')}), host "
+          f"{r['host_ms_per_run']:.3f} ms, "
+          f"{r.get('host_syncs_per_run', 'not measured')} host syncs "
+          f"({card})")
+    print(f"  one greedy online run on {prof['trace']}: "
+          f"{prof['online_greedy_host_ms']:.3f} ms on the host ({card})")
+    for line in out["failures"]:
+        print(f"  FAILED: {line}")
+    print(f"  phase 12 took {phase_s:.1f} s")
+    check(not out["failures"],
+          f"the event engine and the fault plane on the card agree with "
+          f"their CPU route (rtol {RTOL}, tie rule) and keep their bounds "
+          f"({len(out['failures'])} failures)")
+    out["phase_s"] = phase_s
+    return out
+
+
 def phase_ssm_train(torch, dev):
     """Full-width mamba2-130m (8 x 1024) and zamba2-2.7b (2 x 1024)
     trained on the card through `make_train_step` (bf16 weights from
@@ -3657,6 +3740,7 @@ def main():
     metrics.update(ssm_metrics)
     counts.update(ssm_counts)
     metrics["paper-plane"] = phase_paper_plane(torch, dev, card)
+    metrics["event-plane"] = phase_event_plane(torch, dev, card)
 
     # every path counts the forward kernels; only SSM training launches
     # the SSD backward; the serving and SSM training paths count the

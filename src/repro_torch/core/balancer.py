@@ -37,8 +37,9 @@ Where it runs: the greedy loop decides one packet at a time, so it runs
 on the host, in NumPy, on host copies of the trace's arrays, one layer
 at a time (a device launch per accepted packet would be pure overhead);
 the anchor grid, both candidates' costings, the stitch and the final
-costing run on the trace's device, and the result lands there.  Faults
-(the `fault` plane's degraded topology) are not modelled here yet.
+costing run on the trace's device, and the result lands there.  With a
+fault scenario (`repro_torch.fault`) the greedy pass sees the degraded
+planes, from host copies of the fault plane's arrays.
 """
 
 from __future__ import annotations
@@ -105,11 +106,33 @@ def _wl_time(mac, ch_bytes, ch_msgs, ch_active, bw_c, n_reuse) -> float:
     return float((t[:, n_reuse] + t[:, :n_reuse].amax(dim=1)).max())
 
 
+def _fault_planes(trace: TrafficTrace, net: NetworkConfig, faults):
+    """Host ``(cut_scale (L, n_cuts), bw_mat (L, n_channels))`` of a
+    fault scenario; None entries are fault-free planes."""
+    if faults is None or faults.is_null:
+        return None, None
+    from repro_torch.fault.apply import (link_fault_arrays,  # no cycle
+                                         wireless_bw_matrix)
+    cut_mat, cut_bw = trace.cut_matrix()
+    link_bw = trace.topo.config.nop_bw_per_side
+    cut_scale, _, _, _ = link_fault_arrays(
+        trace, faults, cut_of_link=cut_mat.argmax(dim=1),
+        k_par=torch.round(cut_bw / link_bw).to(torch.int64),
+        n_cuts=cut_mat.shape[1])
+    bw_mat = wireless_bw_matrix(trace, net, faults)
+    return tuple(None if t is None else t.cpu().numpy()
+                 for t in (cut_scale, bw_mat))
+
+
 def _greedy(trace: TrafficTrace, net: NetworkConfig,
-            eligible: torch.Tensor, t_rest: torch.Tensor) -> np.ndarray:
+            eligible: torch.Tensor, t_rest: torch.Tensor,
+            faults=None) -> np.ndarray:
     """The water-filling pass, per layer on host copies: the bool mask
-    of the packets it moves to the wireless plane."""
+    of the packets it moves to the wireless plane.  Under ``faults``
+    each layer's cut times are scaled by ``k / surviving`` (``inf`` on
+    dead cuts) and its channels served at their faded rates."""
     from .dse import batched_design_space   # its per-packet cut counts
+    cut_scale, bw_mat = _fault_planes(trace, net, faults)
     plan, mac = net.channels, net.mac
     n_ch, Z = plan.n_channels, plan.reuse_zones
     n_zc = 1 if Z == 1 else Z + 1
@@ -149,13 +172,20 @@ def _greedy(trace: TrafficTrace, net: NetworkConfig,
         ch_srcs = [[set() for _ in range(n_zc)] for _ in range(n_ch)]
         ch_active = np.zeros((n_ch, n_zc))
         remaining = np.ones(cand.size, bool)
+        bw_li = (bw_c if bw_mat is None
+                 else torch.from_numpy(bw_mat[li][:, None]))
         state_changed = True
         while remaining.any():
             if state_changed:  # rejections leave the planes untouched
                 cut_t = layer_loads @ cut_mat / cut_bw
+                if cut_scale is not None:   # degraded stripes, dead cuts
+                    # an idle dead cut is 0 * inf = nan, as in the JAX
+                    # package: argmax then picks it and the layer stops
+                    with np.errstate(invalid="ignore"):
+                        cut_t = cut_t * cut_scale[li]
                 hot = int(cut_t.argmax())
                 t_nop = cut_t[hot]
-                t_wl = _wl_time(mac, ch_bytes, ch_msgs, ch_active, bw_c, Z)
+                t_wl = _wl_time(mac, ch_bytes, ch_msgs, ch_active, bw_li, Z)
                 if t_nop <= t_wl or t_nop <= t_rest[li]:
                     break  # balanced, or another element already dominates
                 on_hot = pkt_cut[cand, hot] > 0
@@ -176,7 +206,9 @@ def _greedy(trace: TrafficTrace, net: NetworkConfig,
             row_b[zc] += nbytes[mi]
             row_m[zc] += 1
             row_a[zc] = len(ch_srcs[ch][zc] | {int(src[mi])})
-            t_row = mac_times(mac, row_b, row_m, row_a, bw_c)
+            t_row = mac_times(mac, row_b, row_m, row_a,
+                              bw_c if bw_mat is None
+                              else float(bw_mat[li, ch]))
             new_t_ch = float(t_row[0] if n_zc == 1
                              else t_row[Z] + t_row[:Z].max())
             # accept only if the wireless plane stays the earlier
@@ -196,15 +228,29 @@ def _greedy(trace: TrafficTrace, net: NetworkConfig,
 
 
 def balance(trace: TrafficTrace,
-            wcfg: WirelessConfig | NetworkConfig) -> BalancerResult:
+            wcfg: WirelessConfig | NetworkConfig,
+            faults=None) -> BalancerResult:
     """Water-filling balance of the wired and wireless planes, anchored
-    against the best static grid point of the same network."""
+    against the best static grid point of the same network;
+    ``faults`` re-runs it against the *surviving* topology.
+
+    With a `repro_torch.fault.FaultScenario`, the greedy per-layer loop
+    sees the degraded planes: cut service scaled by ``k/surviving``
+    (``inf`` on dead cuts, so everything eligible drains to wireless),
+    and per-(layer, channel) effective bandwidth under the SNR fades.
+    Chip events act on the trace, not the network — pass a
+    `derate_trace`d trace (the engine does this for `OraclePolicy` /
+    `OnlineReshardPolicy`).  The grid-anchor stitch and the returned
+    `sim` timing fields stay fault-free projections: under faults the
+    product is the ``injected`` mask (a candidate the fault-aware
+    engine re-stitches exactly).
+    """
     net = as_network(wcfg)
     eligible = eligibility(trace, threshold=1)  # balancer sees everything
     t_rest = torch.stack([trace.t_compute, trace.t_dram,
                           trace.t_noc]).amax(dim=0)
-    greedy = torch.from_numpy(_greedy(trace, net, eligible, t_rest)).to(
-        trace.device)
+    greedy = torch.from_numpy(_greedy(trace, net, eligible, t_rest,
+                                      faults)).to(trace.device)
 
     # anchor against the paper's sweep: per layer, keep whichever injected
     # set — greedy water-filling or the best static grid point — projects

@@ -10,12 +10,14 @@ runs on the vectorized `repro_torch.net.batched` engine by default (the
 per-point loop agrees with it to float precision), and `network_sweep`
 widens the grid with MAC protocols and multi-channel plans to report
 the best full network configuration per workload — i.e. how much of the
-idealized speedup survives a real MAC.
+idealized speedup survives a real MAC.  `policy_sweep` pits the
+event-driven engine's online policies (`repro_torch.sim`) against the
+grid's best point, and `resilience_sweep_all` runs the fault plane's
+retained-speedup grid (`repro_torch.fault`).
 
 Grids and design spaces live on the trace's device; each result waits
-for it once, to copy its best point to the host.  The event-driven
-policy sweep, the heterogeneity frontier, the resilience sweep and the
-what-if guided sweep belong to the `sim`, `arch`, `fault` and `obs`
+for it once, to copy its best point to the host.  The heterogeneity
+frontier and the what-if guided sweep belong to the `arch` and `obs`
 planes, and `provenance` stays None on every result until `obs` runs
 here (it is excluded from comparisons).
 """
@@ -230,6 +232,87 @@ def grid_best_speedup(trace: TrafficTrace, net: NetworkConfig) -> float:
     """Best static (threshold x injection) speedup at ``net``'s
     bandwidth / MAC / channel plan, via the batched engine."""
     return grid_anchor(trace, net)[0]
+
+
+# ---------------------------------------------------------------------------
+# the event-driven policy sweep and the resilience grid
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PolicySweepResult:
+    """Event-driven policy comparison for one workload.
+
+    The paper's DSE picks ONE static (threshold x injection) point per
+    workload offline; the event-driven engine (`repro_torch.sim`) lets
+    online policies compete with that optimum on the same trace and
+    network.
+    """
+
+    workload: str
+    net: NetworkConfig
+    base_time: float               # event-driven all-wired baseline
+    grid_best_speedup: float       # best static grid point (same network)
+    policy_speedups: Dict[str, float]
+    policy_times: Dict[str, float]
+    provenance: Optional[dict] = dataclasses.field(
+        default=None, compare=False)
+
+    def best_policy(self) -> Tuple[str, float]:
+        name = max(self.policy_speedups, key=self.policy_speedups.get)
+        return name, self.policy_speedups[name]
+
+
+def policy_sweep(trace: TrafficTrace, workload: str,
+                 net: NetworkConfig | None = None,
+                 policies=("static", "greedy", "adaptive", "oracle")
+                 ) -> PolicySweepResult:
+    """Event-driven sweep of load-balancing policies on one workload,
+    on the trace's device.
+
+    The static grid best is evaluated with the batched engine (exact
+    for the event engine's default striped/ideal configuration).
+    """
+    from repro_torch.sim import PacketSim  # late import: core re-exports sim
+    net = net or NetworkConfig(bandwidth=gbps_to_bytes_per_s(96))
+    grid_best = grid_best_speedup(trace, net)
+    sim = PacketSim(trace, net)
+    base = sim.run_wired().total_time
+    times = {p: sim.run(p).total_time for p in policies}
+    return PolicySweepResult(
+        workload=workload, net=net, base_time=base,
+        grid_best_speedup=grid_best,
+        policy_speedups={p: base / t for p, t in times.items()},
+        policy_times=times)
+
+
+def policy_sweep_all(traces: Dict[str, TrafficTrace],
+                     net: NetworkConfig | None = None,
+                     policies=("static", "greedy", "adaptive", "oracle")
+                     ) -> List[PolicySweepResult]:
+    return [policy_sweep(tr, wl, net, policies)
+            for wl, tr in traces.items()]
+
+
+def resilience_sweep_all(workloads, net: NetworkConfig | None = None,
+                         ks=(0, 1, 2), fades=(3.0, 9.0),
+                         policies=("static", "adaptive",
+                                   "online-reshard"),
+                         device=None) -> Dict:
+    """The retained-speedup grid (`repro_torch.fault`).
+
+    Cells are (k fail-stops) x (package fade dB); each runs every
+    policy against the same scenario, with the online-reshard row
+    routed through the era-rebuild controller.  The returned dict is
+    `repro_torch.fault.resilience.resilience_sweep`'s (traces built on
+    ``device``: the card when None, raising without one), plus a
+    ``"provenance"`` entry, None until the `obs` plane is ported.
+    """
+    from repro_torch.fault import resilience_sweep  # late: fault imports sim
+    net = net or NetworkConfig(bandwidth=gbps_to_bytes_per_s(96))
+    out = resilience_sweep(workloads, net, ks=tuple(ks), fades=tuple(fades),
+                           policies=tuple(policies), device=device)
+    out["provenance"] = None
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -115,6 +115,16 @@ class TrafficTrace:
     macs_per_chiplet: torch.Tensor | None = None
     noc_bytes_per_chiplet: torch.Tensor | None = None
 
+    # per-layer execution metadata, for the fault plane
+    # (`repro_torch.fault`): which chiplets run each layer, with what
+    # shares, and the layer's weight footprint (re-streamed on
+    # degraded-mode absorption / reshard migration).  Host metadata
+    # (only per-layer host loops read it), kept by `to`; `None` on
+    # hand-built traces.
+    exec_chips: list | None = None        # per-layer tuple of chiplet ids
+    exec_shares: list | None = None       # per-layer NumPy share vector
+    weight_bytes: np.ndarray | None = None  # (L,) NumPy weight footprint
+
     # built on first use, on the trace's device
     _cut: tuple | None = dataclasses.field(default=None, init=False,
                                            repr=False)
@@ -133,7 +143,7 @@ class TrafficTrace:
 
     def to(self, device) -> "TrafficTrace":
         """The same trace with every tensor on ``device`` (caches are
-        rebuilt there on first use)."""
+        rebuilt there on first use; the host metadata is shared)."""
         moved = {f.name: getattr(self, f.name).to(device)
                  for f in dataclasses.fields(self)
                  if f.init and isinstance(getattr(self, f.name),
@@ -429,4 +439,8 @@ def build_trace(layers: List[Layer], mapping: Mapping,
         noc_bytes=float(sum(lyr.act_in + lyr.act_out for lyr in layers)),
         macs_per_chiplet=put(macs_pc, np.float64),
         noc_bytes_per_chiplet=put(nocb_pc, np.float64),
+        exec_chips=[tuple(mapping.chiplets[i]) for i in range(n_layers)],
+        exec_shares=[np.asarray(mapping.shares[i], float)
+                     for i in range(n_layers)],
+        weight_bytes=np.asarray([lyr.weights for lyr in layers], float),
     )

@@ -237,14 +237,14 @@ def _same_sweeps(a, b) -> bool:
                for x, y in zip(a, b, strict=True))
 
 
-def _paired(call, make_dev, make_cpu, device) -> tuple:
+def _paired(call, make_dev, make_cpu, device, reps: int = REPS) -> tuple:
     """``call(make_dev())`` on ``device`` and ``call(make_cpu())`` on the
-    CPU, REPS times each and alternating, so that the host's load falls
-    on both routes alike; the arguments are made outside the clock.
+    CPU, ``reps`` times each and alternating, so that the host's load
+    falls on both routes alike; the arguments are made outside the clock.
 
     Returns ``(device results, CPU results, device s, CPU s)``."""
     runs = ([], [], [], [])
-    for _ in range(REPS):
+    for _ in range(reps):
         for make, d, outs, secs in ((make_dev, device, runs[0], runs[2]),
                                     (make_cpu, CPU, runs[1], runs[3])):
             arg = make()

@@ -1643,3 +1643,51 @@ def test_paper_plane_sweep_all_and_a_scaling_point_on_card_match_cpu(card):
     a = scaling_sweep(["vgg"], [(8, 8)], device=card)
     b = scaling_sweep(["vgg"], [(8, 8)], device="cpu")
     assert compare_scaling(a, b, RTOL, 96, "cpu") == []
+
+
+def test_event_plane_packet_sim_on_card_matches_cpu(card):
+    """`PacketSim` on the card against its CPU route (rtol 1e-9 and the
+    tie rule of `launch/event_plane`): every link model and policy on
+    zfnet, and the striped and xy models under faults that kill cut 0,
+    where the wired-only run is infinite on both routes."""
+    from repro_torch.core import NetworkConfig, make_trace
+    from repro_torch.fault import FaultScenario, default_scenario
+    from repro_torch.launch.event_plane import (compare_results, cut_killer,
+                                                mask_check)
+    from repro_torch.sim import PacketSim
+
+    net = NetworkConfig(bandwidth=96e9 / 8)
+    tr = make_trace("zfnet", device=card)
+    cpu = tr.to("cpu")
+    base = default_scenario(tr, k=1, fade_db=3.0)
+    faults = FaultScenario(chip_failures=base.chip_failures,
+                           snr_fades=base.snr_fades,
+                           link_failures=cut_killer(tr).link_failures)
+    cases = [(m, None) for m in ("striped", "adaptive", "xy")] + \
+        [(m, faults) for m in ("striped", "xy")]
+    for model, sc in cases:
+        sim = PacketSim(tr, net, link_model=model, faults=sc)
+        sim_cpu = PacketSim(cpu, net, link_model=model, faults=sc)
+        assert sim.eligible.is_cuda and not sim_cpu.eligible.is_cuda
+        what = f"{model} {'faulted' if sc else 'fault-free'}"
+        wired = sim.run_wired()
+        assert wired.layer_times.is_cuda
+        assert compare_results(wired, sim_cpu.run_wired(), what) == []
+        assert (wired.total_time == float("inf")) == (sc is not None)
+        for p in ("static", "greedy", "adaptive", "oracle",
+                  "online-reshard"):
+            a, b = sim.run(p), sim_cpu.run(p)
+            assert compare_results(a, b, f"{what} {p}") == []
+            assert mask_check(a, b, sim_cpu, f"{what} {p}") == []
+
+
+def test_event_plane_reshard_on_card_matches_cpu(card):
+    """`reshard_run` on zfnet at k = 1 and 2 under a 9 dB fade, card
+    against CPU (rtol 1e-9): the degraded projection, the rebuild on the
+    derated accelerator, the migration, the eras and the events agree,
+    and the rebuild runs."""
+    from repro_torch.launch.event_plane import reshard_checks
+
+    bad, out = reshard_checks(("zfnet",), (1, 2), 9.0, card)
+    assert bad == []
+    assert len(out) == 2

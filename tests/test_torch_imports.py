@@ -36,6 +36,15 @@ PAPER_PLANE_MODULES = ("repro_torch.units", "repro_torch.core.units",
                        "repro_torch.core.balancer",
                        "repro_torch.launch.wireless_dse",
                        "repro_torch.launch.paper_plane")
+#: the event-driven and fault planes' modules, each imported alone too
+EVENT_PLANE_MODULES = ("repro_torch.sim", "repro_torch.sim.calendar",
+                       "repro_torch.sim.engine", "repro_torch.sim.policies",
+                       "repro_torch.sim.compare", "repro_torch.fault",
+                       "repro_torch.fault.scenario",
+                       "repro_torch.fault.apply",
+                       "repro_torch.fault.resilience",
+                       "repro_torch.launch.resilience",
+                       "repro_torch.launch.event_plane")
 
 
 def _imported_modules(path):
@@ -73,12 +82,40 @@ def test_port_imports_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
-@pytest.mark.parametrize("module", STUDY_MODULES + PAPER_PLANE_MODULES)
+@pytest.mark.parametrize("module", STUDY_MODULES + PAPER_PLANE_MODULES
+                         + EVENT_PLANE_MODULES)
 def test_study_module_imports_alone_with_jax_and_repro_blocked(module):
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             f"importlib.import_module({module!r})\n"
+            "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=REPO,
+                          env={"PYTHONPATH": str(REPO / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_core_re_exports_the_event_plane_lazily():
+    """`repro_torch.core` resolves the `sim` names on first use, and
+    `repro_torch.core.hybrid_schedule` still imports alone without
+    pulling in `sim` or `fault`."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "import repro_torch.core.hybrid_schedule\n"
+            "assert 'repro_torch.sim' not in sys.modules\n"
+            "import repro_torch.core as core\n"
+            "assert 'repro_torch.sim' not in sys.modules\n"
+            "import repro_torch.fault\n"
+            "assert 'repro_torch.fault.resilience' not in sys.modules\n"
+            "from repro_torch.sim import PacketSim\n"
+            "assert core.PacketSim is PacketSim\n"
+            "for n in ('simulate_events', 'policy_sweep', 'policy_sweep_all',"
+            " 'PolicySweepResult', 'fidelity_report'):\n"
+            "    getattr(core, n)\n"
             "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=REPO,

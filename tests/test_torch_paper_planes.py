@@ -241,8 +241,9 @@ def test_channel_aggregates_and_layer_times_match_the_reference(zones):
 
 def test_wireless_dse_cli_prints_the_reference_sweeps():
     """`python -m repro_torch.launch.wireless_dse zfnet --quick --device
-    cpu`: every section runs, and the DSE best speedups it prints equal
-    the reference's `sweep` at 64 and 96 Gb/s."""
+    cpu`: every section runs, the DSE best speedups it prints equal
+    the reference's `sweep` at 64 and 96 Gb/s, and its event-driven
+    policy sweep the reference's `policy_sweep`."""
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.wireless_dse", "zfnet",
          "--quick", "--device", "cpu"], capture_output=True, text=True,
@@ -252,7 +253,7 @@ def test_wireless_dse_cli_prints_the_reference_sweeps():
     out = proc.stdout
     for section in ("wired baseline", "bottleneck shares", "heatmap",
                     "network sweep", "balancer [ideal]",
-                    "balancer [tdma 2ch]"):
+                    "balancer [tdma 2ch]", "event-driven policy sweep"):
         assert section in out, section
     ref = R.make_trace("zfnet")
     for bw in (64, 96):
@@ -260,3 +261,12 @@ def test_wireless_dse_cli_prints_the_reference_sweeps():
                     if x.startswith(f"== wireless {bw} Gb/s"))
         got = float(line.split("(")[1].split(";")[0])
         assert got == R.sweep(ref, "zfnet", bw).best_speedup
+    lines = out.splitlines()
+    start = next(i for i, x in enumerate(lines)
+                 if x.startswith("event-driven policy sweep"))
+    want = R.policy_sweep(ref, "zfnet")
+    best = float(lines[start + 1].split("(")[1].split(")")[0])
+    assert best == want.grid_best_speedup
+    got = {x.split()[0]: float(x.split("(")[1].split(")")[0])
+           for x in lines[start + 2:start + 6]}
+    assert got == want.policy_speedups
