@@ -206,7 +206,27 @@ Phases, each of which fails the run (exit code 1, no result line):
    CPU alternating, with the ratio of their medians) beside the card's
    name and power limit, the device operations, busy time, idle share
    and host syncs of one planned `PacketSim.run("static")` on vgg, the
-   host ms of one greedy online run, and the phase's wall time.
+   host ms of one greedy online run, and the phase's wall time;
+13. the observability and co-design planes on the card (`repro_torch
+   .launch.obs_plane.run`, no kernel of its own: host Python around the
+   analytic and event engines): a recorded greedy and a recorded static
+   `PacketSim` run on smollm_360m:prefill at 96 Gb/s, 2 channels x 4
+   reuse zones, held to the CPU route event by event (rtol 1e-9), the
+   busy invariant at 1e-12 on each route, the attribution rows, the
+   Chrome and npz exports read back, the critical path summing to the
+   makespan at 1e-12; `validate` on zfnet at 0.75 and 1.25 x the
+   wireless band within 10%; `whatif_guided` on zfnet, resnet50 and
+   gnmt picking `sweep_all`'s best point with fewer points (tie rule);
+   a profiled `sweep_all` of the 15 (coverage at least 0.90) and the
+   host syncs of an unprofiled one of vgg, equal to phase 11's;
+   `codesign` at
+   `hetero_sweep`'s defaults on zfnet / big_little, lstm / compute_mem,
+   gnmt / aimc_edge and googlenet / big_little, held to the CPU route
+   (states equal or tied; the count of differing states printed);
+   printed: the calls' wall times, each co-design cell's wall time on
+   both routes, and the device operations, busy time, idle share, host
+   ms and host syncs of one `PlacementProblem.evaluate`, beside the
+   card's name and power limit.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
@@ -3683,6 +3703,67 @@ def phase_unit_gather(torch, dev):
     return metrics, counts
 
 
+def phase_obs_plane(torch, dev, card, expect_syncs):
+    """13: the observability and co-design planes on the card, every call
+    held to the port's own CPU route (`launch/obs_plane.py`)."""
+    from repro_torch.launch.obs_plane import RTOL, run
+
+    print("phase 13: the observability and co-design planes on the card",
+          flush=True)
+    t_phase = time.perf_counter()
+    out = run(dev, expect_syncs=expect_syncs)
+    phase_s = time.perf_counter() - t_phase
+    for name, sec in out["seconds"].items():
+        print(f"  {name}: {sec:.4f} s wall ({card})")
+    for policy, r in out["recorded"].items():
+        print(f"  recorded {policy} run of smollm_360m:prefill: "
+              f"{r['events']} events on {r['tracks']} tracks, "
+              f"{r['critical_segments']} critical segments, makespan "
+              f"{r['total_time']!r} s, critical shares "
+              f"{r['critical_shares']}")
+    print(f"  validate errors on zfnet: {out['validate_error']}")
+    g = out["guided"]
+    print(f"  whatif_guided on zfnet, resnet50, gnmt: "
+          f"{g['points_evaluated']} (CPU route {g['points_evaluated_cpu']})"
+          f" of {g['points_exhaustive']} points; projected "
+          f"{g['projected_best']}")
+    prof = out["profile"]
+    print(f"  profiled sweep_all of the 15 paper traces: coverage "
+          f"{prof['coverage']:.4f} of {prof['wall_s']:.4f} s; host syncs "
+          f"of an unprofiled sweep_all of {prof['trace']}: "
+          f"{prof.get('host_syncs_sweep_all_one_trace')} (phase 11: "
+          f"{expect_syncs})")
+    for cell, c in out["codesign"].items():
+        print(f"  codesign {cell}: {c['seconds']:.4f} s on the card, "
+              f"{c['seconds_cpu']:.4f} s on the CPU route "
+              f"({c['seconds'] / c['seconds_cpu']:.3f} x), "
+              f"{c['evaluations']} | {c['evaluations_cpu']} evaluations, "
+              f"{c['states_differing']} states differing, "
+              f"{c['package']}, co-designed speedup "
+              f"{c['speedup_codesigned']!r}, spread wired "
+              f"{c['spread_wired']!r} -> hybrid {c['spread_hybrid']!r} "
+              f"({card})")
+    r = out["evaluate_profile"]
+    print(f"  one PlacementProblem.evaluate ({r['cell']}, greedy seed): "
+          f"{r.get('device_ops_per_evaluate', 'not measured')} device ops, "
+          f"busy {r.get('device_busy_ms_per_evaluate', 'n/a')} ms of a "
+          f"{r.get('device_window_ms_per_evaluate', 'n/a')} ms window "
+          f"(idle share {r.get('device_idle_share', 'n/a')}), host "
+          f"{r['host_ms_per_evaluate']:.3f} ms, "
+          f"{r.get('host_syncs_per_evaluate', 'not measured')} host syncs "
+          f"({card})")
+    for line in out["failures"]:
+        print(f"  FAILED: {line}")
+    print(f"  phase 13 took {phase_s:.1f} s")
+    check(not out["failures"],
+          f"the observability and co-design planes on the card agree with "
+          f"their CPU route (rtol {RTOL}, tie rule) and keep their bounds "
+          f"({len(out['failures'])} failures, "
+          f"{out['codesign_states_differing']} co-design states differing)")
+    out["phase_s"] = phase_s
+    return out
+
+
 def main():
     import torch
 
@@ -3741,6 +3822,9 @@ def main():
     counts.update(ssm_counts)
     metrics["paper-plane"] = phase_paper_plane(torch, dev, card)
     metrics["event-plane"] = phase_event_plane(torch, dev, card)
+    metrics["obs-plane"] = phase_obs_plane(
+        torch, dev, card,
+        metrics["paper-plane"]["profile"]["host_syncs_sweep_all_one_trace"])
 
     # every path counts the forward kernels; only SSM training launches
     # the SSD backward; the serving and SSM training paths count the

@@ -39,7 +39,11 @@ at a time (a device launch per accepted packet would be pure overhead);
 the anchor grid, both candidates' costings, the stitch and the final
 costing run on the trace's device, and the result lands there.  With a
 fault scenario (`repro_torch.fault`) the greedy pass sees the degraded
-planes, from host copies of the fault plane's arrays.
+planes, from host copies of the fault plane's arrays.  Under an
+active recorder (`repro_torch.obs.recording`) the trial evaluations
+(the anchor grid, both candidates' costings, the wired baseline) run
+with the recorder masked, so only the final timeline is emitted, with
+one span a layer on the ``balance`` track for the stitch's choice.
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ import torch
 from repro_torch.net.config import NetworkConfig, as_network
 from repro_torch.net.mac import mac_times
 from repro_torch.net.stack import network_layer_times
+from repro_torch.obs.trace import active_recorder, recording
 
 from .simulator import (SimResult, _finalize, geometry, nop_times,
                         simulate_wired, wired_loads_without)
@@ -80,19 +85,39 @@ def _mask_parts(trace: TrafficTrace, mask: torch.Tensor,
 
 def _stitch_best(trace: TrafficTrace, net: NetworkConfig,
                  greedy_mask: torch.Tensor, t_rest: torch.Tensor):
-    """Per-layer stitch of the greedy mask against the best grid point."""
+    """Per-layer stitch of the greedy mask against the best grid point:
+    ``(final mask, link loads, use_grid, t_grid, t_greedy)``.
+
+    Trial evaluations (the anchor sweep and both candidate costings)
+    run with the recorder masked — only the final chosen timeline is
+    ever emitted into an active `SimTrace`.
+    """
     from .dse import grid_anchor    # no cycle: dse doesn't import us
-    _, thr, p = grid_anchor(trace, net)
-    grid_mask = (eligibility(trace, thr)
-                 & injection_filter(len(trace.nbytes), p, trace.device))
-    gl, gnop, gwl = _mask_parts(trace, grid_mask, net)
-    bl, bnop, bwl = _mask_parts(trace, greedy_mask, net)
+    with recording(None):
+        _, thr, p = grid_anchor(trace, net)
+        grid_mask = (eligibility(trace, thr)
+                     & injection_filter(len(trace.nbytes), p, trace.device))
+        gl, gnop, gwl = _mask_parts(trace, grid_mask, net)
+        bl, bnop, bwl = _mask_parts(trace, greedy_mask, net)
     t_grid = torch.stack([t_rest, gnop, gwl]).amax(dim=0)
     t_greedy = torch.stack([t_rest, bnop, bwl]).amax(dim=0)
     use_grid = t_grid < t_greedy            # prefer greedy on ties
     final = torch.where(use_grid[trace.layer], grid_mask, greedy_mask)
     loads = torch.where(use_grid[:, None], gl, bl)
-    return final, loads
+    return final, loads, use_grid, t_grid, t_greedy
+
+
+def _record_stitch(st, use_grid: torch.Tensor, t_grid: torch.Tensor,
+                   t_greedy: torch.Tensor) -> None:
+    """One span per layer on the "balance" track: which candidate the
+    stitch kept, and both projected times for the why (one host copy)."""
+    g, tg, tb = torch.stack([use_grid.to(torch.float64), t_grid,
+                             t_greedy]).cpu().numpy()
+    for li in range(len(g)):
+        st.add_layer_event(
+            "balance", "grid" if g[li] else "greedy", li, 0.0,
+            float(tg[li] if g[li] else tb[li]), "balancer",
+            t_grid=float(tg[li]), t_greedy=float(tb[li]))
 
 
 def _wl_time(mac, ch_bytes, ch_msgs, ch_active, bw_c, n_reuse) -> float:
@@ -255,7 +280,11 @@ def balance(trace: TrafficTrace,
     # anchor against the paper's sweep: per layer, keep whichever injected
     # set — greedy water-filling or the best static grid point — projects
     # the smaller layer time (exact: layers are independent analytically)
-    injected, loads = _stitch_best(trace, net, greedy, t_rest)
+    injected, loads, use_grid, t_grid, t_greedy = _stitch_best(
+        trace, net, greedy, t_rest)
+    st = active_recorder()
+    if st is not None:
+        _record_stitch(st, use_grid, t_grid, t_greedy)
 
     # re-derive the wireless timeline + MAC energy overhead from the final
     # injected set through the same stack the simulator uses
@@ -265,7 +294,8 @@ def balance(trace: TrafficTrace,
     sim = _finalize(trace, loads, t_wireless, wl_bytes,
                     wireless_energy_joules(trace, injected, net,
                                            extra_bytes), extra_bytes)
-    base = simulate_wired(trace).total_time
+    with recording(None):   # the baseline is a trial, not the timeline
+        base = simulate_wired(trace).total_time
     nbytes = trace.nbytes.cpu().numpy()
     elig_vol = float(nbytes[eligible.cpu().numpy()].sum()) or 1.0
     return BalancerResult(

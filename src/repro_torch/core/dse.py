@@ -15,11 +15,14 @@ event-driven engine's online policies (`repro_torch.sim`) against the
 grid's best point, and `resilience_sweep_all` runs the fault plane's
 retained-speedup grid (`repro_torch.fault`).
 
+`whatif_guided` prunes the lower bands of the paper sweep with a
+what-if projection of one recorded event run (`repro_torch.obs`), and
+`hetero_sweep` runs the heterogeneity frontier (`repro_torch.arch`).
+
 Grids and design spaces live on the trace's device; each result waits
-for it once, to copy its best point to the host.  The heterogeneity
-frontier and the what-if guided sweep belong to the `arch` and `obs`
-planes, and `provenance` stays None on every result until `obs` runs
-here (it is excluded from comparisons).
+for it once, to copy its best point to the host.  Every sweep is timed
+by a `DEFAULT_REGISTRY` span and stamped with a `make_provenance`
+record (excluded from comparisons).
 """
 
 from __future__ import annotations
@@ -38,6 +41,9 @@ from repro_torch.net.channel import ChannelPlan
 from repro_torch.net.config import NetworkConfig
 from repro_torch.net.mac import MacConfig
 from repro_torch.net.scatter import scatter_sum
+from repro_torch.obs import profile as obs_profile
+from repro_torch.obs.metrics import DEFAULT_REGISTRY
+from repro_torch.obs.provenance import make_provenance
 
 from .simulator import (TrafficTrace, make_trace, simulate_hybrid,
                         simulate_wired)
@@ -69,7 +75,7 @@ class SweepResult:
     best_threshold: int
     best_injection: float
     provenance: Optional[dict] = dataclasses.field(
-        default=None, compare=False)
+        default=None, compare=False)  # dse.provenance
 
 
 def _result_from_grid(workload: str, bandwidth_gbps: int,
@@ -112,7 +118,8 @@ def batched_design_space(trace: TrafficTrace,
     cached = getattr(trace, "_batched_dse", None)
     if cached is not None and cached[0] == key:
         return cached[1]
-    built = _build_design_space(trace, thresholds)
+    with obs_profile.phase("dse.build_design_space"):
+        built = _build_design_space(trace, thresholds)
     trace._batched_dse = (key, built)
     return built
 
@@ -131,6 +138,7 @@ def _build_design_space(trace: TrafficTrace,
     # the layer sum on the host, as NumPy sums it
     base_time = float(torch.maximum(t_rest, (cut_base / cut_bw).amax(dim=1))
                       .cpu().numpy().sum())
+    obs_profile.note_ndarray(pkt_cut, cut_base)
     return BatchedDesignSpace(
         n_layers=trace.n_layers,
         n_nodes=trace.topo.n_nodes,
@@ -162,17 +170,138 @@ def sweep_all(traces: Dict[str, TrafficTrace],
     if engine not in ("batched", "loop"):
         raise ValueError(f"unknown engine {engine!r}; use 'batched' or 'loop'")
     out = []
-    if engine == "loop":
-        for wl, trace in traces.items():
-            for bw in BANDWIDTHS_GBPS:
-                out.append(sweep(trace, wl, bw))
-    else:
-        spec = GridSpec()
-        for wl, trace in traces.items():
-            res = batched_design_space(trace).evaluate(spec)
-            for bw in BANDWIDTHS_GBPS:
-                out.append(_result_from_grid(wl, bw, res.ideal_grid(bw)))
+    with DEFAULT_REGISTRY.span("dse.sweep_all", engine=engine) as t:
+        if engine == "loop":
+            for wl, trace in traces.items():
+                for bw in BANDWIDTHS_GBPS:
+                    out.append(sweep(trace, wl, bw))
+        else:
+            spec = GridSpec()
+            for wl, trace in traces.items():
+                res = batched_design_space(trace).evaluate(spec)
+                for bw in BANDWIDTHS_GBPS:
+                    out.append(_result_from_grid(wl, bw,
+                                                 res.ideal_grid(bw)))
+    with obs_profile.phase("dse.provenance"):
+        prov = make_provenance(
+            "dse.sweep_all",
+            {"workloads": sorted(traces), "engine": engine,
+             "thresholds": THRESHOLDS, "injections": INJECTIONS,
+             "bandwidths_gbps": BANDWIDTHS_GBPS},
+            points=len(traces) * len(THRESHOLDS) * len(INJECTIONS)
+            * len(BANDWIDTHS_GBPS),
+            wall_s=t["seconds"])
+        for r in out:
+            r.provenance = prov
     return out
+
+
+@dataclasses.dataclass
+class GuidedSweepResult:
+    """`whatif_guided`'s outcome: `sweep_all`'s per-(workload,
+    bandwidth) answers at a fraction of the grid evaluations.
+
+    ``results`` matches `sweep_all`'s list shape, except that a pruned
+    bandwidth's ``grid`` holds NaN at the design points the guide never
+    had to evaluate (the best point and speedup are still exact — the
+    pruning bound is sound).
+    """
+
+    results: List[SweepResult]
+    points_evaluated: int
+    points_exhaustive: int
+    #: "workload@bw" -> whatif-projected best speedup (the predicted
+    #: incumbent the guided order starts from)
+    projected_best: Dict[str, float]
+    provenance: Optional[dict] = dataclasses.field(default=None,
+                                                   compare=False)
+
+    @property
+    def evaluated_fraction(self) -> float:
+        return self.points_evaluated / self.points_exhaustive
+
+
+def whatif_guided(traces: Dict[str, TrafficTrace],
+                  bandwidths_gbps=BANDWIDTHS_GBPS) -> GuidedSweepResult:
+    """The paper sweep with what-if-guided pruning of the lower bands.
+
+    Speedup is monotone non-decreasing in wireless bandwidth (the
+    wireless term is the only bandwidth-dependent layer term and only
+    shrinks), so a point's speedup at the highest band is a sound
+    ceiling for every lower band.  The guide therefore (i) evaluates
+    the full (threshold x injection) grid once at the highest
+    bandwidth, (ii) records ONE event run at that optimum and projects
+    its speedup to each lower band via `repro_torch.obs.whatif`
+    (``wireless_scale``) — the predicted incumbent — and (iii) walks
+    the candidates in descending-ceiling order, evaluating until the
+    ceiling falls to the incumbent: every unevaluated point is provably
+    worse.  Same best point as exhaustive `sweep_all`.
+
+    The grids and the single-point evaluations run on each trace's
+    device; the walk reads each point's value on the host (one wait a
+    point), and the highest band's grid once.
+    """
+    from repro_torch.obs.whatif import WhatIf
+    from repro_torch.obs.whatif import project as whatif_project
+    from repro_torch.sim.engine import PacketSim  # core re-exports sim: late
+    hi = max(bandwidths_gbps)
+    lows = sorted((b for b in set(bandwidths_gbps) if b != hi),
+                  reverse=True)
+    results: List[SweepResult] = []
+    projected: Dict[str, float] = {}
+    n_eval = 0
+    with DEFAULT_REGISTRY.span("dse.whatif_guided") as t:
+        for wl, trace in traces.items():
+            ds = batched_design_space(trace)
+            grid_hi = ds.evaluate(
+                GridSpec(bandwidths_gbps=(hi,))).ideal_grid(hi)
+            n_eval += grid_hi.numel()
+            r_hi = _result_from_grid(wl, int(hi), grid_hi)
+            results.append(r_hi)
+            if not lows:
+                continue
+            net = NetworkConfig(bandwidth=gbps_to_bytes_per_s(hi),
+                                distance_threshold=r_hi.best_threshold,
+                                injection_prob=r_hi.best_injection)
+            sim = PacketSim(trace, net, record=True)
+            rec = sim.run("static")
+            base = sim.run_wired().total_time
+            grid_np = grid_hi.cpu().numpy()
+            order = np.argsort(grid_np, axis=None)[::-1]
+            for lo in lows:
+                proj = whatif_project(rec.trace,
+                                      WhatIf(wireless_scale=lo / hi))
+                projected[f"{wl}@{int(lo)}"] = \
+                    base / proj.total_time if proj.total_time else 1.0
+                grid_lo = np.full_like(grid_np, np.nan)
+                incumbent, best_ti, best_ii = -np.inf, 0, 0
+                for flat in order:
+                    ti, ii = np.unravel_index(int(flat), grid_np.shape)
+                    if grid_np[ti, ii] <= incumbent:
+                        break      # ceiling under incumbent: all pruned
+                    spec = GridSpec(thresholds=(THRESHOLDS[ti],),
+                                    injections=(INJECTIONS[ii],),
+                                    bandwidths_gbps=(lo,))
+                    val = float(ds.evaluate(spec).ideal_grid(lo)[0, 0])
+                    grid_lo[ti, ii] = val
+                    n_eval += 1
+                    if val > incumbent:
+                        incumbent, best_ti, best_ii = val, ti, ii
+                results.append(SweepResult(
+                    wl, int(lo), torch.from_numpy(grid_lo).to(trace.device),
+                    incumbent,
+                    THRESHOLDS[best_ti], INJECTIONS[best_ii]))
+    exhaustive = (len(traces) * len(THRESHOLDS) * len(INJECTIONS)
+                  * len(bandwidths_gbps))
+    prov = make_provenance(
+        "dse.whatif_guided",
+        {"workloads": sorted(traces),
+         "bandwidths_gbps": list(bandwidths_gbps),
+         "thresholds": THRESHOLDS, "injections": INJECTIONS},
+        points=n_eval, wall_s=t["seconds"])
+    for r in results:
+        r.provenance = prov
+    return GuidedSweepResult(results, n_eval, exhaustive, projected, prov)
 
 
 @dataclasses.dataclass
@@ -184,7 +313,7 @@ class NetworkSweepResult:
     best_speedup: float
     best_config: NetworkConfig
     provenance: Optional[dict] = dataclasses.field(
-        default=None, compare=False)
+        default=None, compare=False)  # dse.provenance
 
     def best_by_network(self) -> Dict[Tuple[str, str], float]:
         """(mac protocol, plan) -> best speedup over thr/inj/bw."""
@@ -208,8 +337,19 @@ def network_sweep(trace: TrafficTrace, workload: str,
 def network_sweep_all(traces: Dict[str, TrafficTrace],
                       macs=NETWORK_MACS,
                       plans=NETWORK_PLANS) -> List[NetworkSweepResult]:
-    return [network_sweep(tr, wl, macs, plans)
-            for wl, tr in traces.items()]
+    with DEFAULT_REGISTRY.span("dse.network_sweep_all") as t:
+        out = [network_sweep(tr, wl, macs, plans)
+               for wl, tr in traces.items()]
+    prov = make_provenance(
+        "dse.network_sweep_all",
+        {"workloads": sorted(traces), "macs": list(macs),
+         "plans": [p.describe() for p in plans]},
+        points=len(traces) * len(macs) * len(plans) * len(THRESHOLDS)
+        * len(INJECTIONS) * len(BANDWIDTHS_GBPS),
+        wall_s=t["seconds"])
+    for r in out:
+        r.provenance = prov
+    return out
 
 
 def grid_anchor(trace: TrafficTrace,
@@ -255,7 +395,7 @@ class PolicySweepResult:
     policy_speedups: Dict[str, float]
     policy_times: Dict[str, float]
     provenance: Optional[dict] = dataclasses.field(
-        default=None, compare=False)
+        default=None, compare=False)  # dse.provenance
 
     def best_policy(self) -> Tuple[str, float]:
         name = max(self.policy_speedups, key=self.policy_speedups.get)
@@ -289,8 +429,18 @@ def policy_sweep_all(traces: Dict[str, TrafficTrace],
                      net: NetworkConfig | None = None,
                      policies=("static", "greedy", "adaptive", "oracle")
                      ) -> List[PolicySweepResult]:
-    return [policy_sweep(tr, wl, net, policies)
-            for wl, tr in traces.items()]
+    with DEFAULT_REGISTRY.span("dse.policy_sweep_all") as t:
+        out = [policy_sweep(tr, wl, net, policies)
+               for wl, tr in traces.items()]
+    prov = make_provenance(
+        "dse.policy_sweep_all",
+        {"workloads": sorted(traces), "policies": list(policies),
+         "net": net},
+        points=len(traces) * (len(policies) + 1),   # +1: wired baseline
+        wall_s=t["seconds"])
+    for r in out:
+        r.provenance = prov
+    return out
 
 
 def resilience_sweep_all(workloads, net: NetworkConfig | None = None,
@@ -305,13 +455,20 @@ def resilience_sweep_all(workloads, net: NetworkConfig | None = None,
     routed through the era-rebuild controller.  The returned dict is
     `repro_torch.fault.resilience.resilience_sweep`'s (traces built on
     ``device``: the card when None, raising without one), plus a
-    ``"provenance"`` entry, None until the `obs` plane is ported.
+    ``"provenance"`` entry.
     """
     from repro_torch.fault import resilience_sweep  # late: fault imports sim
     net = net or NetworkConfig(bandwidth=gbps_to_bytes_per_s(96))
-    out = resilience_sweep(workloads, net, ks=tuple(ks), fades=tuple(fades),
-                           policies=tuple(policies), device=device)
-    out["provenance"] = None
+    with DEFAULT_REGISTRY.span("dse.resilience_sweep_all") as t:
+        out = resilience_sweep(workloads, net, ks=tuple(ks),
+                               fades=tuple(fades), policies=tuple(policies),
+                               device=device)
+    out["provenance"] = make_provenance(
+        "dse.resilience_sweep_all",
+        {"workloads": list(workloads), "ks": list(ks),
+         "fades": list(fades), "policies": list(policies), "net": net},
+        points=len(out) * len(ks) * len(fades) * len(policies),
+        wall_s=t["seconds"])
     return out
 
 
@@ -382,7 +539,7 @@ class ScalingResult:
     best_reuse_plan: str          # describe() of the winning plan ("1ch"
     #                               when no reuse plan fits the mesh)
     provenance: Optional[dict] = dataclasses.field(
-        default=None, compare=False)
+        default=None, compare=False)  # dse.provenance
 
     @property
     def recovered(self) -> float:
@@ -416,11 +573,28 @@ def scaling_sweep(workloads=None, grids=SCALING_GRIDS,
     if workloads is None:
         from .workloads import WORKLOADS
         workloads = list(WORKLOADS)
+    with DEFAULT_REGISTRY.span("dse.scaling_sweep", engine=engine) as t:
+        out, points = _scaling_sweep_body(grids, workloads, bandwidth_gbps,
+                                          engine, device)
+    prov = make_provenance(
+        "dse.scaling_sweep",
+        {"workloads": list(workloads), "grids": [tuple(g) for g in grids],
+         "bandwidth_gbps": bandwidth_gbps, "engine": engine},
+        points=points, wall_s=t["seconds"])
+    for r in out:
+        r.provenance = prov
+    return out
+
+
+def _scaling_sweep_body(grids, workloads, bandwidth_gbps, engine, device):
     out: List[ScalingResult] = []
+    points = 0
     for grid in grids:
         acc = scaled_config(tuple(grid))
         plans = (ChannelPlan(1),) + reuse_plans(tuple(grid))
         spec = GridSpec(bandwidths_gbps=(bandwidth_gbps,), plans=plans)
+        points += (len(workloads) * len(plans) * len(spec.thresholds)
+                   * len(spec.injections))
         for wl in workloads:
             trace = make_trace(wl, acc, device=device)
             if engine == "batched":
@@ -450,7 +624,7 @@ def scaling_sweep(workloads=None, grids=SCALING_GRIDS,
                 wired_time=base,
                 best_single=best_single, best_reuse=best_reuse,
                 best_reuse_plan=plan_desc))
-    return out
+    return out, points
 
 
 def scaling_summary(results: List[ScalingResult]
@@ -465,6 +639,60 @@ def scaling_summary(results: List[ScalingResult]
             "mean_reuse": float(np.mean([r.best_reuse for r in rs])),
             "max_reuse": float(np.max([r.best_reuse for r in rs])),
             "mean_recovered": float(np.mean([r.recovered for r in rs])),
+            "n": len(rs),
+        }
+    return out
+
+
+def hetero_sweep(workloads=None,
+                 mixes: Tuple[str, ...] = ("big_little", "compute_mem",
+                                           "aimc_edge"),
+                 net: NetworkConfig | None = None,
+                 grid: Tuple[int, int] = (3, 3), seed: int = 0,
+                 steps: int = 150, restarts: int = 1,
+                 n_samples: int = 8, device=None) -> list:
+    """The heterogeneity frontier: placement co-design per (mix, workload).
+
+    For every catalog mix x workload, run `repro_torch.arch.codesign` —
+    the joint placement/layer-assignment search under the wired and
+    hybrid objectives — and report (i) the hybrid-vs-wired speedup at
+    the co-designed placement and (ii) the best-vs-worst placement
+    spread with and without the wireless plane.  Defaults cover the
+    paper's 15 workloads; LLM frontier names work too.  Each search
+    evaluates on ``device`` (the card when None; pass ``device="cpu"``).
+    """
+    from repro_torch.arch import codesign  # arch builds on core: late
+    if workloads is None:
+        from .workloads import WORKLOADS
+        workloads = list(WORKLOADS)
+    return [codesign(wl, mix, net, grid, seed=seed, steps=steps,
+                     restarts=restarts, n_samples=n_samples, device=device)
+            for mix in mixes for wl in workloads]
+
+
+def hetero_summary(results) -> Dict[str, Dict[str, float]]:
+    """Per-mix (and overall) aggregates of a `hetero_sweep` run."""
+    out: Dict[str, Dict[str, float]] = {}
+    mixes = sorted({r.mix for r in results})
+    for mix in mixes + ["_overall"]:
+        rs = [r for r in results if mix == "_overall" or r.mix == mix]
+        if not rs:        # empty sweep: no NaN means (as in `summary`)
+            continue
+        out[mix] = {
+            "mean_speedup_hybrid": float(
+                np.mean([r.speedup_hybrid for r in rs])),
+            "max_speedup_hybrid": float(
+                np.max([r.speedup_hybrid for r in rs])),
+            "mean_speedup_codesigned": float(
+                np.mean([r.speedup_codesigned for r in rs])),
+            "max_speedup_codesigned": float(
+                np.max([r.speedup_codesigned for r in rs])),
+            "mean_spread_wired": float(
+                np.mean([r.spread_wired for r in rs])),
+            "mean_spread_hybrid": float(
+                np.mean([r.spread_hybrid for r in rs])),
+            "spread_shrunk": sum(r.spread_hybrid < r.spread_wired
+                                 for r in rs),
             "n": len(rs),
         }
     return out

@@ -16,6 +16,9 @@ mechanism the paper identifies.
 Every array stays on the trace's device; a result waits for the device
 once, when `_finalize` copies its per-layer vectors and energies to the
 host.  `SimResult.layer_times` and `layer_terms` stay tensors there.
+Under an active recorder (``with repro_torch.obs.recording(st):``) the
+same copy carries the per-layer terms, from which `_finalize` emits the
+analytic timeline into ``st`` on the host.
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.net.config import NetworkConfig, as_network
+from repro_torch.obs.trace import active_recorder
 from repro_torch.net.stack import network_layer_times
 
 from .mapper import pipeline_mapping, spatial_mapping
@@ -75,14 +80,24 @@ class SimResult:
         return {b: v / self.total_time for b, v in shares.items()}
 
 
+def cut_times(trace: TrafficTrace,
+              link_loads: torch.Tensor) -> torch.Tensor | None:
+    """(L, n_cuts) service time of each directed mesh cut per layer, or
+    None on a trace with no NoP link."""
+    if not link_loads.numel():
+        return None
+    cut_mat, cut_bw = trace.cut_matrix()
+    return link_loads @ cut_mat / cut_bw
+
+
 def nop_times(trace: TrafficTrace, link_loads: torch.Tensor) -> torch.Tensor:
     """(L,) worst directed mesh-cut service time per layer ("congested
     bisection links"); zero on a trace with no NoP link."""
-    if not link_loads.numel():
+    t_cut = cut_times(trace, link_loads)
+    if t_cut is None:
         return torch.zeros(trace.n_layers, dtype=torch.float64,
                            device=trace.device)
-    cut_mat, cut_bw = trace.cut_matrix()
-    return (link_loads @ cut_mat / cut_bw).amax(dim=1)
+    return t_cut.amax(dim=1)
 
 
 def _finalize(trace: TrafficTrace, link_loads: torch.Tensor,
@@ -96,8 +111,11 @@ def _finalize(trace: TrafficTrace, link_loads: torch.Tensor,
     the JAX package's bit for bit where the layer terms do.
     """
     L = trace.n_layers
-    stack = torch.stack([trace.t_compute, trace.t_dram, trace.t_noc,
-                         nop_times(trace, link_loads), t_wireless])
+    t_cut = cut_times(trace, link_loads)
+    t_nop = (t_cut.amax(dim=1) if t_cut is not None
+             else torch.zeros(L, dtype=torch.float64, device=trace.device))
+    stack = torch.stack([trace.t_compute, trace.t_dram, trace.t_noc, t_nop,
+                         t_wireless])
     layer_times = stack.amax(dim=0)
     which = stack.argmax(dim=0)
     if wl_bytes is None:
@@ -107,8 +125,15 @@ def _finalize(trace: TrafficTrace, link_loads: torch.Tensor,
                                                  torch.Tensor)
                  else torch.full((), wireless_energy_j, dtype=torch.float64,
                                  device=trace.device))
-    host = torch.cat([layer_times, which.to(torch.float64), wl_bytes,
-                      energy.view(1), wl_energy.view(1)]).cpu().numpy()
+    st = active_recorder()
+    parts = [layer_times, which.to(torch.float64), wl_bytes, energy.view(1),
+             wl_energy.view(1)]
+    if st is not None:   # the terms ride the same copy
+        parts += [stack.reshape(-1)] + ([] if t_cut is None
+                                        else [t_cut.reshape(-1)])
+    host = torch.cat(parts).cpu().numpy()
+    if st is not None:
+        _record_analytic(st, host[3 * L + 2:], L, t_cut is not None)
     return SimResult(
         total_time=float(host[:L].sum()),
         layer_times=layer_times,
@@ -118,6 +143,31 @@ def _finalize(trace: TrafficTrace, link_loads: torch.Tensor,
         energy_j=float(host[3 * L]),
         layer_terms=stack.T.contiguous(),
     )
+
+
+def _record_analytic(st, terms: np.ndarray, L: int, has_cuts: bool) -> None:
+    """The analytic timeline of one configuration into ``st``, from the
+    host copy of its (5, L) term stack and (L, n_cuts) cut times:
+    coarse spans on the same tracks as the event engine's, with an
+    ``an:`` category prefix, so merged exports line up track for
+    track."""
+    stack = terms[:5 * L].reshape(5, L)
+    layer_times = stack.max(axis=0)
+    which = stack.argmax(axis=0)
+    st.add_layer_matrix(stack[0][:, None], "compute", "an:compute")
+    st.add_layer_matrix(stack[2][:, None], "noc", "an:noc")
+    st.add_layer_matrix(stack[1][:, None], "dram(pooled)", "an:dram-agg")
+    if has_cuts:
+        st.add_layer_matrix(terms[5 * L:].reshape(L, -1), "cut{}",
+                            "an:wired")
+    for li in range(L):
+        st.add_layer_event(
+            "layers", f"L{li}:{BOTTLENECKS[which[li]]}", li, 0.0,
+            float(layer_times[li]), "layer",
+            **{b: float(stack[i, li]) for i, b in enumerate(BOTTLENECKS)})
+    st.place_layers(layer_times)
+    st.meta.setdefault("plane", "analytic")
+    st.meta["total_time"] = float(layer_times.sum())
 
 
 def mac_energy_pj(trace: TrafficTrace):

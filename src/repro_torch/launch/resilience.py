@@ -10,31 +10,35 @@ without one it raises, and ``--device cpu`` runs the CPU route):
 1. **Inject** — a chiplet fail-stop plus an SNR fade mid-run; compare
    the wired-only counterfactual, the paper's static filter, and the
    online-reshard policy under the SAME degraded conditions.
+2. **Explain** — record the faulted run (`repro_torch.obs`) and show
+   where the critical path moved (the dead chip's inflated compute vs
+   the faded wireless channel) relative to the fault-free run.
 3. **Decide** — the `reshard_run` controller prices degraded mode vs
    a heartbeat-gated placement rebuild, and a retained-speedup
    mini-grid reproduces one row of the JAX package's `fig_resilience`
    benchmark.
 
-Act 2 of the reference (**Explain**: record the faulted run and show
-where the critical path moved) needs the `obs` plane's recorder and
-critical path, which the port does not have yet.  ``--quick`` trims act
-3's grid.  Retained speedups are printed with every digit.
+``--quick`` trims act 3's grid.  Retained speedups are printed with
+every digit.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from typing import Tuple
 
 from ..core import NetworkConfig, make_trace
 from ..core.units import gbps_to_bytes_per_s, s_to_ms
 from ..fault import (ChipFailure, FaultScenario, SnrFade, default_scenario,
                      reshard_run, resilience_sweep)
+from ..obs import critical_path, critical_vs_busy
 from ..sim import PacketSim
 
 
-def inject(workload: str, net: NetworkConfig, device) -> list:
-    """Act 1's lines."""
+def inject(workload: str, net: NetworkConfig,
+           device) -> Tuple[FaultScenario, list]:
+    """Act 1's scenario and lines."""
     tr = make_trace(workload, device=device)
     n = tr.topo.config.n_chiplets
     sc = FaultScenario(
@@ -54,6 +58,21 @@ def inject(workload: str, net: NetworkConfig, device) -> list:
         lines.append(f"  {pol:<15s}  {s_to_ms(t0):8.3f} ms fault-free -> "
                      f"{s_to_ms(tf):8.3f} ms faulted  "
                      f"(retained {retained:.1%}, {retained!r})")
+    return sc, lines
+
+
+def explain(workload: str, net: NetworkConfig, sc: FaultScenario,
+            device) -> list:
+    """Act 2's lines: each run's three largest critical shares."""
+    lines = ["== explain: critical-path shift under the scenario =="]
+    tr = make_trace(workload, device=device)
+    for label, faults in (("fault-free", None), ("faulted", sc)):
+        res = PacketSim(tr, net, record=True, faults=faults).run("static")
+        cp = critical_path(res.trace)
+        crit = critical_vs_busy(res.trace, cp)["critical"]
+        top = sorted(crit, key=crit.get, reverse=True)[:3]
+        lines.append(f"  {label:<10s} critical share: " + ", ".join(
+            f"{k}={crit[k]:.0%} ({crit[k]!r})" for k in top))
     return lines
 
 
@@ -83,8 +102,8 @@ def decide(workload: str, net: NetworkConfig, quick: bool, device) -> list:
 
 def report(workload: str, quick: bool, device: str) -> list:
     net = NetworkConfig(bandwidth=gbps_to_bytes_per_s(96))
-    return (inject(workload, net, device)
-            + ["== explain: waits for the obs plane (critical path) =="]
+    sc, lines = inject(workload, net, device)
+    return (lines + explain(workload, net, sc, device)
             + decide(workload, net, quick, device))
 
 

@@ -27,7 +27,9 @@ from, and `evaluate` waits for the device only where it must size a
 tensor (the transmitter groups, once per reuse distance); the results
 stay there.  The module is `repro_torch.core`-independent: the caller
 (`core.dse`) supplies the per-packet tensors, eligibility masks, the
-injection hash and the mesh-cut geometry.
+injection hash and the mesh-cut geometry.  Under an installed profiler
+(`repro_torch.obs.profiling`) `evaluate` and its stages record as the
+JAX package's ``net.batched.*`` phases.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import profile as obs_profile
 from repro_torch.units import gbps_to_bytes_per_s
 
 from .channel import ChannelPlan
@@ -233,6 +236,10 @@ class BatchedDesignSpace:
     # ------------------------------------------------------------------
 
     def evaluate(self, spec: GridSpec | None = None) -> GridResult:
+        with obs_profile.phase("net.batched.evaluate"):
+            return self._evaluate(spec)
+
+    def _evaluate(self, spec: GridSpec | None) -> GridResult:
         spec = spec if spec is not None else GridSpec()
         missing = [t for t in spec.thresholds if t not in self.eligibility]
         if missing:
@@ -242,10 +249,12 @@ class BatchedDesignSpace:
                 f"(batched_design_space(trace, thresholds=...))")
         L, C = self.n_layers, len(self.cut_bw)
         NT, NI = len(spec.thresholds), len(spec.injections)
-        bucket = self._buckets(spec.injections)
-        # per threshold: each packet's bucket, NI (never) where ineligible
-        buckets = [torch.where(self.eligibility[t], bucket, NI)
-                   for t in spec.thresholds]
+        with obs_profile.phase("net.batched.buckets"):
+            bucket = self._buckets(spec.injections)
+            # per threshold: each packet's bucket, NI (never) where
+            # ineligible
+            buckets = [torch.where(self.eligibility[t], bucket, NI)
+                       for t in spec.thresholds]
 
         # --- wired plane: removed cut loads and t_nop, per (thr, inj) ---
         t_nop = torch.empty((NT, L, NI), dtype=torch.float64,
@@ -255,21 +264,34 @@ class BatchedDesignSpace:
         seg = (torch.arange(C, device=self.device)[:, None] * L
                + self.layer[None, :]).reshape(-1)
         weights = (self.pkt_cut.T * self.nbytes).reshape(-1)
-        for ti, b in enumerate(buckets):
-            removed = self._cum(seg, C * L, b.expand(C, M).reshape(-1), NI,
-                                weights=weights).view(C, L, NI)
-            residual = self.cut_base.T[:, :, None] - removed
-            t_nop[ti] = (residual / self.cut_bw[:, None, None]).amax(dim=0)
+        with obs_profile.phase("net.batched.wired"):
+            for ti, b in enumerate(buckets):
+                removed = self._cum(seg, C * L, b.expand(C, M).reshape(-1),
+                                    NI, weights=weights).view(C, L, NI)
+                residual = self.cut_base.T[:, :, None] - removed
+                t_nop[ti] = (residual / self.cut_bw[:, None, None]) \
+                    .amax(dim=0)
+            obs_profile.note_ndarray(t_nop)
 
         # --- wireless plane: per-plan (bytes, msgs, active) aggregates,
         # with a zone-class axis (0..Z-1 zone-local, Z global) when the
         # plan spatially reuses the band; msgs/active only matter to
         # non-ideal MACs and are skipped otherwise ---
         need_counts = any(m.protocol != "ideal" for m in spec.macs)
-        per_plan = self._wireless_aggregates(spec, buckets, need_counts, L,
-                                             NI)
+        with obs_profile.phase("net.batched.wireless"):
+            per_plan = self._wireless_aggregates(spec, buckets, need_counts,
+                                                 L, NI)
 
         # --- closed-form assembly over (mac, plan, bandwidth) ---
+        with obs_profile.phase("net.batched.assemble"):
+            total = self._assemble(spec, per_plan, t_nop, NT, NI)
+            obs_profile.note_ndarray(total)
+        # tensor / tensor: `float / tensor` multiplies by a reciprocal
+        return GridResult(spec, self.base_time, total,
+                          torch.full_like(total, self.base_time) / total)
+
+    def _assemble(self, spec, per_plan, t_nop, NT, NI) -> torch.Tensor:
+        """Total time of every (mac, plan, bandwidth, thr, inj) point."""
         shape = (len(spec.macs), len(spec.plans),
                  len(spec.bandwidths_gbps), NT, NI)
         total = torch.empty(shape, dtype=torch.float64, device=self.device)
@@ -290,9 +312,7 @@ class BatchedDesignSpace:
                     # NumPy sums a middle axis: a CPU run is bit-equal
                     total[mi, pi, bi] = torch.maximum(floor, t_wl).cumsum(
                         dim=1)[:, -1]
-        # tensor / tensor: `float / tensor` multiplies by a reciprocal
-        return GridResult(spec, self.base_time, total,
-                          torch.full_like(total, self.base_time) / total)
+        return total
 
     def _wireless_aggregates(self, spec, buckets, need_counts, L, NI):
         """Per-plan (bytes, msgs, active) bucketed aggregates — the
@@ -346,5 +366,6 @@ class BatchedDesignSpace:
                     acs.append(self._cum(gseg, n_seg, bmin_cache[rd, ti],
                                          NI))
                 ac = torch.stack(acs).view(NT, L, n_ch, nz, NI)
+            obs_profile.note_ndarray(by, ms, ac)
             per_plan.append((by, ms, ac, Z, nz))
         return per_plan

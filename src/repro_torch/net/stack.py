@@ -21,14 +21,19 @@ this is exactly the paper's `volume / bandwidth` term.
 Everything runs on the device of the packet tensors with no host sync:
 packets outside the injected set are scattered with weight zero (bytes,
 messages) or flagged absent (transmitters), so no boolean selection
-waits for its size.
+waits for its size.  Under an active recorder
+(`repro_torch.obs.recording`) the per-channel times are copied to the
+host once and emitted as coarse spans.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.obs.trace import active_recorder, host_array
 
 from .config import NetworkConfig
 from .mac import mac_extra_bytes, mac_times
@@ -98,6 +103,9 @@ def network_layer_times(n_layers: int, layer: torch.Tensor,
             injected)
         t_lc = mac_times(net.mac, bytes_lc, msgs_lc, active_lc, bw_c)
         extra = mac_extra_bytes(net.mac, bytes_lc, msgs_lc, active_lc).sum()
+        st = active_recorder()
+        if st is not None:
+            st.add_layer_matrix(t_lc, "ch{}", "an:wireless")
         return t_lc.amax(dim=1), bytes_lc.sum(dim=1), extra
     if grid is None or node_coords is None or max_hops is None:
         raise ValueError(
@@ -112,4 +120,22 @@ def network_layer_times(n_layers: int, layer: torch.Tensor,
     t_lcz = mac_times(net.mac, bytes_lcz, msgs_lcz, active_lcz, bw_c)
     t_lc = t_lcz[..., Z] + t_lcz[..., :Z].amax(dim=-1)
     extra = mac_extra_bytes(net.mac, bytes_lcz, msgs_lcz, active_lcz).sum()
+    st = active_recorder()
+    if st is not None:
+        _record_zones(st, host_array(t_lcz), Z)
     return t_lc.amax(dim=1), bytes_lcz.sum(dim=(1, 2)), extra
+
+
+def _record_zones(st, t_lcz: np.ndarray, Z: int) -> None:
+    """Coarse spans of a reuse plan's (L, C, Z + 1) host times: the
+    global phase first (it quiesces the channel), the zone phases
+    concurrently after it — the schedule the costing assumes."""
+    for li, c in zip(*np.nonzero(t_lcz.max(axis=-1))):
+        g = float(t_lcz[li, c, Z])
+        if g > 0.0:
+            st.add_layer_event(f"ch{c}/g", "span", int(li), 0.0, g,
+                               "an:wireless")
+        for z in range(Z):
+            if t_lcz[li, c, z] > 0.0:
+                st.add_layer_event(f"ch{c}/z{z}", "span", int(li), g,
+                                   float(t_lcz[li, c, z]), "an:wireless")

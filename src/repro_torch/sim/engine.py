@@ -50,8 +50,13 @@ precomputed arrays (copied once a simulator), costing each wireless
 transmission in host floats by the same closed form as the tensor
 path; each run's result lands on the trace's device once.
 
-The JAX package's recorder (``record=True``, a `SimTrace` of every
-event) belongs to the `obs` plane, which the port does not have yet.
+``record=True`` records every transmission into a `SimTrace`
+(`repro_torch.obs`) on the host.  The planned route computes each
+packet's FIFO begin and end on the device and copies them to the host
+once a run, where the events are built; the online route records as
+its loop serves each packet.  Unrecorded runs build no `SimTrace`.
+Under an installed profiler the engine records the JAX package's
+``sim.*`` phases.
 """
 
 from __future__ import annotations
@@ -66,6 +71,7 @@ import torch
 from repro_torch.core.simulator import (BOTTLENECKS, PJ_PER_BIT_DRAM,
                                         PJ_PER_BIT_NOP_HOP, mac_energy_pj,
                                         noc_energy_pj)
+from repro_torch.core.topology import node_grid_coords
 from repro_torch.core.traffic import TrafficTrace
 from repro_torch.core.units import BITS_PER_BYTE, pj_to_j
 from repro_torch.core.wireless import eligibility, wireless_energy_joules
@@ -74,6 +80,8 @@ from repro_torch.net.mac import (mac_packet_extra_bytes,
                                  mac_packet_extra_host, mac_packet_time_host,
                                  mac_packet_times)
 from repro_torch.net.scatter import scatter_sum
+from repro_torch.obs import profile as obs_profile
+from repro_torch.obs import trace as obs_trace
 
 from .calendar import ResourcePool, first_occurrence, segment_cumsum
 
@@ -102,8 +110,8 @@ class EventResult:
     policy: str
     link_model: str
     dram_model: str
-    trace: None = None             # the obs plane's SimTrace (not ported)
-    layer_terms: Optional[torch.Tensor] = None
+    trace: Optional["obs_trace.SimTrace"] = None   # when record=True
+    layer_terms: Optional[torch.Tensor] = None     # (L, 5) when recorded
 
     @property
     def edp(self) -> float:
@@ -113,7 +121,8 @@ class EventResult:
         """Fraction of total time attributed to each bottleneck.
 
         A degenerate (zero-time) run has no bottleneck: the explicit
-        convention is an empty dict.
+        convention is an empty dict, shared with
+        `repro_torch.obs.metrics.attribution_report`'s empty list.
         """
         if not self.total_time:
             return {}
@@ -138,6 +147,7 @@ class PacketSim:
     reproduce the analytic model for static injection sets.
     ``faults`` (a `repro_torch.fault.FaultScenario`) derates the trace
     for chip events and degrades the planes for link failures and fades.
+    ``record=True`` attaches a `SimTrace` of every run to its result.
     """
 
     def __init__(self, trace: TrafficTrace, net, *,
@@ -147,10 +157,6 @@ class PacketSim:
             raise ValueError(f"link_model must be one of {LINK_MODELS}")
         if dram_model not in DRAM_MODELS:
             raise ValueError(f"dram_model must be one of {DRAM_MODELS}")
-        if record:
-            raise NotImplementedError(
-                "record=True records a SimTrace, which belongs to the obs "
-                "plane: the port's obs slice is not written yet")
         self.faults = None
         if faults is not None and not faults.is_null:
             if link_model == "adaptive":
@@ -167,7 +173,9 @@ class PacketSim:
         self.net = as_network(net)
         self.link_model = link_model
         self.dram_model = dram_model
-        self._precompute()
+        self.record = record
+        with obs_profile.phase("sim.precompute"):
+            self._precompute()
 
     def _precompute(self) -> None:
         """Route-geometry / FIFO / eligibility precompute, on the
@@ -317,7 +325,7 @@ class PacketSim:
 
     def _finish(self, mask: torch.Tensor, t_nop: torch.Tensor,
                 t_wl: torch.Tensor, t_dram: torch.Tensor, extra_bytes,
-                busies, policy_name: str) -> EventResult:
+                busies, policy_name: str, st=None) -> EventResult:
         tr = self.trace
         L = tr.n_layers
         stack = torch.stack([tr.t_compute, t_dram, tr.t_noc, t_nop, t_wl])
@@ -337,10 +345,17 @@ class PacketSim:
             + (wl_bytes + extra_bytes) * BITS_PER_BYTE
             * self.net.energy_pj_per_bit)
         wl_energy = wireless_energy_joules(tr, mask, self.net, extra_bytes)
-        # one copy to the host; the layer sum as NumPy sums it
-        host = torch.cat([layer_times, which.to(torch.float64),
-                          wl_bytes.view(1), energy.view(1),
-                          wl_energy.view(1)]).cpu().numpy()
+        # one copy to the host (a recorder's terms and mask in it too);
+        # the layer sum as NumPy sums it
+        parts = [layer_times, which.to(torch.float64), wl_bytes.view(1),
+                 energy.view(1), wl_energy.view(1)]
+        if st is not None:
+            parts += [stack.reshape(-1), mask.to(torch.float64)]
+        host = torch.cat(parts).cpu().numpy()
+        if st is not None:
+            self._finish_trace(st, host[2 * L + 3:2 * L + 3 + 5 * L]
+                               .reshape(5, L),
+                               host[2 * L + 3 + 5 * L:] > 0, policy_name)
         cut_busy, channel_busy, dram_busy, link_busy = busies
         return EventResult(
             total_time=float(host[:L].sum()),
@@ -354,7 +369,61 @@ class PacketSim:
             cut_busy=cut_busy, channel_busy=channel_busy,
             dram_busy=dram_busy, link_busy=link_busy,
             policy=policy_name, link_model=self.link_model,
-            dram_model=self.dram_model)
+            dram_model=self.dram_model, trace=st,
+            layer_terms=stack.T.contiguous() if st is not None else None)
+
+    def _finish_trace(self, st, stack: np.ndarray, mask: np.ndarray,
+                      policy_name: str) -> None:
+        """Coarse spans, layer spans, counters, metadata — then place
+        every pending layer-relative event on the barrier timeline.
+        ``stack`` is the host copy of the (5, L) layer terms, ``mask``
+        of the executed injection set."""
+        tr, h = self.trace, self._host()
+        L = tr.n_layers
+        layer_times = stack.max(axis=0)
+        which = stack.argmax(axis=0)
+        st.add_layer_matrix(stack[0][:, None], "compute", "compute")
+        st.add_layer_matrix(stack[2][:, None], "noc", "noc")
+        st.add_layer_matrix(stack[1][:, None], f"dram({self.dram_model})",
+                            "dram-agg")
+        for li in range(L):
+            st.add_layer_event(
+                "layers", f"L{li}:{BOTTLENECKS[which[li]]}", li, 0.0,
+                float(layer_times[li]), "layer",
+                **{b: float(stack[i, li])
+                   for i, b in enumerate(BOTTLENECKS)})
+        st.place_layers(layer_times)
+        st.derive_queue_counters()
+        st.derive_utilization_counters()
+        finishes = np.cumsum(layer_times)
+        for plane, sel in (("wireless", mask), ("wired", ~mask)):
+            per_layer = np.bincount(h.layer[sel], weights=h.nbytes[sel],
+                                    minlength=L)
+            cum = np.cumsum(per_layer)
+            st.add_counter(f"bytes:{plane}", 0.0, 0.0)
+            for t, v in zip(finishes, cum):
+                st.add_counter(f"bytes:{plane}", float(t), float(v))
+        plan = self.net.channels
+        cfg = tr.topo.config
+        st.meta.update(policy=policy_name,
+                       link_model=self.link_model,
+                       dram_model=self.dram_model,
+                       total_time=float(layer_times.sum()),
+                       # everything `repro_torch.obs.whatif` needs to
+                       # re-bucket recorded transmissions under scaled
+                       # resources
+                       n_nodes=int(tr.topo.n_nodes),
+                       grid=[int(cfg.grid[0]), int(cfg.grid[1])],
+                       bandwidth=float(self.net.bandwidth),
+                       mac=str(self.net.mac.protocol),
+                       n_channels=int(self.n_channels),
+                       reuse_zones=int(self.n_zones),
+                       channel_policy=str(plan.policy),
+                       n_dram=int(self.n_dram),
+                       link_bw=float(self.link_bw),
+                       cut_of_link=[int(c) for c in h.cut_of_link],
+                       k_par=[int(k) for k in h.k_par],
+                       node_coords=node_grid_coords(tr.topo).tolist())
 
     # ------------------------------------------------------------------
     # batched path: static injection sets, one event pop per layer
@@ -430,12 +499,147 @@ class PacketSim:
         return torch.stack([tr.t_compute, t_dram, tr.t_noc, t_nop,
                             t_wl]).amax(dim=0)
 
-    def _run_planned(self, mask: torch.Tensor, name: str,
+    def _run_planned(self, mask: torch.Tensor, name: str, st=None,
                      force: bool = True) -> EventResult:
-        if force:
-            mask = self._with_forced(mask)
-        t_nop, t_wl, t_dram, extra, busies = self._planned_parts(mask)
-        return self._finish(mask, t_nop, t_wl, t_dram, extra, busies, name)
+        with obs_profile.phase("sim.planned"):
+            if force:
+                mask = self._with_forced(mask)
+            with obs_profile.phase("sim.planned_parts"):
+                t_nop, t_wl, t_dram, extra, busies = \
+                    self._planned_parts(mask)
+            if st is not None:
+                with obs_profile.phase("sim.record_planned"):
+                    self._record_planned(st, mask)
+            with obs_profile.phase("sim.finish"):
+                return self._finish(mask, t_nop, t_wl, t_dram, extra,
+                                    busies, name, st)
+
+    def _record_planned(self, st, mask: torch.Tensor) -> None:
+        """Reconstruct the per-packet events a batched layer pop implies.
+
+        The batched path never materialises an event order — per-layer
+        busy totals and maxima fully determine the barrier times — so
+        events are rebuilt post-hoc (only when recording) from the FIFO
+        semantics: within each (layer, resource) queue, packets serve
+        in injection (= trace index) order, begin = frontier +
+        preceding service.  Under spatial reuse the planned costing is
+        ``t_global + max_z t_zone``, i.e. the channel's global phase
+        quiesces first and the zone FIFOs then run concurrently — zone
+        events are offset by their channel's per-layer global busy.
+        The per-resource busy integral of the reconstruction matches
+        `cut_busy`/`channel_busy`/`dram_busy` (pinned to 1e-12 in
+        tests/test_torch_obs.py).
+
+        Every reconstructed event carries its blocking edges (`deps`):
+        the FIFO predecessor within its (layer, server) queue, and —
+        for a reuse zone's head-of-queue packet — the channel's LAST
+        global transmission (the quiesce it waited out).  Heads of
+        queues with no deps begin at the layer barrier.  Wireless
+        events also carry ``src``/``hops`` args so `repro_torch.obs.
+        whatif` can re-bucket them under a different channel/zone plan.
+
+        Each queue family's FIFO order and completion times are computed
+        on the trace's device (a stable sort with the dropped entries
+        keyed past every queue, then a segmented cumsum that runs over
+        the kept entries first, in the JAX package's order) and reach
+        the host in one copy; the events are built there.
+        """
+        tr = self.trace
+        dev = tr.device
+        L = tr.n_layers
+        families = []    # (name, resource, service, segment, keep)
+        if self.link_model != "xy":
+            families.append(("wired", self._x_cut, self._x_add,
+                              self._x_seg, ~mask[self._x_pkt], self._x_pkt))
+        else:
+            epk = tr.inc_msg[torch.sort(tr.inc_msg, stable=True)[1]]
+            families.append(("wired", self._pk_links,
+                             tr.nbytes[epk] / self.link_bw,
+                             tr.layer[epk] * tr.n_links + self._pk_links,
+                             ~mask[epk], epk))
+        pkts = torch.arange(len(tr.nbytes), device=dev)
+        grp, svc, _ = self._wireless_batch(mask)
+        if self.n_zcls == 1:
+            families.append(("wireless", grp, svc, grp, mask, pkts))
+        else:
+            glob = self.pkt_zc == self.n_zones
+            families.append(("global", grp, svc, grp, mask & glob, pkts))
+            families.append(("zone", grp, svc, grp, mask & ~glob, pkts))
+        nd = tr.dram_node
+        families.append(("dram", nd, self._dram_svc, self._dram_seg,
+                         nd >= 0, pkts))
+        past = L * max(self.n_cuts, tr.n_links, self.n_channels * self.n_zcls,
+                       self.n_dram) + 1    # beyond every queue's segment
+        cols, sizes = [], []
+        for _, res, svc_f, seg, keep, pkt in families:
+            key, order = torch.sort(torch.where(keep, seg, past), stable=True)
+            s = torch.where(keep, svc_f, 0.0)[order]
+            cols += [pkt[order].to(torch.float64),
+                     res[order].to(torch.float64), s,
+                     segment_cumsum(s, key), key.to(torch.float64)]
+            sizes.append(len(key))
+        host = torch.cat(cols).cpu().numpy()
+        pos, fifo = 0, {}
+        for (name, *_), n in zip(families, sizes):
+            p, r, s, e, k = host[pos:pos + 5 * n].reshape(5, n)
+            pos += 5 * n
+            kept = k < past
+            fifo[name] = (p[kept].astype(np.int64), r[kept].astype(np.int64),
+                          s[kept], e[kept], k[kept].astype(np.int64))
+        self._emit_planned(st, fifo)
+
+    def _emit_planned(self, st, fifo) -> None:
+        """The recorded events of `_record_planned`'s host FIFO queues:
+        ``fifo[family] = (packet, resource, service, end, segment)``,
+        each queue family in its service order."""
+        h = self._host()
+
+        def emit(queue, fmt, cat, offset=None, first_dep=None,
+                 wireless=False):
+            prev_eid, prev_seg, last = -1, None, {}
+            for p, r, s, e, sg in zip(*queue):
+                off = 0.0 if offset is None else offset(p)
+                deps = ([prev_eid] if sg == prev_seg
+                        else (first_dep(sg) if first_dep else []))
+                extra = ({"src": int(h.src[p]), "hops": int(h.max_hops[p])}
+                         if wireless else {})
+                prev_eid = st.add_layer_event(
+                    fmt(r), f"p{p}", int(h.layer[p]), off + e - s,
+                    float(s), cat, deps=deps, bytes=float(h.nbytes[p]),
+                    **extra)
+                prev_seg = sg
+                last[sg] = prev_eid
+            return last
+
+        zc, C = self.n_zcls, self.n_channels
+        emit(fifo["wired"], (lambda r: f"cut{r}") if self.link_model != "xy"
+             else (lambda r: f"link{r}"), "wired")
+        if zc == 1:
+            emit(fifo["wireless"], lambda g: f"ch{(g // zc) % C}", "wireless",
+                 wireless=True)
+        else:
+            Z = self.n_zones
+            gp, _, gs, _, gg = fifo["global"]
+            gbusy = np.bincount(gg // zc, weights=gs,
+                                minlength=self.trace.n_layers * C)
+            # global phase first (it quiesces the channel's zones): FIFO
+            # per (layer, channel) from the barrier
+            glast = emit(fifo["global"], lambda g: f"ch{(g // zc) % C}/g",
+                         "wireless", wireless=True)
+            # zone FIFOs run concurrently after the global phase; each
+            # zone queue's head blocks on the channel's last global
+            # transmission
+            lc_of = dict(zip(fifo["zone"][0].tolist(),
+                             (fifo["zone"][4] // zc).tolist()))
+
+            def z_first_dep(sg):
+                g_key = (sg // zc) * zc + Z
+                return [glast[g_key]] if g_key in glast else []
+
+            emit(fifo["zone"], lambda g: f"ch{(g // zc) % C}/z{g % zc}",
+                 "wireless", offset=lambda p: float(gbusy[lc_of[p]]),
+                 first_dep=z_first_dep, wireless=True)
+        emit(fifo["dram"], lambda r: f"dram{r}", "dram")
 
     # ------------------------------------------------------------------
     # sequential path: per-packet events (online policies / adaptive links)
@@ -447,6 +651,7 @@ class PacketSim:
             tr = self.trace
             arrays = dict(
                 nbytes=tr.nbytes, src=tr.src, dram_node=tr.dram_node,
+                layer=tr.layer, max_hops=tr.max_hops,
                 dram_svc=self._dram_svc, pk_cuts=self._pk_cuts,
                 pk_starts=self._pk_starts, pk_links=self._pk_links,
                 x_starts=self._x_starts, x_cut=self._x_cut,
@@ -463,8 +668,14 @@ class PacketSim:
         return self._host_cache
 
     def _run_online(self, policy, mask: Optional[torch.Tensor],
-                    name: str) -> EventResult:
-        """The per-layer / per-packet event loop, on the host."""
+                    name: str, st=None) -> EventResult:
+        with obs_profile.phase("sim.online"):
+            return self._run_online_body(policy, mask, name, st)
+
+    def _run_online_body(self, policy, mask: Optional[torch.Tensor],
+                         name: str, st=None) -> EventResult:
+        """The per-layer / per-packet event loop, on the host
+        (`sim.online`'s self time in a profile is exactly this loop)."""
         tr, mac, h = self.trace, self.net.mac, self._host()
         L, M = tr.n_layers, len(h.nbytes)
         mask = None if mask is None else mask.cpu().numpy()
@@ -499,10 +710,22 @@ class PacketSim:
             linkmat = pad.copy() if adaptive else None
             ch_srcs = [[set() for _ in range(self.n_zcls)]
                        for _ in range(self.n_channels)]
+            # per-server last-recorded eid (reset at the layer barrier):
+            # the FIFO/quiesce dependency edges of the online path
+            last_w: Dict = {}
+            last_ch: Dict[int, int] = {}
+            last_dram: Dict[int, int] = {}
             for p in pkts:
                 v = h.nbytes[p]
                 nd = h.dram_node[p]
                 if nd >= 0:
+                    if st is not None:
+                        last_dram[nd] = st.add_layer_event(
+                            f"dram{nd}", f"p{p}", li,
+                            float(dram_pool.free[nd]),
+                            float(h.dram_svc[p]), "dram",
+                            deps=[last_dram[nd]] if nd in last_dram else [],
+                            bytes=float(v))
                     dram_pool.serve(np.array([nd]),
                                     np.array([h.dram_svc[p]]))
                 # --- wired projection (uncommitted) ---
@@ -511,8 +734,11 @@ class PacketSim:
                     s = v / self.link_bw
                     trial = linkmat.copy()
                     proj_w = 0.0
+                    slots = [] if st is not None else None
                     for c in cuts:     # each crossing -> least-busy link
                         j = int(trial[c].argmin())
+                        if slots is not None:
+                            slots.append((int(c), j, float(trial[c, j])))
                         trial[c, j] += s
                         proj_w = max(proj_w, trial[c, j])
                 elif xy:
@@ -558,15 +784,56 @@ class PacketSim:
                 if go:
                     injected[p] = True
                     if zc >= self.n_zones:
+                        if st is not None:
+                            # quiesce: waits on every zone server of the
+                            # channel, then owns them all
+                            deps = sorted({last_ch[i] for i in ids_wl
+                                           if i in last_ch})
+                            eid = st.add_layer_event(
+                                f"ch{ch}/g", f"p{p}", li, proj_wl - s_wl,
+                                s_wl, "wireless", deps=deps, bytes=float(v),
+                                src=int(h.src[p]), hops=int(h.max_hops[p]))
+                            for i in ids_wl:
+                                last_ch[int(i)] = eid
                         ch_pool.free[ids_wl] = proj_wl
                     else:
+                        if st is not None:
+                            track = (f"ch{ch}/z{zc}" if self.n_zones > 1
+                                     else f"ch{ch}")
+                            sid = int(ids_wl[0])
+                            last_ch[sid] = st.add_layer_event(
+                                track, f"p{p}", li,
+                                float(ch_pool.free[ids_wl[0]]),
+                                s_wl, "wireless",
+                                deps=[last_ch[sid]] if sid in last_ch
+                                else [],
+                                bytes=float(v), src=int(h.src[p]),
+                                hops=int(h.max_hops[p]))
                         ch_pool.serve(ids_wl, np.array([s_wl]))
                     wl_airtime[ch] += s_wl
                     ch_srcs[ch][zc].add(int(h.src[p]))
                     extra_bytes += mac_packet_extra_host(mac, v, a_now)
                 elif adaptive:
+                    if st is not None:
+                        for c, j, begin in slots:
+                            last_w[(c, j)] = st.add_layer_event(
+                                f"cut{c}/l{j}", f"p{p}", li, begin, s,
+                                "wired",
+                                deps=[last_w[(c, j)]] if (c, j) in last_w
+                                else [],
+                                bytes=float(v))
                     linkmat = trial
                 elif len(ids):
+                    if st is not None:
+                        for rid, begin, s1 in zip(
+                                ids, wired_pool.free[ids], svc):
+                            rid = int(rid)
+                            track = (f"link{rid}" if xy else f"cut{rid}")
+                            last_w[rid] = st.add_layer_event(
+                                track, f"p{p}", li, float(begin), float(s1),
+                                "wired",
+                                deps=[last_w[rid]] if rid in last_w else [],
+                                bytes=float(v))
                     wired_pool.serve(ids, svc)
             # --- layer barrier: drain every queue, roll busy ---
             if adaptive:
@@ -598,25 +865,35 @@ class PacketSim:
         busy_ld_d = busy_ld_d.view(L, self.n_dram)
         busies = (cut_busy_d, airtime_d, busy_ld_d.sum(dim=0),
                   None if link_busy is None else link_busy_d)
-        return self._finish(inj_d > 0, t_nop_d, t_wl_d,
-                            self._dram_terms(busy_ld_d), extra_bytes,
-                            busies, name)
+        with obs_profile.phase("sim.finish"):
+            return self._finish(inj_d > 0, t_nop_d, t_wl_d,
+                                self._dram_terms(busy_ld_d), extra_bytes,
+                                busies, name, st)
 
     # ------------------------------------------------------------------
     # entry points
     # ------------------------------------------------------------------
 
+    def _recorder(self, name: str):
+        """A fresh `SimTrace` when recording, else None (zero cost:
+        the engine paths only ever test this for None)."""
+        if not self.record:
+            return None
+        return obs_trace.SimTrace(label=f"event:{name}:{self.link_model}")
+
     def run(self, policy="static") -> EventResult:
         """Simulate under ``policy`` (name, or a `policies.Policy`)."""
         from .policies import get_policy
         pol = get_policy(policy)
-        mask = pol.plan_trace(self)
+        st = self._recorder(pol.name)
+        with obs_profile.phase("sim.plan"):
+            mask = pol.plan_trace(self)
         if mask is not None:
             mask = _as_mask(mask, self.trace.device)
             if self.link_model != "adaptive":
-                return self._run_planned(mask, pol.name)
-            return self._run_online(pol, mask, pol.name)
-        return self._run_online(pol, None, pol.name)
+                return self._run_planned(mask, pol.name, st)
+            return self._run_online(pol, mask, pol.name, st)
+        return self._run_online(pol, None, pol.name, st)
 
     def run_wired(self) -> EventResult:
         """All-wired baseline (the speedup denominator), cached.
@@ -628,11 +905,13 @@ class PacketSim:
         if self._wired_cache is None:
             mask = torch.zeros(len(self.trace.nbytes), dtype=torch.bool,
                                device=self.trace.device)
+            st = self._recorder("wired")
             if self.link_model != "adaptive":
-                self._wired_cache = self._run_planned(mask, "wired",
+                self._wired_cache = self._run_planned(mask, "wired", st,
                                                       force=False)
             else:
-                self._wired_cache = self._run_online(None, mask, "wired")
+                self._wired_cache = self._run_online(None, mask, "wired",
+                                                     st)
         return self._wired_cache
 
     def speedup(self, policy="static") -> float:

@@ -51,6 +51,20 @@ def trace_pair(grid, n_dram, n_layers, link_index, *, exec_meta=None,
     return ref, port
 
 
+def golden_pair():
+    """`tests/test_sim.py`'s golden trace in both packages: two chiplets
+    side by side, one directed link each way, three packets in one
+    layer: two 4 MB eligible multicasts on link 0 and a 2 MB one-hop
+    unicast on link 1 (not eligible); compute floor 1 ms."""
+    return trace_pair(
+        (1, 2), 1, 1, {((0, 0), (0, 1)): 0, ((0, 1), (0, 0)): 1},
+        layer=[0, 0, 0], nbytes=[4e6, 4e6, 2e6], src=[0, 0, 1],
+        is_multicast=[True, True, False], is_multichip=[True, True, True],
+        max_hops=[1, 1, 1], dram_node=[-1, -1, -1], inc_msg=[0, 1, 2],
+        inc_link=[0, 0, 1], t_compute=[1e-3], t_dram=[0.0], t_noc=[0.0],
+        dram_bytes=[0.0])
+
+
 def port_scenario(sc):
     """A reference `FaultScenario` in the port's classes."""
     return PF.FaultScenario(

@@ -1691,3 +1691,22 @@ def test_event_plane_reshard_on_card_matches_cpu(card):
     bad, out = reshard_checks(("zfnet",), (1, 2), 9.0, card)
     assert bad == []
     assert len(out) == 2
+
+
+def test_obs_plane_recorded_run_and_codesign_on_card_match_cpu(card):
+    """A recorded greedy and static `PacketSim` run of smollm_360m:prefill
+    (2 channels x 4 reuse zones) and zfnet's `codesign` on the card
+    against the CPU route (`launch/obs_plane`): the same events within
+    rtol 1e-9, the busy invariant at 1e-12, the attribution rows, the
+    exports read back, the critical path summing to the makespan; the
+    co-design's states equal or tied, its makespans within rtol 1e-9."""
+    from repro_torch.core import make_trace
+    from repro_torch.launch.obs_plane import codesign_checks, recorded_checks
+
+    tr = make_trace("smollm_360m:prefill", device=card)
+    bad, out = recorded_checks(tr, tr.to("cpu"))
+    assert bad == []
+    assert out["greedy"]["events"] > 0 and out["static"]["events"] > 0
+    bad, cells, _ = codesign_checks(card, (("zfnet", "big_little"),))
+    assert bad == []
+    assert cells["zfnet/big_little"]["evaluations"] > 0

@@ -27,6 +27,7 @@ import repro.fault as RF
 from repro.core.workloads import WORKLOADS
 from repro.fault.apply import link_fault_arrays as ref_link_arrays
 from repro.fault.apply import wireless_bw_matrix as ref_bw_matrix
+from repro.obs.provenance import config_hash as ref_config_hash
 from repro.sim import FixedPolicy as RFixed
 from repro.sim import PacketSim as RSim
 from repro_torch import core as P
@@ -274,7 +275,13 @@ def test_resilience_sweep_matches_the_reference():
                                fades=(3.0,))
     got = P.resilience_sweep_all(["resnet50"], NET96[1], ks=(0, 1),
                                  fades=(3.0,), device="cpu")
-    assert got.pop("provenance") is None
+    prov = got.pop("provenance")
+    assert prov["kind"] == "dse.resilience_sweep_all"
+    assert prov["config_hash"] == ref_config_hash(
+        {"workloads": ["resnet50"], "ks": [0, 1], "fades": [3.0],
+         "policies": ["static", "adaptive", "online-reshard"],
+         "net": NET96[0]})
+    assert prov["points_evaluated"] == 1 * 2 * 1 * 3
     assert got.keys() == want.keys()
     row, ref_row = got["resnet50"], want["resnet50"]
     assert close(row["wired_ff"], ref_row["wired_ff"])
@@ -337,7 +344,8 @@ def test_resilience_cli_prints_the_reference_grid():
         timeout=300)
     assert proc.returncode == 0, proc.stderr
     out = proc.stdout
-    for section in ("== inject", "== explain: waits for the obs plane",
+    for section in ("== inject", "== explain: critical-path shift",
+                    "fault-free critical share", "faulted    critical share",
                     "== decide", "recovery event"):
         assert section in out, section
     want = RF.resilience_sweep(["zfnet"], NET96[0], ks=(0, 1),

@@ -45,6 +45,17 @@ EVENT_PLANE_MODULES = ("repro_torch.sim", "repro_torch.sim.calendar",
                        "repro_torch.fault.resilience",
                        "repro_torch.launch.resilience",
                        "repro_torch.launch.event_plane")
+#: the observability and heterogeneous-package planes' modules, each
+#: imported alone too
+OBS_ARCH_MODULES = ("repro_torch.obs", "repro_torch.obs.trace",
+                    "repro_torch.obs.profile", "repro_torch.obs.provenance",
+                    "repro_torch.obs.metrics", "repro_torch.obs.export",
+                    "repro_torch.obs.critpath", "repro_torch.obs.whatif",
+                    "repro_torch.arch", "repro_torch.arch.catalog",
+                    "repro_torch.arch.package", "repro_torch.arch.placement",
+                    "repro_torch.launch.trace_inspect",
+                    "repro_torch.launch.whatif",
+                    "repro_torch.launch.obs_plane")
 
 
 def _imported_modules(path):
@@ -83,7 +94,7 @@ def test_port_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("module", STUDY_MODULES + PAPER_PLANE_MODULES
-                         + EVENT_PLANE_MODULES)
+                         + EVENT_PLANE_MODULES + OBS_ARCH_MODULES)
 def test_study_module_imports_alone_with_jax_and_repro_blocked(module):
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
@@ -99,9 +110,9 @@ def test_study_module_imports_alone_with_jax_and_repro_blocked(module):
 
 
 def test_core_re_exports_the_event_plane_lazily():
-    """`repro_torch.core` resolves the `sim` names on first use, and
-    `repro_torch.core.hybrid_schedule` still imports alone without
-    pulling in `sim` or `fault`."""
+    """`repro_torch.core` resolves the `sim` and `arch` names on first
+    use, and `repro_torch.core.hybrid_schedule` still imports alone
+    without pulling in `sim` or `fault`."""
     code = ("import sys\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
@@ -111,8 +122,11 @@ def test_core_re_exports_the_event_plane_lazily():
             "assert 'repro_torch.sim' not in sys.modules\n"
             "import repro_torch.fault\n"
             "assert 'repro_torch.fault.resilience' not in sys.modules\n"
+            "assert 'repro_torch.arch' not in sys.modules\n"
             "from repro_torch.sim import PacketSim\n"
             "assert core.PacketSim is PacketSim\n"
+            "from repro_torch.arch import codesign\n"
+            "assert core.codesign is codesign\n"
             "for n in ('simulate_events', 'policy_sweep', 'policy_sweep_all',"
             " 'PolicySweepResult', 'fidelity_report'):\n"
             "    getattr(core, n)\n"

@@ -242,8 +242,9 @@ def test_channel_aggregates_and_layer_times_match_the_reference(zones):
 def test_wireless_dse_cli_prints_the_reference_sweeps():
     """`python -m repro_torch.launch.wireless_dse zfnet --quick --device
     cpu`: every section runs, the DSE best speedups it prints equal
-    the reference's `sweep` at 64 and 96 Gb/s, and its event-driven
-    policy sweep the reference's `policy_sweep`."""
+    the reference's `sweep` at 64 and 96 Gb/s, its event-driven policy
+    sweep the reference's `policy_sweep`, and its co-design the
+    reference's quick `codesign`."""
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.wireless_dse", "zfnet",
          "--quick", "--device", "cpu"], capture_output=True, text=True,
@@ -253,7 +254,8 @@ def test_wireless_dse_cli_prints_the_reference_sweeps():
     out = proc.stdout
     for section in ("wired baseline", "bottleneck shares", "heatmap",
                     "network sweep", "balancer [ideal]",
-                    "balancer [tdma 2ch]", "event-driven policy sweep"):
+                    "balancer [tdma 2ch]", "event-driven policy sweep",
+                    "heterogeneous co-design", "placement spread"):
         assert section in out, section
     ref = R.make_trace("zfnet")
     for bw in (64, 96):
@@ -270,3 +272,12 @@ def test_wireless_dse_cli_prints_the_reference_sweeps():
     got = {x.split()[0]: float(x.split("(")[1].split(")")[0])
            for x in lines[start + 2:start + 6]}
     assert got == want.policy_speedups
+    # the co-design section: the reference's quick search, exactly
+    import repro.arch as RA
+    start = next(i for i, x in enumerate(lines)
+                 if x.startswith("heterogeneous co-design [mix=big_little"))
+    cd = RA.codesign("zfnet", "big_little", steps=40, restarts=1,
+                     n_samples=4)
+    assert f"{cd.n_evaluations} placements evaluated" in lines[start]
+    assert cd.package in lines[start + 1]
+    assert f"{cd.speedup_codesigned!r})" in lines[start + 3]

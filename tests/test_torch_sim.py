@@ -29,7 +29,7 @@ from repro_torch.sim import (EventResult, FixedPolicy, PacketSim,
                              fidelity_report, get_policy, policy_report)
 from repro_torch.sim import calendar as PCAL
 
-from _torch_event import NET96, RTOL, assert_same_event, close, trace_pair
+from _torch_event import NET96, RTOL, assert_same_event, close, golden_pair
 
 POLICIES = ("static", "greedy", "adaptive", "oracle", "online-reshard")
 WORKLOADS3 = ("resnet50", "zfnet", "transformer")
@@ -97,19 +97,6 @@ def test_per_packet_mac_matches_the_reference_in_both_forms(proto):
 # ---------------------------------------------------------------------------
 # the golden trace of tests/test_sim.py, built in both packages
 # ---------------------------------------------------------------------------
-
-def golden_pair():
-    """Two chiplets side by side, one directed link each way, three
-    packets in one layer: two 4 MB eligible multicasts on link 0 and a
-    2 MB one-hop unicast on link 1 (not eligible); compute floor 1 ms."""
-    return trace_pair(
-        (1, 2), 1, 1, {((0, 0), (0, 1)): 0, ((0, 1), (0, 0)): 1},
-        layer=[0, 0, 0], nbytes=[4e6, 4e6, 2e6], src=[0, 0, 1],
-        is_multicast=[True, True, False], is_multichip=[True, True, True],
-        max_hops=[1, 1, 1], dram_node=[-1, -1, -1], inc_msg=[0, 1, 2],
-        inc_link=[0, 0, 1], t_compute=[1e-3], t_dram=[0.0], t_noc=[0.0],
-        dram_bytes=[0.0])
-
 
 def test_golden_wired_and_fixed_injection():
     ref, port = golden_pair()
@@ -201,7 +188,10 @@ def test_policy_sweep_fidelity_and_policy_reports_match(traces):
     ports = {w: t[1] for w, t in traces.items()}
     got = policy_sweep_all(ports)
     for g, w in zip(got, ref_policy_sweep_all(refs), strict=True):
-        assert g.workload == w.workload and g.provenance is None
+        assert g.workload == w.workload
+        assert {k: v for k, v in g.provenance.items()
+                if k != "wall_time_s"} == \
+            {k: v for k, v in w.provenance.items() if k != "wall_time_s"}
         for f in ("base_time", "grid_best_speedup"):
             assert close(getattr(g, f), getattr(w, f)), f
         for p in w.policy_times:
@@ -231,8 +221,9 @@ def test_policy_sweep_fidelity_and_policy_reports_match(traces):
 
 def test_sim_contracts(traces):
     _, port = traces["zfnet"]
-    with pytest.raises(NotImplementedError, match="obs"):
-        PacketSim(port, NET96[1], record=True)
+    rec = PacketSim(port, NET96[1], record=True).run("static")
+    assert rec.trace is not None and len(rec.trace) > 0
+    assert rec.layer_terms.shape == (port.n_layers, 5)
     with pytest.raises(ValueError):
         PacketSim(port, NET96[1], link_model="mesh")
     with pytest.raises(ValueError):
