@@ -227,6 +227,23 @@ Phases, each of which fails the run (exit code 1, no result line):
    both routes, and the device operations, busy time, idle share, host
    ms and host syncs of one `PlacementProblem.evaluate`, beside the
    card's name and power limit.
+14. the linter and the bench observatory on the card (`repro_torch
+   .launch.observatory.run`, no kernel of its own: the profiled paper
+   sweep and event run on the trace's device, the observatory and the
+   linter stdlib on the host): the walkthrough run once on the card and
+   once on the CPU, each into a temporary directory: `sweep_all` of
+   zfnet, resnet50 and vgg and a recorded greedy `PacketSim` run of zfnet
+   at 96 Gb/s under the phase profiler, held to the CPU route (the same
+   phase names and call counts, coverage at least 0.90 on each route,
+   `sweep_all`'s results and the run's events within rtol 1e-9 under the
+   tie rule, each merged Chrome export read back with its "framework"
+   process); the repository's committed bench ledger, read only, through
+   the MAD drift detector and into the HTML report on both routes, the
+   two documents byte-equal; then `python -m repro_torch.lint src` in a
+   subprocess, which must exit 0 with 0 findings; printed: the ledger's
+   entry and finding counts, the linter's files scanned and seconds, the
+   wall times of both routes' halves beside the card's name and power
+   limit, and the phase's own seconds.
 
 The line before the last is a JSON object of the kernels' numbers; the
 last is {"ok": true, "device": {...}}.
@@ -3764,6 +3781,76 @@ def phase_obs_plane(torch, dev, card, expect_syncs):
     return out
 
 
+def phase_observatory(torch, dev, card):
+    """14: the linter and the bench observatory on the card, the
+    walkthrough held to its own CPU route (`launch/observatory.py`)."""
+    import tempfile
+
+    from repro_torch.launch.observatory import RTOL, compare, phase_calls, run
+
+    print("phase 14: the linter and the bench observatory on the card",
+          flush=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        on_card = run(dev, out_dir=str(pathlib.Path(d) / "card"))
+        on_cpu = run("cpu", out_dir=str(pathlib.Path(d) / "cpu"))
+        failures = compare(on_card, on_cpu)
+        html = [pathlib.Path(o["html"]).read_bytes()
+                for o in (on_card, on_cpu)]
+    t0 = time.perf_counter()
+    lint = subprocess.run([sys.executable, "-m", "repro_torch.lint", "src"],
+                          cwd=ROOT, capture_output=True, text=True,
+                          env={"PYTHONPATH": str(ROOT / "src"),
+                               "PATH": "/usr/bin:/bin"})
+    lint_s = time.perf_counter() - t0
+    summary = lint.stderr.strip().splitlines()[-1] if lint.stderr else ""
+    scanned = re.search(r"in (\d+) file", summary)
+    phase_s = time.perf_counter() - t_phase
+    out = {
+        "seconds": {f"{half}_{route}": o["seconds"][half]
+                    for route, o in (("card", on_card), ("cpu", on_cpu))
+                    for half in ("profile", "observatory")},
+        "phase_calls": phase_calls(on_card["profiler"]),
+        "coverage": {"card": on_card["profiler"].coverage(),
+                     "cpu": on_cpu["profiler"].coverage()},
+        "events": len(on_card["result"].trace.events),
+        "ledger_entries": on_card["entries"],
+        "ledger_findings": len(on_card["findings"]),
+        "html_bytes": len(html[0]),
+        "lint": {"rc": lint.returncode, "summary": summary,
+                 "files_scanned": int(scanned.group(1)) if scanned else None,
+                 "seconds": lint_s},
+        "failures": failures, "phase_s": phase_s}
+    for name, sec in out["seconds"].items():
+        print(f"  {name}: {sec:.4f} s wall ({card})")
+    print(f"  profiled sweep_all of "
+          f"{len({r.workload for r in on_card['sweeps']})} traces "
+          f"and a recorded greedy run of zfnet: "
+          f"{sum(out['phase_calls'].values())} phase calls on "
+          f"{len(out['phase_calls'])} paths, coverage "
+          f"{out['coverage']['card']:.4f} on the card, "
+          f"{out['coverage']['cpu']:.4f} on the CPU route; "
+          f"{out['events']} events")
+    print(f"  bench ledger: {out['ledger_entries']} entries, "
+          f"{out['ledger_findings']} findings; HTML {out['html_bytes']} "
+          f"bytes, byte-equal on both routes: {html[0] == html[1]}")
+    print(f"  python -m repro_torch.lint src: rc {lint.returncode}, "
+          f"{out['lint']['files_scanned']} files scanned in {lint_s:.2f} s "
+          f"({summary})")
+    for line in lint.stdout.splitlines()[:20] + failures:
+        print(f"  FAILED: {line}")
+    print(f"  phase 14 took {phase_s:.1f} s")
+    check(not failures,
+          f"the observatory's profile half on the card agrees with its CPU "
+          f"route (rtol {RTOL}, tie rule; {len(failures)} failures)")
+    check(html[0] == html[1] and out["ledger_entries"] > 0,
+          "the committed ledger's HTML report is byte-equal on both routes")
+    check(lint.returncode == 0 and summary.startswith(
+        "repro_torch.lint: 0 finding(s)") and out["lint"]["files_scanned"],
+          f"the port's linter passes src/ ({summary})")
+    return out
+
+
 def main():
     import torch
 
@@ -3825,6 +3912,7 @@ def main():
     metrics["obs-plane"] = phase_obs_plane(
         torch, dev, card,
         metrics["paper-plane"]["profile"]["host_syncs_sweep_all_one_trace"])
+    metrics["observatory"] = phase_observatory(torch, dev, card)
 
     # every path counts the forward kernels; only SSM training launches
     # the SSD backward; the serving and SSM training paths count the

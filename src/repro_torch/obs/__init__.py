@@ -32,11 +32,12 @@ engines copy what a recorder needs from the trace's device once a call.
   same zero-cost-when-disabled structural guarantee as `SimTrace`;
   `prof.to_trace()` exports the phases as a "framework" Perfetto
   process next to the simulated-time planes.
+- `report`     — the cross-run bench observatory (stdlib-only): MAD
+  changepoint/drift detection over the `bench_history.jsonl` ledger
+  and a self-contained inline-SVG HTML trend report (``python -m
+  repro_torch.launch.history --detect / --html``).
 - `provenance` — `dse.provenance` records (config hash, seed, wall
   time, points evaluated) stamped into every sweep result.
-
-The JAX package's `report` (the bench observatory over its bench
-history) is not part of this package.
 """
 
 from .critpath import (CriticalPath, CritSegment, busy_shares,
@@ -49,6 +50,8 @@ from .metrics import (DEFAULT_REGISTRY, MetricsRegistry, attribution_report,
 from .profile import (PhaseProfiler, PhaseRecord, active_profiler,
                       note_ndarray, phase, profile_report, profiling)
 from .provenance import config_hash, make_provenance
+from .report import (build_html, detect_all, detect_series,
+                     format_findings, history_series, write_html)
 from .trace import SimTrace, TraceEvent, active_recorder, recording
 from .whatif import Projection, WhatIf, project, project_grid, validate
 
@@ -63,5 +66,7 @@ __all__ = [
     "Projection", "WhatIf", "project", "project_grid", "validate",
     "PhaseProfiler", "PhaseRecord", "active_profiler", "note_ndarray",
     "phase", "profile_report", "profiling",
+    "build_html", "detect_all", "detect_series", "format_findings",
+    "history_series", "write_html",
     "config_hash", "make_provenance",
 ]

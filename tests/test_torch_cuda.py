@@ -1710,3 +1710,19 @@ def test_obs_plane_recorded_run_and_codesign_on_card_match_cpu(card):
     bad, cells, _ = codesign_checks(card, (("zfnet", "big_little"),))
     assert bad == []
     assert cells["zfnet/big_little"]["evaluations"] > 0
+
+
+def test_observatory_profile_half_on_card_matches_cpu(card, tmp_path):
+    """`launch/observatory.run` on zfnet on the card against the CPU
+    route (`chip_smoke.py` phase 14): the same profile phases and call
+    counts, coverage at least 0.90 on each, `sweep_all` and the recorded
+    greedy run within rtol 1e-9 (tie rule), each Chrome export with its
+    "framework" process, and the same ledger findings and HTML."""
+    from repro_torch.launch.observatory import compare, run
+
+    on_card = run(card, ("zfnet",), str(tmp_path / "card"))
+    on_cpu = run("cpu", ("zfnet",), str(tmp_path / "cpu"))
+    assert on_card["sweeps"][0].grid.is_cuda
+    assert compare(on_card, on_cpu) == []
+    assert (tmp_path / "card" / "observatory.html").read_bytes() == \
+        (tmp_path / "cpu" / "observatory.html").read_bytes()

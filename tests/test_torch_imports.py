@@ -56,6 +56,30 @@ OBS_ARCH_MODULES = ("repro_torch.obs", "repro_torch.obs.trace",
                     "repro_torch.launch.trace_inspect",
                     "repro_torch.launch.whatif",
                     "repro_torch.launch.obs_plane")
+#: the last slice: the linter, the bench observatory and its front ends,
+#: the paper's platform config, each imported alone too
+TOOLING_MODULES = ("repro_torch.lint", "repro_torch.lint.base",
+                   "repro_torch.lint.registry", "repro_torch.lint.cli",
+                   "repro_torch.lint.__main__",
+                   "repro_torch.lint.rules_units",
+                   "repro_torch.lint.rules_determinism",
+                   "repro_torch.lint.rules_trace",
+                   "repro_torch.lint.rules_config", "repro_torch.obs.report",
+                   "repro_torch.launch.history",
+                   "repro_torch.launch.observatory",
+                   "repro_torch.configs.paper_accel")
+REF_ROOT = REPO / "src" / "repro"
+PORT_ROOT = REPO / "src" / "repro_torch"
+#: the JAX package's Pallas kernel files -> their ports (the wrapper that
+#: launches the kernel, and its CUDA source); every other module of the
+#: JAX package has a counterpart at the same relative path
+PALLAS_PORTS = {
+    "kernels/flash_attention/flash_attention.py": (
+        "kernels/flash_attention/ops.py", "kernels/csrc/flash_attention.cu"),
+    "kernels/rmsnorm/rmsnorm.py": ("kernels/rmsnorm/ops.py",
+                                   "kernels/csrc/rmsnorm.cu"),
+    "kernels/ssd/ssd.py": ("kernels/ssd/ops.py", "kernels/csrc/ssd.cu"),
+}
 
 
 def _imported_modules(path):
@@ -94,7 +118,8 @@ def test_port_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize("module", STUDY_MODULES + PAPER_PLANE_MODULES
-                         + EVENT_PLANE_MODULES + OBS_ARCH_MODULES)
+                         + EVENT_PLANE_MODULES + OBS_ARCH_MODULES
+                         + TOOLING_MODULES)
 def test_study_module_imports_alone_with_jax_and_repro_blocked(module):
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'repro'):\n"
@@ -107,6 +132,20 @@ def test_study_module_imports_alone_with_jax_and_repro_blocked(module):
                                "PATH": "/usr/bin:/bin"})
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The port does everything the JAX package does: each of its modules
+    has a counterpart at the same relative path, and each Pallas kernel
+    file its wrapper and CUDA source."""
+    ref = sorted(p.relative_to(REF_ROOT).as_posix()
+                 for p in REF_ROOT.rglob("*.py"))
+    assert set(PALLAS_PORTS) <= set(ref)
+    missing = [rel for rel in ref
+               if not all((PORT_ROOT / c).is_file()
+                          for c in PALLAS_PORTS.get(rel, (rel,)))]
+    assert missing == []
+    assert not any((PORT_ROOT / rel).exists() for rel in PALLAS_PORTS)
 
 
 def test_core_re_exports_the_event_plane_lazily():
